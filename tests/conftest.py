@@ -42,6 +42,7 @@ jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "tpu_only: needs a real TPU backend")
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA GPU (CUDA kernels of the port)")
 
 
 def pytest_runtest_setup(item):
