@@ -4,8 +4,9 @@
 Phases, each printing one JSON object per line (with its seconds):
   1. build   — compiles the port's CUDA kernels (``puzzlefusion_plusplus_tpu_torch/csrc``)
                for sm_90a; prints the card's name and power limit from nvidia-smi.
-  2. kernels — every kernel of the inference path (S, F, G, N, M) at the shapes the main
-               path gives it, on seeded inputs, against its plain PyTorch version on the card:
+  2. kernels — every kernel (S, F, G, N, M of inference; F, G, N, A, B of training) at the
+               shapes each path gives it (training's at M = 160 clouds), on seeded inputs,
+               against its plain PyTorch version on the card:
                error, exact-index agreement, and CUDA-event times of the kernel, the plain
                version and (where one exists) a single PyTorch library call.
   3. engine  — the full-width engine (``Config()`` defaults: VQ-VAE 1000 pts / 25x64 tokens /
@@ -19,11 +20,20 @@ Phases, each printing one JSON object per line (with its seconds):
                weights keep the 20-step recurrence contractive, as tests/test_bucketing.py).
   5. profile — torch.profiler over one more full-width engine call: self device time grouped
                into the port's kernels, matrix products and the rest, and the busy share.
-The kernel launch counts are reset right before phase 3's second (counted) engine call and
-read right after phase 4's GPU run: that run is the main path. Then a ``kernels`` line lists
-every kernel with those counts, its error
-and its times, and the last line is ``{"ok": true, "device": {...}}``. Any failure raises and
-the script exits non-zero without that line. Needs one CUDA card; ``--phases`` picks phases.
+  6. train   — VQ-VAE training through its entry point ``training.vqvae.train`` at
+               ``Config()``'s full ``ae`` width on 16 synthetic shapes of 3-12 parts (seed 11),
+               batch 8 x 20 part slots = 160 clouds per step: one warm-up step and 5 timed
+               steps; steps/s, valid parts/s, every step's losses, peak device memory.
+  7. train_parity — one train_step on the card and one on the CPU from the same weights and
+               a 2-shape batch: loss, every gradient, BatchNorm statistics and the
+               parameters after AdamW must agree (``training/parity.py``).
+  8. profile_train — torch.profiler over one full-width training step, grouped as in 5.
+Each path's launch counts are read from its own run: reset right before phase 3's second
+(counted) engine call and read right after phase 4's GPU run (the inference path), and reset
+right before phase 6 and read right after it (the training path). Then a ``kernels`` line
+lists every kernel with its path's count, its error and its times, and the last line is
+``{"ok": true, "device": {...}}``. Any failure raises and the script exits non-zero without
+that line. Needs one CUDA card; ``--phases`` picks phases.
 """
 
 from __future__ import annotations
@@ -49,7 +59,12 @@ REPLACES = {
           "puzzlefusion_plusplus_tpu/ops/chamfer_pallas.py:68"),
     "M": ("puzzlefusion_plusplus_tpu_torch/csrc/nn.cu",
           "puzzlefusion_plusplus_tpu/ops/chamfer_pallas.py:163"),
+    "A": ("puzzlefusion_plusplus_tpu_torch/csrc/gather.cu",
+          "puzzlefusion_plusplus_tpu/ops/gather_pallas.py:139"),
+    "B": ("puzzlefusion_plusplus_tpu_torch/csrc/scatter_add.cu",
+          "puzzlefusion_plusplus_tpu/ops/gather_pallas.py:182"),
 }
+INFERENCE_KERNELS, TRAIN_KERNELS = "SFGNM", "FGNAB"
 
 
 def emit(obj) -> None:
@@ -123,9 +138,11 @@ def phase_kernels(results: dict) -> None:
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
 
-    def record(name, shape, err, ms, plain_ms, nbytes, flops, library_ms=None, **extra):
+    def record(name, shape, err, ms, plain_ms, nbytes, flops, library_ms=None,
+               path="inference", **extra):
         b_ms, b_by = bound(nbytes, flops)
-        row = {"phase": "kernels", "kernel": name, "shape": shape, "max_abs_err": err,
+        row = {"phase": "kernels", "kernel": name, "path": path, "shape": shape,
+               "max_abs_err": err,
                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": library_ms, **extra}
         emit(row)
@@ -166,8 +183,13 @@ def phase_kernels(results: dict) -> None:
                    w2, b2, w3, b3), 3),
                nbytes, flops, max_rel_err=rel, seconds=time.perf_counter() - t0)
 
-    # F: the cache build's first stage and the merge resample (partial mask)
-    for B, N, npoint, masked in ((96, 1000, 256, False), (10, 20000, 1000, True)):
+    # F: the cache build's first stage and the merge resample (partial mask), then the three
+    # SA stages of a training step at M = 160 clouds
+    for B, N, npoint, masked, path in ((96, 1000, 256, False, "inference"),
+                                       (10, 20000, 1000, True, "inference"),
+                                       (160, 1000, 256, False, "train"),
+                                       (160, 256, 128, False, "train"),
+                                       (160, 128, 25, False, "train")):
         t0 = time.perf_counter()
         xyz = randn(B, N, 3)
         mask = (torch.rand((B, N), generator=gen, device=dev) < 0.6) if masked else None
@@ -181,28 +203,34 @@ def phase_kernels(results: dict) -> None:
         record("F", f"[{B},{N}]->{npoint}" + (" masked" if masked else ""), 0.0,
                cuda_ms(lambda: fps.farthest_point_sample(xyz, npoint, mask), 3),
                cuda_ms(lambda: fps.farthest_point_sample_plain(xyz, npoint, mask), 1),
-               nbytes, 9.0 * B * N * npoint, indices_equal=match,
+               nbytes, 9.0 * B * N * npoint, path=path, indices_equal=match,
                seconds=time.perf_counter() - t0)
 
-    # G: the largest grouping gather of the cache build (SA1 neighbourhoods)
-    t0 = time.perf_counter()
-    pts = randn(96, 1000, 3)
-    idx = torch.randint(0, 1000, (96, 256, 32), generator=gen, device=dev, dtype=torch.int32)
-    out = gather.gather_points(pts, idx)
-    ref = gather.gather_points_plain(pts, idx)
-    match = bool(torch.equal(out, ref))
-    _check(match, "G: gathered values differ")
-    bidx = torch.arange(96, device=dev)[:, None, None]
-    idx64 = idx.long()
-    record("G", "[96,1000,3] by [96,256,32]", 0.0,
-           cuda_ms(lambda: gather.gather_points(pts, idx), 50),
-           cuda_ms(lambda: gather.gather_points_plain(pts, idx), 20),
-           4 * (idx.numel() + 2 * idx.numel() * 3), 0.0,
-           library_ms=cuda_ms(lambda: pts[bidx, idx64], 50), values_equal=match,
-           seconds=time.perf_counter() - t0)
+    def gather_row(name, fn, B, N, C, idx_shape, path, reps):
+        """G or A against the plain version; bytes: the source read once, idx read, the
+        output written; the library call is one torch.gather on int64 indices."""
+        t0 = time.perf_counter()
+        pts = randn(B, N, C)
+        idx = torch.randint(0, N, (B,) + idx_shape, generator=gen, device=dev,
+                            dtype=torch.int32)
+        match = bool(torch.equal(fn(pts, idx), gather.gather_points_plain(pts, idx)))
+        _check(match, f"{name} [{B},{N},{C}] by {idx_shape}: gathered values differ")
+        idx64 = idx.reshape(B, -1).long()[..., None].expand(-1, -1, C)
+        record(name, f"[{B},{N},{C}] by [{B},{','.join(map(str, idx_shape))}]", 0.0,
+               cuda_ms(lambda: fn(pts, idx), reps),
+               cuda_ms(lambda: gather.gather_points_plain(pts, idx), reps),
+               4 * (pts.numel() + idx.numel() + idx.numel() * C), 0.0,
+               library_ms=cuda_ms(lambda: torch.gather(pts, 1, idx64), reps), path=path,
+               values_equal=match, seconds=time.perf_counter() - t0)
 
-    # N: part_acc clouds and the shape_cd clouds
-    for B, N in ((96, 1000), (8, 20000)):
+    # G: the largest grouping gather of the cache build (SA1 neighbourhoods), then the
+    # neighbourhood xyz gathers of a training step's SA1, SA2 and SA3 at M = 160
+    gather_row("G", gather.gather_points, 96, 1000, 3, (256, 32), "inference", 50)
+    for N, S, K in ((1000, 256, 32), (256, 128, 64), (128, 25, 64)):
+        gather_row("G", gather.gather_points, 160, N, 3, (S, K), "train", 50)
+
+    # N: part_acc clouds and the shape_cd clouds, then a training step's chamfer loss
+    for B, N, path in ((96, 1000, "inference"), (8, 20000, "inference"), (160, 1000, "train")):
         t0 = time.perf_counter()
         x, y = randn(B, N, 3), randn(B, N, 3)
         d, i = chamfer.nn_distance(x, y)
@@ -216,8 +244,39 @@ def phase_kernels(results: dict) -> None:
                cuda_ms(lambda: chamfer.nn_distance(x, y), 5),
                cuda_ms(lambda: chamfer.nn_distance_plain(x, y), 1),
                4 * (2 * B * N * 3 + 2 * B * N), 8.0 * B * N * N,
-               library_ms=cuda_ms(lambda: torch.cdist(x, y).min(-1), 3),
+               library_ms=cuda_ms(lambda: torch.cdist(x, y).min(-1), 3), path=path,
                max_rel_err=rel, indices_equal=match, seconds=time.perf_counter() - t0)
+
+    # A: the feature gathers of one training step's SA2 and SA3 at M = 160 clouds
+    for N, C, S, K in ((256, 128, 128, 64), (128, 256, 25, 64)):
+        gather_row("A", gather.gather_points_approx, 160, N, C, (S, K), "train", 20)
+
+    # B: the backward of those gathers and the chamfer loss's target side, at M = 160.
+    # Tolerance 1e-5 of the largest sum: the plain version's index_add_ on the card adds
+    # with atomics in no fixed order; the kernel adds in row order and is deterministic.
+    for N, C, R in ((1000, 3, 1000), (256, 128, 128 * 64), (128, 256, 25 * 64)):
+        t0 = time.perf_counter()
+        g = randn(160, R, C)
+        idx = torch.randint(0, N, (160, R), generator=gen, device=dev, dtype=torch.int32)
+        out = gather.scatter_add(g, idx, N)
+        again = gather.scatter_add(g, idx, N)
+        ref = gather.scatter_add_plain(g, idx, N)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        deterministic = bool(torch.equal(out, again))
+        _check(err <= 1e-5 * scale and deterministic,
+               f"B [160,{R},{C}]->{N}: err {err} (scale {scale}), deterministic "
+               f"{deterministic}")
+        rows = (idx.long() + N * torch.arange(160, device=dev)[:, None]).reshape(-1)
+        g2, acc = g.reshape(-1, C), torch.zeros((160 * N, C), device=dev)
+        record("B", f"[160,{R},{C}]->[160,{N},{C}]", err,
+               cuda_ms(lambda: gather.scatter_add(g, idx, N), 10),
+               cuda_ms(lambda: gather.scatter_add_plain(g, idx, N), 10),
+               4 * (g.numel() + idx.numel() + 160 * N * C), float(g.numel()),
+               library_ms=cuda_ms(lambda: acc.zero_().index_add_(0, rows, g2), 10),
+               path="train", max_rel_err=err / scale, deterministic=deterministic,
+               seconds=time.perf_counter() - t0)
 
     # M: one merge step's pairs at P = 20, N = 1000, 3 active pairs
     t0 = time.perf_counter()
@@ -340,26 +399,107 @@ def phase_merge(data_root: str) -> dict:
     return row
 
 
-KERNEL_NAMES = {"sa_cached_kernel": "S", "fps_kernel": "F", "gather_kernel": "G",
-                "nn_kernel": "N", "masked_pair_kernel": "M"}
+TRAIN_SHAPES = 16  # synthetic train split of the training phases (seed 11, 3-12 parts)
 
 
-def phase_profile(data_root: str) -> dict:
-    """Where one engine call's device time goes: torch.profiler over one full-width call,
-    self device time grouped into the port's kernels, matrix products and the rest."""
+def _train_config(data_root: str, out_dir: str):
+    """Config() at full width; batch 8 shapes x max_num_part 20 = 160 clouds per step."""
+    from puzzlefusion_plusplus_tpu_torch.utils.config import Config
+
+    cfg = Config()
+    cfg.data.data_dir = cfg.data.data_val_dir = os.path.join(data_root, "pc_data", "train")
+    cfg.data.batch_size = 8
+    cfg.data.part_bucket_multiple = 0
+    cfg.trainer.output_dir = out_dir
+    cfg.trainer.log_every = 1
+    return cfg
+
+
+def phase_train(data_root: str) -> dict:
+    """Six steps of the trainer's entry point on the card (the first warms up); per-step
+    times from its metrics stream, whose records end in a host sync."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from puzzlefusion_plusplus_tpu_torch import ops
+    from puzzlefusion_plusplus_tpu_torch.training.vqvae import METRIC_KEYS, train
+
+    t0 = time.perf_counter()
+    out_dir = os.path.join(REPO, ".smoke", "train_out")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cfg = _train_config(data_root, out_dir)
+    steps = 6
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()  # the training path's run starts here
+    state = train(cfg, max_steps=steps, device="cuda")
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(out_dir, cfg.trainer.experiment_name, "vqvae",
+                           "metrics.jsonl")) as fh:
+        recs = [json.loads(line) for line in fh]
+    _check(state.step == steps and len(recs) == steps, f"{state.step} steps, {len(recs)} logs")
+    _check(all(np.isfinite(r[k]) for r in recs for k in METRIC_KEYS), f"non-finite: {recs}")
+    _check(all(counts[k] > 0 for k in TRAIN_KERNELS), f"a kernel never launched: {counts}")
+    timed_s = recs[-1]["wall_s"] - recs[0]["wall_s"]
+    row = {"phase": "train", "seconds": time.perf_counter() - t0, "batch_shapes": 8,
+           "clouds_per_step": 8 * cfg.data.max_num_part, "timed_steps": steps - 1,
+           "steps_per_s": (steps - 1) / timed_s,
+           "valid_parts_per_s": sum(r["valid_parts"] for r in recs[1:]) / timed_s,
+           "step_wall_s": [b["wall_s"] - a["wall_s"] for a, b in zip(recs, recs[1:])],
+           "per_step": [{k: r[k] for k in ("step", "cd_loss", "embedding_loss",
+                                             "perplexity")} for r in recs],
+           "max_memory_allocated_bytes": peak, "launches": counts}
+    emit(row)
+    return row
+
+
+def phase_train_parity(data_root: str) -> dict:
+    """One train_step on the card and one on the CPU from the same weights and batch (2
+    shapes, M = 40 clouds), compared by ``training/parity.py``; raises on a mismatch."""
+    import torch
+
+    from puzzlefusion_plusplus_tpu_torch.data import Loader, VQVAEDataset
+    from puzzlefusion_plusplus_tpu_torch.training import parity
+    from puzzlefusion_plusplus_tpu_torch.training.vqvae import make_model
+
+    t0 = time.perf_counter()
+    cfg = _train_config(data_root, os.path.join(REPO, ".smoke", "train_out"))
+    batch = next(iter(Loader(VQVAEDataset(cfg.data.data_dir), 2, shuffle=False)))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.trainer.seed)
+        model = make_model(cfg)
+    parity.spread_codebook(model)
+    sd = model.state_dict()
+    gpu = parity.step_on(lambda: make_model(cfg), sd, batch, "cuda")
+    t_gpu = time.perf_counter() - t0
+    cpu = parity.step_on(lambda: make_model(cfg), sd, batch, "cpu")
+    errs = parity.compare(cpu, gpu)
+    row = {"phase": "train_parity", "seconds": time.perf_counter() - t0, "gpu_seconds": t_gpu,
+           "clouds": int(batch["part_valids"].size), "loss_gpu": gpu["metrics"]["total_loss"],
+           "loss_cpu": cpu["metrics"]["total_loss"], "errors": errs}
+    emit(row)
+    return row
+
+
+# A launches G's kernel, so a profile shows their time as one group
+KERNEL_NAMES = {"sa_cached_kernel": "S", "fps_kernel": "F", "gather_kernel": "G+A",
+                "nn_kernel": "N", "masked_pair_kernel": "M", "scatter_add_kernel": "B"}
+
+
+def _profile(fn, warmups: int = 1) -> dict:
+    """torch.profiler over one call of ``fn`` after ``warmups`` calls: self device time
+    grouped into the port's kernels, matrix products and the rest, and the busy share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from puzzlefusion_plusplus_tpu_torch.inference.run import build_engine_fn, run_inference
-
-    t0 = time.perf_counter()
-    cfg = _full_config(data_root)
-    engine = build_engine_fn(cfg, "cuda")
-    run_inference(cfg, engine=engine)  # warm-up
+    for _ in range(warmups):
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
-        run_inference(cfg, engine=engine)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t1) * 1e3
     groups: dict[str, float] = {}
@@ -378,18 +518,50 @@ def phase_profile(data_root: str) -> dict:
         groups[group] = groups.get(group, 0.0) + us / 1e3
     device_ms = sum(groups.values())
     top.sort(reverse=True)
-    row = {"phase": "profile", "seconds": time.perf_counter() - t0,
-           "wall_ms_under_profiler": wall_ms, "device_ms": device_ms,
-           "device_busy_share": device_ms / wall_ms if device_ms else None,
-           "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
-           "top": [{"name": k[:90], "ms": us / 1e3, "count": c} for us, k, c in top[:12]]}
+    return {"wall_ms_under_profiler": wall_ms, "device_ms": device_ms,
+            "device_busy_share": device_ms / wall_ms if device_ms else None,
+            "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+            "top": [{"name": k[:90], "ms": us / 1e3, "count": c} for us, k, c in top[:12]]}
+
+
+def phase_profile(data_root: str) -> dict:
+    """Where one engine call's device time goes (one full-width call)."""
+    from puzzlefusion_plusplus_tpu_torch.inference.run import build_engine_fn, run_inference
+
+    t0 = time.perf_counter()
+    cfg = _full_config(data_root)
+    engine = build_engine_fn(cfg, "cuda")
+    row = {"phase": "profile", **_profile(lambda: run_inference(cfg, engine=engine))}
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+    return row
+
+
+def phase_profile_train(data_root: str) -> dict:
+    """Where one full-width training step's device time goes (M = 160 clouds)."""
+    import torch
+
+    from puzzlefusion_plusplus_tpu_torch.data import Loader, VQVAEDataset
+    from puzzlefusion_plusplus_tpu_torch.training.state import adamw_multistep
+    from puzzlefusion_plusplus_tpu_torch.training.vqvae import make_model, to_device, train_step
+
+    t0 = time.perf_counter()
+    cfg = _train_config(data_root, os.path.join(REPO, ".smoke", "train_out"))
+    batch = to_device(next(iter(Loader(VQVAEDataset(cfg.data.data_dir), 8, seed=1))), "cuda")
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.trainer.seed)
+        model = make_model(cfg).cuda()
+    state = adamw_multistep(model, cfg.ae.lr, (), cfg.ae.lr_gamma, cfg.ae.weight_decay)
+    row = {"phase": "profile_train", **_profile(lambda: train_step(state, batch))}
+    row["seconds"] = time.perf_counter() - t0
     emit(row)
     return row
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,engine,merge,profile")
+    ap.add_argument("--phases", default="build,kernels,engine,merge,profile,train,"
+                                        "train_parity,profile_train")
     phases = ap.parse_args().phases.split(",")
 
     import torch
@@ -409,7 +581,7 @@ def main() -> int:
         phase_build()
     if "kernels" in phases:
         phase_kernels(results)
-    launches = None
+    launches = {}  # per path: the counts of its own run
     if "engine" in phases or "merge" in phases:
         t0 = time.perf_counter()
         data_root = os.path.join(REPO, ".smoke", "chip_smoke_data")
@@ -421,26 +593,52 @@ def main() -> int:
             phase_engine(data_root)
         if "merge" in phases:
             phase_merge(data_root)  # its GPU run closes the main path's run
-        launches = ops.launch_counts()
-        _check(all(v > 0 for v in launches.values()), f"kernel never launched: {launches}")
+        launches["inference"] = ops.launch_counts()
+        _check(all(launches["inference"][k] > 0 for k in INFERENCE_KERNELS),
+               f"kernel never launched: {launches['inference']}")
         if "profile" in phases:
             phase_profile(data_root)
+    if {"train", "train_parity", "profile_train"} & set(phases):
+        t0 = time.perf_counter()
+        data_root = os.path.join(REPO, ".smoke", "chip_smoke_train_data")
+        generate_dataset(data_root, num_shapes=TRAIN_SHAPES, seed=11, split="train",
+                         min_parts=3, max_parts=12)
+        emit({"phase": "train_data", "seconds": time.perf_counter() - t0})
+        if "train" in phases:
+            launches["train"] = phase_train(data_root)["launches"]
+        if "train_parity" in phases:
+            phase_train_parity(data_root)
+        if "profile_train" in phases:
+            phase_profile_train(data_root)
 
     if results:
         rows = []
         for name, recs in results.items():
-            main_rec = recs[-1]  # S: sum of the three stages; others: the largest shape
-            agg = (lambda key: sum(r[key] for r in recs)) if name == "S" else (
+            # S, A, B: the sum over one step's shapes; F, G, N, M: the largest inference
+            # shape, with every shape (training's too) under "per_shape"
+            main_rec = [r for r in recs if r["path"] == recs[0]["path"]][-1]
+            agg = (lambda key: sum(r[key] for r in recs)) if name in "SAB" else (
                 lambda key: main_rec[key])
             source, replaces = REPLACES[name]
+            per_path = {path: counts[name] for path, counts in launches.items()
+                        if name in (INFERENCE_KERNELS if path == "inference" else
+                                    TRAIN_KERNELS)}
             rows.append({
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": None if launches is None else launches[name],
+                # each kernel's count on its own path (training for A and B)
+                "launches": per_path.get("train" if name in "AB" else "inference"),
+                "launches_per_path": per_path,
                 "max_abs_err": max(r["max_abs_err"] for r in recs),
                 "ms": agg("ms"), "plain_ms": agg("plain_ms"), "bound_ms": agg("bound_ms"),
-                "bound_by": main_rec["bound_by"], "library_ms": main_rec["library_ms"],
-                "shape": "SA1+SA2+SA3 of one denoise step" if name == "S" else
-                main_rec["shape"],
+                "bound_by": main_rec["bound_by"],
+                "library_ms": agg("library_ms") if main_rec["library_ms"] is not None else None,
+                "shape": {"S": "SA1+SA2+SA3 of one denoise step",
+                          "A": "SA2+SA3 feature gathers of one training step",
+                          "B": "chamfer + SA2 + SA3 backward of one training step"}.get(
+                              name, main_rec["shape"]),
+                "per_shape": [{k: r[k] for k in ("path", "shape", "max_abs_err", "ms",
+                                                 "plain_ms", "bound_ms", "library_ms")}
+                              for r in recs],
             })
         print(json.dumps({"kernels": rows}), flush=True)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -1,11 +1,15 @@
-// Kernel G: exact batched point gather, out[b, r, :] = points[b, idx[b, r], :].
+// Kernel G: exact batched point gather, out[b, r, :] = points[b, idx[b, r], :]; kernel A
+// launches it too.
 //
 // Replaces puzzlefusion_plusplus_tpu/ops/gather_pallas.py::gather_points_pallas
-// (_gather_kernel). The TPU kernel splits each f32 into four byte planes and selects them
-// with one-hot matmuls because its matrix unit rounds f32 operands to bf16; on Hopper a
-// gather is a load. Bound: bytes moved (each output element one load and one store). One
-// thread per output element, grid-stride, 64-bit offsets; neighbouring threads write
-// neighbouring channels, so stores are coalesced and loads are coalesced within a row.
+// (_gather_kernel) and gather_pallas.py::gather_points_approx (_gather_approx_kernel), whose
+// bf16 rounding comes only from the TPU's matrix unit: here both are the same exact load,
+// told apart by their wrappers' launch counters. The TPU kernel splits each f32 into four
+// byte planes and selects them with one-hot matmuls because its matrix unit rounds f32
+// operands to bf16; on Hopper a gather is a load. Bound: bytes moved (the source read once,
+// each output element stored once). One thread per output element, grid-stride, 64-bit
+// offsets; neighbouring threads write neighbouring channels, so stores are coalesced and
+// loads are coalesced within a row.
 #include "common.cuh"
 
 __global__ void gather_kernel(const float* __restrict__ points, const int* __restrict__ idx,

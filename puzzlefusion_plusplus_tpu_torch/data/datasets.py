@@ -1,10 +1,11 @@
-"""Test-mode dataset reader over the pc_data / matching_data .npz schemas.
+"""Dataset readers over the pc_data / matching_data .npz schemas.
 
-A copy of ``DenoiserDataset`` from ``puzzlefusion_plusplus_tpu/data/datasets.py`` for the
-``val`` and ``test`` modes (training's multi-reference curriculum waits for the training
-slice), with the per-part augmentation done in numpy (the numpy fallback of
-``utils/native.py::augment_parts_cpu``). Rotations are drawn in the reference rng order, so
-the same loader seed yields the same samples as the JAX package's dataset.
+Copies of ``VQVAEDataset`` and of ``DenoiserDataset`` for its ``val`` and ``test`` modes
+(the denoiser's multi-reference training curriculum waits for its training slice) from
+``puzzlefusion_plusplus_tpu/data/datasets.py``, with the per-part augmentation done in numpy
+(the numpy fallback of ``utils/native.py::augment_parts_cpu``). Rotations are drawn in the
+reference rng order, so the same loader seed yields the same samples as the JAX package's
+datasets.
 """
 
 from __future__ import annotations
@@ -65,6 +66,43 @@ def load_pc_data_dir(data_dir: str, overfit: int = -1) -> list[dict]:
         d = np.load(os.path.join(data_dir, f), allow_pickle=True)
         out.append({k: d[k] for k in d.files})
     return out
+
+
+class VQVAEDataset:
+    """Per-part recentre and random rotation, pad to ``max_num_part``, per-part max-abs
+    normalisation (reference vqvae/dataset/pc_dataset.py:94-115)."""
+
+    def __init__(self, data_dir: str, max_num_part: int = 20, min_num_part: int = 2,
+                 overfit: int = -1, category: str = ""):
+        """``category``: one Breaking Bad category only ('' or 'all' = every one)."""
+        self.max_num_part = max_num_part
+        cat = "" if category.lower() == "all" else category
+        self.data_list = [
+            s for s in load_pc_data_dir(data_dir, overfit)
+            if min_num_part <= int(s["num_parts"]) <= max_num_part
+            and (not cat or str(s.get("category", "")) == cat)
+        ]
+
+    def __len__(self):
+        return len(self.data_list)
+
+    def num_parts_list(self) -> np.ndarray:
+        return np.asarray([int(s["num_parts"]) for s in self.data_list], np.int32)
+
+    def get(self, idx: int, rng: np.random.Generator) -> dict:
+        s = self.data_list[idx]
+        num_parts = int(s["num_parts"])
+        rot_mats, _ = _draw_rotations(num_parts, rng)
+        pts, _ = _augment_parts(s["part_pcs_gt"][:num_parts], rot_mats)
+        cur = _pad(pts, self.max_num_part)
+        scale = np.max(np.abs(cur), axis=(1, 2), keepdims=True)
+        scale[scale == 0] = 1
+        return {
+            "part_pcs": (cur / scale).astype(np.float32),
+            "part_valids": _pad(s["part_valids"][:, None], self.max_num_part)[:, 0],
+            "num_parts": num_parts,
+            "data_id": int(s["data_id"]),
+        }
 
 
 class DenoiserDataset:

@@ -1,23 +1,33 @@
-"""VQ-VAE fragment encoder, frozen-eval use only (port of
-``puzzlefusion_plusplus_tpu/models/vqvae.py``).
+"""VQ-VAE fragment autoencoder (port of ``puzzlefusion_plusplus_tpu/models/vqvae.py``).
 
 The module holds the original repo's parameters under its keys (``pn2.sa1.mlp_convs.0`` as a
-1x1 ``Conv2d``, ``pn2.sa1.mlp_bns.0`` as ``BatchNorm2d``, ``pn2.conv6`` as a 1x1 ``Conv1d``,
-the decoder's ``pn2.fc1..3`` and ``vector_quantization.embedding``), so that
-``convert/torch_ckpt.py::convert_vqvae`` reads its ``state_dict`` unchanged. The forward
-runs through ``inference/sampler.py::FrozenEncoder``, which folds eval-mode BatchNorm into
-the weights once; the decoder and training-mode BatchNorm belong to the training slice.
+1x1 ``Conv2d``, ``pn2.sa1.mlp_bns.0`` with BatchNorm2d's keys, ``pn2.conv6`` as a 1x1
+``Conv1d``, the decoder's ``pn2.fc1..3`` and ``vector_quantization.embedding``), so that
+``convert/torch_ckpt.py::convert_vqvae`` reads its ``state_dict`` unchanged. Activations are
+channel-last, [M, S, K, C], as in the JAX package; each 1x1 conv runs as a linear layer.
+
+Two uses: ``forward`` is the training model (train-mode ``MaskedBatchNorm``, the quantizer's
+losses, the decoder), and ``folded_weights`` feeds the inference encoder
+(``inference/sampler.py::FrozenEncoder``), which folds eval-mode BatchNorm into the weights.
 """
 
 from __future__ import annotations
 
+import contextlib
+import math
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from puzzlefusion_plusplus_tpu_torch.ops.fps import farthest_point_sample
-from puzzlefusion_plusplus_tpu_torch.ops.grouping import index_points, query_ball_point
+from puzzlefusion_plusplus_tpu_torch.ops.grouping import (
+    index_points,
+    index_points_matmul_safe,
+    query_ball_point,
+)
 from puzzlefusion_plusplus_tpu_torch.ops.sa_fused import fold_batchnorm
 
 SA_RADII = (0.2, 0.4, 0.8)
@@ -55,36 +65,147 @@ def pn2_grouping_geometry(
     return tuple(idx_stages), tuple(geom_stages)
 
 
-class SetAbstraction(nn.Module):
-    """Parameters of one PointNet++ SSG stage: three 1x1 convs, each with BatchNorm."""
+@contextlib.contextmanager
+def _stats_frozen(stage: nn.Module):
+    """A checkpointed stage's second forward (in backward): BatchNorm's running statistics
+    were already updated by the first, so they stay as they are."""
+    bns = [m for m in stage.modules() if isinstance(m, MaskedBatchNorm)]
+    for bn in bns:
+        bn.update_stats = False
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.update_stats = True
 
-    def __init__(self, cin: int, mlp: Sequence[int]):
+
+class MaskedBatchNorm(nn.BatchNorm2d):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the channel-last axis, with
+    optional per-sample weights for the batch statistics (``MaskedBatchNorm`` of the JAX
+    package): compaction repeats get weight 0, so the statistics are those of the valid
+    parts. The running statistics move as ``0.9 old + 0.1 batch`` with the biased batch
+    variance. Keeps BatchNorm2d's parameters and buffers under their names."""
+
+    update_stats = True  # off while a checkpointed stage recomputes its forward
+
+    def forward(self, x: torch.Tensor, weights: torch.Tensor | None = None) -> torch.Tensor:
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            red = tuple(range(x.dim() - 1))
+            if weights is None:
+                mean = x.mean(red)
+                var = (x - mean).square().mean(red)
+            else:
+                w = weights.to(x.dtype).reshape((-1,) + (1,) * (x.dim() - 1))
+                denom = (w.sum() * math.prod(x.shape[1:-1])).clamp_min(1e-6)
+                mean = (x * w).sum(red) / denom
+                var = ((x - mean).square() * w).sum(red) / denom
+            if self.update_stats:
+                m = 1.0 - self.momentum  # flax's momentum
+                with torch.no_grad():
+                    self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+                    self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+                    self.num_batches_tracked.add_(1)
+        y = (x - mean) * torch.rsqrt(var + self.eps)
+        return y * self.weight + self.bias
+
+
+class SetAbstraction(nn.Module):
+    """One PointNet++ SSG stage: FPS, ball query, recentred grouping (features through
+    kernel A), three 1x1 convs each with BatchNorm and ReLU, max over the neighbourhood."""
+
+    def __init__(self, cin: int, mlp: Sequence[int], npoint: int, radius: float, nsample: int):
         super().__init__()
+        self.npoint, self.radius, self.nsample = npoint, radius, nsample
         self.mlp_convs = nn.ModuleList()
         self.mlp_bns = nn.ModuleList()
         for c in mlp:
             self.mlp_convs.append(nn.Conv2d(cin, c, 1))
-            self.mlp_bns.append(nn.BatchNorm2d(c))
+            self.mlp_bns.append(MaskedBatchNorm(c))
             cin = c
+
+    def forward(self, xyz: torch.Tensor, points: torch.Tensor | None,
+                bn_mask: torch.Tensor | None = None):
+        """xyz [B, N, 3], points [B, N, D] or None -> (new_xyz [B, S, 3], feats [B, S, C])."""
+        fps_idx, group_idx = sa_stage_indices(xyz, self.npoint, self.radius, self.nsample)
+        new_xyz = index_points(xyz, fps_idx)
+        h = index_points(xyz, group_idx) - new_xyz[:, :, None, :]
+        if points is not None:  # conv0 sees cat(grouped_xyz, grouped_feats)
+            h = torch.cat([h, index_points_matmul_safe(points, group_idx)], dim=-1)
+        for conv, bn in zip(self.mlp_convs, self.mlp_bns):
+            h = torch.relu(bn(F.linear(h, conv.weight.flatten(1), conv.bias), bn_mask))
+        return new_xyz, h.amax(dim=2)
 
 
 class PN2(nn.Module):
-    def __init__(self, num_dim: int = 64, local_decode_pts: int = 40):
+    """PointNet++ SSG encoder to ``num_point`` tokens plus the FC offset decoder. With
+    ``remat`` each SA stage is recomputed in backward instead of keeping its grouped
+    [M, S, K, C] activations (``torch.utils.checkpoint``, the JAX package's ``nn.remat``)."""
+
+    def __init__(self, num_point: int = 25, num_dim: int = 64, local_decode_pts: int = 40,
+                 sa_npoints: Sequence[int] = (256, 128),
+                 sa_nsamples: Sequence[int] = (32, 64, 64), remat: bool = True):
         super().__init__()
-        self.sa1 = SetAbstraction(3, SA_MLPS[0])
-        self.sa2 = SetAbstraction(SA_MLPS[0][-1] + 3, SA_MLPS[1])
-        self.sa3 = SetAbstraction(SA_MLPS[1][-1] + 3, SA_MLPS[2])
+        self.num_point, self.local_decode_pts, self.remat = num_point, local_decode_pts, remat
+        npoints = (sa_npoints[0], sa_npoints[1], num_point)
+        cins = (3, SA_MLPS[0][-1] + 3, SA_MLPS[1][-1] + 3)
+        for i, name in enumerate(("sa1", "sa2", "sa3")):
+            setattr(self, name, SetAbstraction(cins[i], SA_MLPS[i], npoints[i], SA_RADII[i],
+                                               sa_nsamples[i]))
         self.conv6 = nn.Conv1d(SA_MLPS[2][-1], num_dim, 1)
         self.fc1 = nn.Linear(num_dim, 256)
         self.fc2 = nn.Linear(256, 512)
         self.fc3 = nn.Linear(512, local_decode_pts * 3)
 
+    def _stage(self, sa: SetAbstraction, xyz, points, bn_mask):
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(sa, xyz, points, bn_mask, use_reentrant=False,
+                              context_fn=lambda: (contextlib.nullcontext(), _stats_frozen(sa)))
+        return sa(xyz, points, bn_mask)
+
+    def encode(self, xyz: torch.Tensor, bn_mask: torch.Tensor | None = None):
+        """xyz [B, N, 3] -> (z_e [B, num_point, num_dim], token centres [B, num_point, 3])."""
+        l1_xyz, l1 = self._stage(self.sa1, xyz, None, bn_mask)
+        l2_xyz, l2 = self._stage(self.sa2, l1_xyz, l1, bn_mask)
+        l3_xyz, l3 = self._stage(self.sa3, l2_xyz, l2, bn_mask)
+        return F.linear(l3, self.conv6.weight.flatten(1), self.conv6.bias), l3_xyz
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        """[B, L, C] -> per-token point offsets [B, L, local_decode_pts, 3]."""
+        x = torch.relu(self.fc2(torch.relu(self.fc1(z))))
+        return self.fc3(x).reshape(z.shape[0], self.num_point, self.local_decode_pts, 3)
+
 
 class VectorQuantizer(nn.Module):
-    def __init__(self, n_e: int = 1024, e_dim: int = 16):
+    def __init__(self, n_e: int = 1024, e_dim: int = 16, beta: float = 0.25):
         super().__init__()
+        self.n_e, self.e_dim, self.beta = n_e, e_dim, beta
         self.embedding = nn.Embedding(n_e, e_dim)
         nn.init.uniform_(self.embedding.weight, -1.0 / n_e, 1.0 / n_e)
+
+    def forward(self, z: torch.Tensor, mask: torch.Tensor | None = None):
+        """z [B, T, e_dim] -> (embedding_loss, z_q (straight-through), perplexity,
+        codes [B, T]). ``mask`` [B] {0,1}: losses and perplexity over the masked samples."""
+        cb = self.embedding.weight
+        flat = z.reshape(-1, self.e_dim)
+        d = flat.square().sum(1, keepdim=True) + cb.square().sum(1) - 2.0 * flat @ cb.T
+        idx = d.argmin(1)
+        z_q = cb[idx].reshape(z.shape)
+        sq_to_code = (z_q.detach() - z).square()
+        sq_to_z = (z_q - z.detach()).square()
+        codes = idx.reshape(z.shape[:-1])
+        onehot = F.one_hot(codes, self.n_e).to(z.dtype)  # [B, T, n_e]
+        if mask is None:
+            loss = sq_to_code.mean() + self.beta * sq_to_z.mean()
+            e_mean = onehot.reshape(-1, self.n_e).mean(0)
+        else:
+            w = mask.to(z.dtype).reshape(-1, 1, 1)
+            denom = (w.sum() * z.shape[1] * z.shape[2]).clamp_min(1.0)
+            loss = (sq_to_code * w).sum() / denom + self.beta * (sq_to_z * w).sum() / denom
+            e_mean = (onehot * w).sum((0, 1)) / (w.sum() * z.shape[1]).clamp_min(1.0)
+        perplexity = torch.exp(-(e_mean * torch.log(e_mean + 1e-10)).sum())
+        return loss, z + (z_q - z).detach(), perplexity, codes
 
 
 class VQVAE(nn.Module):
@@ -97,15 +218,34 @@ class VQVAE(nn.Module):
         local_decode_pts: int = 40,
         sa_npoints: Sequence[int] = (256, 128),
         sa_nsamples: Sequence[int] = (32, 64, 64),
+        beta: float = 0.25,
+        remat: bool = True,
     ):
         super().__init__()
         self.num_point = num_point
         self.num_dim = num_dim
         self.embedding_dim = embedding_dim
+        self.local_decode_pts = local_decode_pts
         self.sa_npoints = tuple(sa_npoints)
         self.sa_nsamples = tuple(sa_nsamples)
-        self.pn2 = PN2(num_dim, local_decode_pts)
-        self.vector_quantization = VectorQuantizer(n_embeddings, embedding_dim)
+        self.pn2 = PN2(num_point, num_dim, local_decode_pts, sa_npoints, sa_nsamples, remat)
+        self.vector_quantization = VectorQuantizer(n_embeddings, embedding_dim, beta)
+
+    def forward(self, part_pcs: torch.Tensor, mask: torch.Tensor | None = None) -> dict:
+        """part_pcs [B, N, 3] -> reconstruction offsets and quantizer outputs. ``mask`` [B]
+        {0,1}: sample validity for the quantizer losses and, in training mode, the
+        BatchNorm statistics (compaction repeats carry weight 0)."""
+        z_e, xyz = self.pn2.encode(part_pcs, mask if self.training else None)
+        B, L, _ = z_e.shape
+        loss, z_q, perplexity, codes = self.vector_quantization(z_e.reshape(B, 4 * L, -1), mask)
+        z_q = z_q.reshape(B, L, -1)
+        return {"embedding_loss": loss, "pc_offset": self.pn2.decode(z_q),
+                "perplexity": perplexity, "xyz": xyz, "z_q": z_q, "code_idx": codes}
+
+    def reconstruction(self, out: dict) -> torch.Tensor:
+        """Offsets + token centres -> [B, num_point * local_decode_pts, 3]."""
+        pc = out["pc_offset"] + out["xyz"][:, :, None, :]
+        return pc.reshape(pc.shape[0], self.num_point * self.local_decode_pts, 3)
 
     def folded_weights(self) -> dict:
         """Eval-mode weights with BatchNorm folded in: per stage three (kernel [in, out],

@@ -1,6 +1,6 @@
-"""Geometry ops. Each TPU Pallas kernel of the inference path has a CUDA kernel under
-``csrc/`` with a wrapper here; a wrapper runs its plain PyTorch version on CPU tensors and
-launches its kernel (counting the launch in ``<wrapper>.launches``) on CUDA tensors.
+"""Geometry ops. Each TPU Pallas kernel on the port's paths has a CUDA kernel under ``csrc/``
+with a wrapper here; a wrapper runs its plain PyTorch version on CPU tensors and launches its
+kernel (counting the launch in ``<wrapper>.launches``) on CUDA tensors.
 
 | kernel | wrapper | CUDA source |
 | S | ``sa_fused.sa_stage_fused_cached`` | ``csrc/sa_cached.cu`` |
@@ -8,11 +8,17 @@ launches its kernel (counting the launch in ``<wrapper>.launches``) on CUDA tens
 | G | ``gather.gather_points`` | ``csrc/gather.cu`` |
 | N | ``chamfer.nn_distance`` | ``csrc/nn.cu`` |
 | M | ``chamfer.masked_pairwise_nn`` | ``csrc/nn.cu`` |
+| A | ``gather.gather_points_approx`` (G's kernel, its own count) | ``csrc/gather.cu`` |
+| B | ``gather.scatter_add`` (backward of G, A and of N's target side) | ``csrc/scatter_add.cu`` |
 """
 
 from puzzlefusion_plusplus_tpu_torch.ops.chamfer import masked_pairwise_nn, nn_distance
 from puzzlefusion_plusplus_tpu_torch.ops.fps import farthest_point_sample
-from puzzlefusion_plusplus_tpu_torch.ops.gather import gather_points
+from puzzlefusion_plusplus_tpu_torch.ops.gather import (
+    gather_points,
+    gather_points_approx,
+    scatter_add,
+)
 from puzzlefusion_plusplus_tpu_torch.ops.sa_fused import sa_stage_fused_cached
 
 KERNEL_WRAPPERS = {
@@ -21,6 +27,8 @@ KERNEL_WRAPPERS = {
     "G": gather_points,
     "N": nn_distance,
     "M": masked_pairwise_nn,
+    "A": gather_points_approx,
+    "B": scatter_add,
 }
 
 

@@ -5,7 +5,9 @@ N replaces ``puzzlefusion_plusplus_tpu/ops/chamfer_pallas.py::nn_distance_pallas
 (``_nn_kernel``) and feeds the metrics; M replaces ``chamfer_pallas.py::masked_pairwise_nn``
 (``_masked_pair_nn_kernel``) and feeds the merge step's interpenetration filter. Both compute
 squared distances from direct FP32 differences; they are bound by FP32 operations (see the
-source note). Only the forward exists in this slice.
+source note). ``nn_distance`` is differentiable through ``_NNDistanceFn``, the port of the
+custom VJP of ``puzzlefusion_plusplus_tpu/ops/chamfer.py::nn_distance``: the query side gets
+``2 (x - y[idx]) g``, the target side the scatter-add of its negative (kernel B).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from puzzlefusion_plusplus_tpu_torch.ops import cuda_build
+from puzzlefusion_plusplus_tpu_torch.ops.gather import gather_points, scatter_add
 
 INACTIVE = 3.9e12  # masked_pairwise_nn's value for pairs outside the mask
 _CHUNK_ELEMS = 1 << 25  # query chunk size of the plain version, in distance-matrix entries
@@ -39,9 +42,7 @@ def nn_distance_plain(x: torch.Tensor, y: torch.Tensor):
     return torch.cat(dists, 1), torch.cat(idxs, 1)
 
 
-def nn_distance(x: torch.Tensor, y: torch.Tensor):
-    """Squared distance to, and index of, each x-point's nearest neighbour in y; kernel N on
-    CUDA tensors. x [B, N, 3] f32, y [B, M, 3] f32 -> ([B, N] f32, [B, N] int32)."""
+def _nn_distance_forward(x: torch.Tensor, y: torch.Tensor):
     if x.device.type == "cpu":
         return nn_distance_plain(x, y)
     cuda_build.require(x, "x", torch.float32, 3)
@@ -61,6 +62,32 @@ def nn_distance(x: torch.Tensor, y: torch.Tensor):
     return dist, idx
 
 
+class _NNDistanceFn(torch.autograd.Function):
+    """Forward N; no gradient flows through the index. The target side's scatter-add is
+    skipped when y needs no gradient (the loss's input cloud)."""
+
+    @staticmethod
+    def forward(ctx, x, y):
+        dist, idx = _nn_distance_forward(x, y)
+        ctx.mark_non_differentiable(idx)
+        ctx.save_for_backward(x, y, idx)
+        return dist, idx
+
+    @staticmethod
+    def backward(ctx, gd, _gidx):
+        x, y, idx = ctx.saved_tensors
+        diff = 2.0 * (x - gather_points(y, idx)) * gd[..., None]
+        dy = scatter_add(-diff, idx, y.shape[1]) if ctx.needs_input_grad[1] else None
+        return diff if ctx.needs_input_grad[0] else None, dy
+
+
+def nn_distance(x: torch.Tensor, y: torch.Tensor):
+    """Squared distance to, and index of, each x-point's nearest neighbour in y; kernel N on
+    CUDA tensors, differentiable in x and y. x [B, N, 3] f32, y [B, M, 3] f32 ->
+    ([B, N] f32, [B, N] int32)."""
+    return _NNDistanceFn.apply(x, y)
+
+
 nn_distance.launches = 0
 
 
@@ -75,10 +102,12 @@ def masked_pairwise_nn_plain(pts: torch.Tensor, pair_mask: torch.Tensor) -> torc
 
 def masked_pairwise_nn(pts: torch.Tensor, pair_mask: torch.Tensor) -> torch.Tensor:
     """out[b, i, j, n] = min_m |pts[b, i, n] - pts[b, j, m]|^2 where pair_mask[b, i, j], else
-    3.9e12; kernel M on CUDA tensors (inactive pairs skip their compute, with no host sync).
+    3.9e12; kernel M on CUDA tensors (inactive pairs skip their compute, with no host sync;
+    no backward: it raises where autograd would need one).
     pts [B, P, N, 3] f32, pair_mask [B, P, P] bool -> [B, P, P, N] f32."""
     if pts.device.type == "cpu":
         return masked_pairwise_nn_plain(pts, pair_mask)
+    cuda_build.forbid_grad("masked_pairwise_nn", pts)
     cuda_build.require(pts, "pts", torch.float32, 4)
     B, P, N, _ = pts.shape
     if pair_mask.shape != (B, P, P) or pair_mask.device != pts.device:
@@ -109,3 +138,12 @@ def chamfer_distance_mean(x: torch.Tensor, y: torch.Tensor, bidirectional: bool 
     if bidirectional:
         out = out + nn_distance(y, x)[0].mean(-1)
     return out
+
+
+def chamfer_distance_default(x: torch.Tensor, y: torch.Tensor, bidirectional: bool = True):
+    """chamferdist's default reductions (per-cloud point sum, batch mean) -> scalar; the
+    reduction of the VQ-VAE training loss."""
+    out = nn_distance(x, y)[0].sum(-1)
+    if bidirectional:
+        out = out + nn_distance(y, x)[0].sum(-1)
+    return out.mean()

@@ -35,6 +35,10 @@ SIGNATURES = {
         "pfpp_masked_pairwise_nn": [_P, _P, _I, _I, _I, _P, _P],
     },
     "sa_cached": {"pfpp_sa_cached": [_P] * 10 + [_I] * 7 + [_P]},
+    "scatter_add": {
+        "pfpp_scatter_add": [_P, _P, _P, _I, _I, _LL, _I, _P],
+        "pfpp_scatter_add_tile": [_I, _I],
+    },
 }
 
 _lock = threading.Lock()
@@ -135,3 +139,11 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name} must be contiguous")
     if align16 and t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def forbid_grad(what: str, *tensors) -> None:
+    """Raise if autograd would need a gradient through a kernel that has no backward: its
+    output is written through a raw pointer and would silently carry no ``grad_fn``."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what} has no backward on CUDA tensors: call it under "
+                           "torch.no_grad() or on inputs that need no gradient")

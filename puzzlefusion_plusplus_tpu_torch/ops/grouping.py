@@ -1,14 +1,15 @@
 """Point grouping ops (port of ``puzzlefusion_plusplus_tpu/ops/grouping.py``).
 
-``index_points`` goes through kernel G on CUDA tensors. Ball-query selection and kNN are
-plain PyTorch: the JAX package also runs them outside Pallas.
+``index_points`` goes through kernel G and ``index_points_matmul_safe`` through kernel A on
+CUDA tensors; both are differentiable in the points (kernel B). Ball-query selection and kNN
+are plain PyTorch: the JAX package also runs them outside Pallas.
 """
 
 from __future__ import annotations
 
 import torch
 
-from puzzlefusion_plusplus_tpu_torch.ops.gather import gather_points
+from puzzlefusion_plusplus_tpu_torch.ops.gather import gather_points, gather_points_approx
 
 
 def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
@@ -22,6 +23,11 @@ def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
 def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """points [B, N, C], idx [B, ...] -> [B, ..., C] (exact gather)."""
     return gather_points(points, idx)
+
+
+def index_points_matmul_safe(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The gather of values that feed a Dense layer (grouped features): kernel A, exact."""
+    return gather_points_approx(points, idx)
 
 
 def query_ball_point(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor,

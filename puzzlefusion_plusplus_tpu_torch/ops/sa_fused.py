@@ -53,10 +53,13 @@ def sa_stage_fused_cached(
     w2: torch.Tensor, b2: torch.Tensor,
     w3: torch.Tensor, b3: torch.Tensor,
 ) -> torch.Tensor:
-    """-> new_feats [M, S, C3]; kernel S on CUDA tensors."""
+    """-> new_feats [M, S, C3]; kernel S on CUDA tensors, which has no backward (it raises
+    where autograd would need one; the plain version on CPU tensors differentiates)."""
     proj = None if feats is None else torch.matmul(feats, k1_feat)  # [M, N2, C1]
     if g_rel.device.type == "cpu":
         return sa_stage_plain(g_rel, w_eff, proj, group_idx, b1, w2, b2, w3, b3)
+    cuda_build.forbid_grad("sa_stage_fused_cached", g_rel, w_eff, feats, k1_feat, b1, w2, b2,
+                           w3, b3)
     M, S, K, _ = g_rel.shape
     C1, C2, C3 = w_eff.shape[2], w2.shape[1], w3.shape[1]
     _check_kernel_shapes(K, C1, C2, C3)

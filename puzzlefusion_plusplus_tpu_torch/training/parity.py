@@ -1,0 +1,127 @@
+"""One VQ-VAE training step on two devices from the same weights and batch, compared.
+
+This is how the port shows that its step on the card (kernels A, B, F, G, N) computes what
+its step on the CPU (their plain versions, through the same ``autograd.Function``s)
+computes: the loss and metrics, every parameter's gradient, BatchNorm's running statistics,
+and the parameters after the AdamW update. ``chip_smoke.py`` (phase ``train_parity``) and
+``tests/test_torch_port_cuda.py`` run it.
+
+Tolerances and why (``compare``):
+  * loss and metrics 1e-5 relative;
+  * the gradients of conv6, the decoder and the codebook within 1e-3 of their largest
+    entry plus 1e-5 (the card's GEMMs sum in another order);
+  * the gradients of the SA stages within 5e-2 in relative L2 norm. They are ill-conditioned
+    in the inputs' last bits: where two of the K neighbours' activations sit within float
+    error of each other, the max over K routes the gradient to either, and ReLU and
+    train-mode BatchNorm pass that on. On the CPU alone, a relative perturbation of 1e-6
+    of the SA weights moves these gradients by about 1e-2 in relative L2 norm
+    (``tests/test_torch_port_training.py`` measures it), while a missing or wrong gradient
+    is off by about 1. The bias of
+    each SA conv has true gradient 0 (a train-mode BatchNorm subtracts it again): on both
+    devices it must stay float noise, below 1e-3 of its kernel's largest gradient entry;
+  * running statistics 1e-4 relative plus 1e-5;
+  * parameters after the step: Adam's first update is about ``lr * sign(g)``, so where the
+    gradient clearly differs from 0 (beyond twice its elementwise tolerance; for the SA
+    stages beyond 0.1 of the largest entry) the parameters agree to 1e-6, and elsewhere
+    to 2 lr.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from puzzlefusion_plusplus_tpu_torch.models.vqvae import VQVAE
+from puzzlefusion_plusplus_tpu_torch.training.state import adamw_multistep
+from puzzlefusion_plusplus_tpu_torch.training.vqvae import METRIC_KEYS, to_device, train_step
+
+
+def spread_codebook(model: VQVAE, seed: int = 0) -> None:
+    """Codebook entries of unit scale, as a trained codebook's: the init's +-1/n_e entries
+    leave codes within 3e-6 of a tie at full width, so float error could pick another."""
+    gen = torch.Generator().manual_seed(seed)
+    w = model.vector_quantization.embedding.weight
+    with torch.no_grad():
+        w.copy_(torch.rand(w.shape, generator=gen) * 2 - 1)
+
+
+def step_on(make_model, state_dict: dict, batch: dict, device, lr: float = 5e-4,
+            weight_decay: float = 1e-6) -> dict:
+    """One ``train_step`` on ``device`` -> loss metrics, gradients, BatchNorm buffers and
+    parameters after the update, all on the CPU."""
+    model = make_model().to(device)
+    model.load_state_dict(state_dict)
+    state = adamw_multistep(model, lr, (), 0.5, weight_decay)
+    metrics = train_step(state, to_device(batch, device))
+    return {
+        "metrics": {k: float(v) for k, v in metrics.items()},
+        "grads": {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+        "buffers": {n: b.detach().cpu() for n, b in model.named_buffers()
+                    if b.is_floating_point()},
+        "params": {n: p.detach().cpu() for n, p in model.named_parameters()},
+        "lr": lr,
+    }
+
+
+def _pre_bn_bias(name: str) -> bool:
+    return ".mlp_convs." in name and name.endswith(".bias")
+
+
+GRAD_REL, GRAD_ATOL, SA_GRAD_REL_L2 = 1e-3, 1e-5, 5e-2
+
+
+def compare(ref: dict, out: dict) -> dict:
+    """Max errors of ``out`` against ``ref`` (two ``step_on`` results); raises
+    AssertionError naming every quantity outside its tolerance."""
+    bad, errs = [], {}
+    for k in METRIC_KEYS:
+        e = abs(out["metrics"][k] - ref["metrics"][k]) / max(abs(ref["metrics"][k]), 1e-30)
+        errs[f"metric/{k}"] = e
+        if e > 1e-5:
+            bad.append(f"{k}: rel err {e}")
+    grad_rel, sa_l2, sa_max, clear = 0.0, 0.0, 0.0, {}
+    for n, g in ref["grads"].items():
+        o = out["grads"][n]
+        if _pre_bn_bias(n):
+            scale = ref["grads"][n[: -len("bias")] + "weight"].abs().max().item()
+            noise = max(g.abs().max().item(), o.abs().max().item()) / max(scale, 1e-30)
+            errs[f"bias_noise/{n}"] = noise
+            if noise > 1e-3:
+                bad.append(f"{n}: gradient {noise} of the kernel's, should be float noise")
+            clear[n] = torch.zeros_like(g, dtype=torch.bool)
+            continue
+        gmax = g.abs().max().item()
+        e = (o - g).abs().max().item()
+        if n.startswith("pn2.sa"):
+            l2 = ((o - g).norm() / g.norm().clamp_min(1e-30)).item()
+            sa_l2, sa_max = max(sa_l2, l2), max(sa_max, e / max(gmax, 1e-30))
+            if l2 > SA_GRAD_REL_L2:
+                bad.append(f"grad {n}: relative L2 error {l2} > {SA_GRAD_REL_L2}")
+            clear[n] = g.abs() > 0.1 * gmax
+            continue
+        grad_rel = max(grad_rel, e / max(gmax, 1e-30))
+        tol = GRAD_REL * gmax + GRAD_ATOL
+        if e > tol:
+            bad.append(f"grad {n}: max err {e} > {tol}")
+        clear[n] = g.abs() > 2 * tol
+    errs["grad_max_rel"] = grad_rel
+    errs["sa_grad_rel_l2"], errs["sa_grad_max_rel"] = sa_l2, sa_max
+    for n, b in ref["buffers"].items():
+        e = (out["buffers"][n] - b).abs().max().item()
+        errs[f"buffer/{n}"] = e
+        if e > 1e-4 * b.abs().max().item() + 1e-5:
+            bad.append(f"buffer {n}: max err {e}")
+    step_clear, step_other = 0.0, 0.0
+    for n, p in ref["params"].items():
+        err = (out["params"][n] - p).abs()
+        step_clear = max(step_clear, err[clear[n]].max().item() if clear[n].any() else 0.0)
+        step_other = max(step_other, err.max().item())
+    errs["param_after_step_clear"], errs["param_after_step_any"] = step_clear, step_other
+    if step_clear > 1e-6 or step_other > 2 * ref["lr"] + 1e-6:
+        bad.append(f"parameters after the step: {step_clear} where g is clear, "
+                   f"{step_other} anywhere")
+    if bad:
+        raise AssertionError("devices disagree:\n" + "\n".join(bad))
+    return {k: float(v) for k, v in errs.items() if not k.startswith(("buffer/", "bias_"))} | {
+        "buffer_max": max(v for k, v in errs.items() if k.startswith("buffer/")),
+        "pre_bn_bias_noise_max": max(v for k, v in errs.items() if k.startswith("bias_")),
+    }

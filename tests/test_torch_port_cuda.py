@@ -5,15 +5,24 @@ Marked ``cuda``; they skip without a card. This file imports neither JAX nor the
 so on a machine without JAX it runs with the conftest left out:
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py``.
 
-Tolerances: FPS / gather / NN indices and values exact (the kernels compute distances with
-the plain version's rounding, no FMA); S 1e-4 (FP32 sums in another order); engine
-trajectories 1e-3 on damped weights, discrete outcomes exact."""
+Tolerances: FPS / gather (G and A) / NN indices and values exact (the kernels compute
+distances with the plain version's rounding, no FMA); S 1e-4 (FP32 sums in another order);
+B 1e-5 of the largest sum against the plain index_add_, which adds with atomics in no fixed
+order on the card, and bit for bit against the CPU's index_add_ and its own second launch
+(it adds in row order); engine trajectories 1e-3 on damped weights, discrete outcomes exact;
+a training step on the card against the CPU within ``training/parity.py``'s tolerances."""
 
 import numpy as np
 import pytest
 import torch
 
-from puzzlefusion_plusplus_tpu_torch.data import DenoiserDataset, Loader, generate_dataset
+from puzzlefusion_plusplus_tpu_torch import ops
+from puzzlefusion_plusplus_tpu_torch.data import (
+    DenoiserDataset,
+    Loader,
+    VQVAEDataset,
+    generate_dataset,
+)
 from puzzlefusion_plusplus_tpu_torch.inference import run as R
 from puzzlefusion_plusplus_tpu_torch.inference.engine import draw_noise
 from puzzlefusion_plusplus_tpu_torch.models.vqvae import VQVAE
@@ -21,6 +30,7 @@ from puzzlefusion_plusplus_tpu_torch.ops import chamfer as tch
 from puzzlefusion_plusplus_tpu_torch.ops import fps as tfps
 from puzzlefusion_plusplus_tpu_torch.ops import gather as tga
 from puzzlefusion_plusplus_tpu_torch.ops import sa_fused as tsa
+from puzzlefusion_plusplus_tpu_torch.training import parity
 
 pytestmark = pytest.mark.cuda
 
@@ -29,7 +39,7 @@ pytestmark = pytest.mark.cuda
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the kernels are CUDA only)")
-    return torch.device("cuda")
+    return R.resolve_device("cuda")  # fp32 matmuls without TF32, as the entry points run
 
 
 def test_kernels_match_plain_on_card(dev):
@@ -58,6 +68,63 @@ def test_kernels_match_plain_on_card(dev):
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("N,C,shape", [(1000, 3, (1000,)), (256, 128, (128, 64)),
+                                       (40, 33, (7, 5)), (5000, 16, (300,))])
+def test_gather_approx_and_scatter_add_match_plain_on_card(dev, N, C, shape):
+    g = torch.Generator(device=dev).manual_seed(1)
+    B = 3
+    pts = torch.randn((B, N, C), generator=g, device=dev, requires_grad=True)
+    idx = torch.randint(0, N, (B,) + shape, generator=g, device=dev)
+    up = torch.randn((B,) + shape + (C,), generator=g, device=dev)
+    ops.reset_launch_counts()
+    out = tga.gather_points_approx(pts, idx)
+    assert torch.equal(out, tga.gather_points_plain(pts, idx))
+    out.backward(up)
+    assert ops.launch_counts()["A"] == 1 and ops.launch_counts()["B"] == 1
+    flat_idx, flat_up = idx.reshape(B, -1), up.reshape(B, -1, C)
+    ref = tga.scatter_add_plain(flat_up, flat_idx, N)
+    torch.testing.assert_close(pts.grad, ref, rtol=0, atol=1e-5 * ref.abs().max().item())
+    again = tga.scatter_add(flat_up, flat_idx, N)
+    assert torch.equal(again, pts.grad)  # deterministic
+    assert torch.equal(again.cpu(), tga.scatter_add_plain(flat_up.cpu(), flat_idx.cpu(), N))
+
+
+def test_nn_distance_gradient_on_card_matches_cpu(dev):
+    g = torch.Generator().manual_seed(2)
+    x, y = torch.rand((2, 300, 3), generator=g), torch.rand((2, 250, 3), generator=g)
+    w = torch.randn((2, 300), generator=g)
+    grads = []
+    for d in ("cpu", dev):
+        xd, yd = x.to(d, copy=True).requires_grad_(), y.to(d, copy=True).requires_grad_()
+        (tch.nn_distance(xd, yd)[0] * w.to(d)).sum().backward()
+        grads.append((xd.grad.cpu(), yd.grad.cpu()))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-6)
+
+
+def test_training_step_on_card_matches_cpu(dev, tmp_path):
+    """The card's step has gradients at all (the kernels' outputs carry ``grad_fn``) and
+    they equal the CPU's."""
+    root = str(tmp_path)
+    generate_dataset(root, num_shapes=2, seed=5, split="train", min_parts=3, max_parts=4,
+                     n_points=300)
+    batch = next(iter(Loader(VQVAEDataset(root + "/pc_data/train", max_num_part=4), 2,
+                             shuffle=False)))
+
+    def make():
+        return VQVAE(64, 16, 5, 64, 40, sa_npoints=(96, 48), sa_nsamples=(16, 32, 32))
+
+    model = make()
+    parity.spread_codebook(model)
+    sd = model.state_dict()
+    ops.reset_launch_counts()
+    gpu = parity.step_on(make, sd, batch, dev)
+    counts = ops.launch_counts()
+    assert all(counts[k] > 0 for k in "FGNAB"), counts
+    cpu = parity.step_on(make, sd, batch, "cpu")
+    parity.compare(cpu, gpu)
+
+
 def test_kernel_wrappers_reject_bad_input(dev):
     x = torch.randn((2, 10, 3), device=dev)
     with pytest.raises(TypeError):
@@ -67,6 +134,25 @@ def test_kernel_wrappers_reject_bad_input(dev):
     args = [torch.randn(s, device=dev) for s in ((1, 4, 6, 3), (1, 3, 64), (64,), (64, 64),
                                                    (64,), (64, 64), (64,))]
     with pytest.raises(ValueError, match="K dividing 64"):  # K = 6
+        tsa.sa_stage_fused_cached(args[0], args[1], None, None, None, *args[2:])
+
+
+def test_kernels_without_backward_refuse_inputs_that_need_grad(dev):
+    """S and M write through raw pointers: where autograd would need their gradient they
+    raise rather than return an output without ``grad_fn``; under no_grad they run."""
+    pts = torch.randn((1, 2, 50, 3), device=dev, requires_grad=True)
+    pm = torch.ones((1, 2, 2), dtype=torch.bool, device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tch.masked_pairwise_nn(pts, pm)
+    with torch.no_grad():
+        assert torch.equal(tch.masked_pairwise_nn(pts, pm),
+                           tch.masked_pairwise_nn_plain(pts.detach(), pm))
+    args = [torch.randn(s, device=dev) for s in ((1, 4, 8, 3), (1, 3, 64), (64,), (64, 64),
+                                                   (64,), (64, 64), (64,))]
+    args[3].requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        tsa.sa_stage_fused_cached(args[0], args[1], None, None, None, *args[2:])
+    with torch.no_grad():
         tsa.sa_stage_fused_cached(args[0], args[1], None, None, None, *args[2:])
 
 

@@ -180,8 +180,37 @@ def test_wrappers_use_plain_version_only_on_cpu():
     """On the CPU no launch is counted; any other device must launch the kernel or raise."""
     ops.reset_launch_counts()
     x = torch.zeros(1, 4, 3)
+    idx = torch.zeros((1, 2), dtype=torch.int32)
     tch.nn_distance(x, x)
     tfps.farthest_point_sample(x, 2)
-    assert ops.launch_counts() == {k: 0 for k in "SFGNM"}
+    tga.gather_points_approx(x, idx)
+    tga.scatter_add(x[:, :2], idx, 4)
+    assert ops.launch_counts() == {k: 0 for k in "SFGNMAB"}
     with pytest.raises(ValueError):
         tch.nn_distance(x.to("meta"), x.to("meta"))
+    with pytest.raises(ValueError):
+        tga.gather_points_approx(x.to("meta"), idx.to("meta"))
+    with pytest.raises(ValueError):
+        tga.scatter_add(x[:, :2].to("meta"), idx.to("meta"), 4)
+
+
+def test_kernels_without_backward_refuse_grad_off_the_cpu():
+    """S and M have no backward: off the CPU they raise where autograd would need one (and
+    before anything is built); on the CPU their plain versions differentiate."""
+    pts = torch.randn((1, 2, 5, 3), requires_grad=True)
+    pm = torch.ones((1, 2, 2), dtype=torch.bool)
+    tch.masked_pairwise_nn(pts, pm).sum().backward()
+    assert pts.grad is not None
+    with pytest.raises(RuntimeError, match="no backward"):
+        tch.masked_pairwise_nn(pts.detach().to("meta").requires_grad_(), pm.to("meta"))
+    args = [torch.randn(s) for s in ((1, 4, 8, 3), (1, 3, 64), (64,), (64, 64), (64,),
+                                     (64, 64), (64,))]
+    args[3].requires_grad_()
+    tsa.sa_stage_fused_cached(args[0], args[1], None, None, None, *args[2:]).sum().backward()
+    assert args[3].grad is not None
+    meta = [a.detach().to("meta") for a in args]
+    meta[3].requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        tsa.sa_stage_fused_cached(meta[0], meta[1], None, None, None, *meta[2:])
+    with torch.no_grad(), pytest.raises(ValueError):  # past the guard: not a CUDA tensor
+        tsa.sa_stage_fused_cached(meta[0], meta[1], None, None, None, *meta[2:])
