@@ -4,9 +4,10 @@
 Phases, each printing one JSON object per line (with its seconds):
   1. build   — compiles the port's CUDA kernels (``puzzlefusion_plusplus_tpu_torch/csrc``)
                for sm_90a; prints the card's name and power limit from nvidia-smi.
-  2. kernels — every kernel (S, F, G, N, M of inference; F, G, N, A, B of training) at the
-               shapes each path gives it (training's at M = 160 clouds), on seeded inputs,
-               against its plain PyTorch version on the card:
+  2. kernels — every kernel (S, F, G, N, M, P of inference; F, G, N, A, B of training; R
+               of the 'always' encoder mode) at the shapes each path gives it (training's at
+               M = 160 clouds), on seeded inputs, against its plain PyTorch version on the card
+               (P also against F):
                error, exact-index agreement, and CUDA-event times of the kernel, the plain
                version and (where one exists) a single PyTorch library call.
   3. engine  — the full-width engine (``Config()`` defaults: VQ-VAE 1000 pts / 25x64 tokens /
@@ -14,7 +15,7 @@ Phases, each printing one JSON object per line (with its seconds):
                fp32, batch 8) on 8 synthetic shapes of 3-12 parts (seed 7) through
                ``build_engine_fn`` + ``run_inference``, with seeded random weights.
   4. merge   — a forced-merge batch (2 shapes, no reference part, verifier threshold 0): every
-               valid edge is predicted, so parts merge and kernel M and the merge FPS run.
+               valid edge is predicted, so parts merge and kernel M and the merge FPS (P) run.
                The same batch and noise also go through the CPU engine (plain versions);
                discrete outcomes must agree and poses stay within 1e-3 (damped denoiser
                weights keep the 20-step recurrence contractive, as tests/test_bucketing.py).
@@ -28,10 +29,30 @@ Phases, each printing one JSON object per line (with its seconds):
                a 2-shape batch: loss, every gradient, BatchNorm statistics and the
                parameters after AdamW must agree (``training/parity.py``).
   8. profile_train — torch.profiler over one full-width training step, grouped as in 5.
+  9. encoder_modes — the frozen encoder's three modes on the engine batch's 96 clouds at full
+               width, randomly rotated, with the indices (and geometry) of the unrotated
+               clouds: 'always' (kernel R), 'never' (the composable encode) and 'cached'
+               (kernel S). z_e agrees within 1e-4 of its largest entry; codes agree except
+               where the two nearest codes are within 1e-5; ms per encode of each mode.
+ 10. train_denoiser — stage-2 denoiser training through ``training.denoiser.train`` at
+               ``Config()`` widths (denoiser 512/6/8, encoder ``Config().ae`` from phase 6's
+               checkpoint, or seeded when phase 6 did not run), fp32, batch 64 at the
+               20-slot pad (1280 encoder clouds a step), on 64 + 64 synthetic shapes of 3-12
+               parts (seeds 13, 14): one warm-up step, 5 timed steps, one validation pass
+               (the 20-step sampler through kernel S), then one step with
+               ``denoiser.train_encode_cached``; steps/s, shapes/s, losses, eval metrics,
+               peak device memory, the checkpoints written.
+ 11. denoiser_parity — one denoiser train_step on the card and one on the CPU, full width,
+               from the same weights, a 2-shape batch, the same timesteps and noise and no
+               dropout: loss, every gradient and the parameters after AdamW must agree
+               (``training/parity.py``).
+ 12. profile_denoiser — torch.profiler over one full-width denoiser training step.
 Each path's launch counts are read from its own run: reset right before phase 3's second
-(counted) engine call and read right after phase 4's GPU run (the inference path), and reset
-right before phase 6 and read right after it (the training path). Then a ``kernels`` line
-lists every kernel with its path's count, its error and its times, and the last line is
+(counted) engine call and read right after phase 4's GPU run (the inference path), reset
+right before phase 6 and read right after it (the VQ-VAE training path), reset right before
+phase 9's three encodes and read right after them (the encoder-modes path), and reset right
+before phase 10 and read right after it (the denoiser training path). Then a ``kernels``
+line lists every kernel with its path's count, its error and its times, and the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and the script exits non-zero without
 that line. Needs one CUDA card; ``--phases`` picks phases.
 """
@@ -63,8 +84,17 @@ REPLACES = {
           "puzzlefusion_plusplus_tpu/ops/gather_pallas.py:139"),
     "B": ("puzzlefusion_plusplus_tpu_torch/csrc/scatter_add.cu",
           "puzzlefusion_plusplus_tpu/ops/gather_pallas.py:182"),
+    "R": ("puzzlefusion_plusplus_tpu_torch/csrc/sa_raw.cu",
+          "puzzlefusion_plusplus_tpu/ops/sa_fused_pallas.py:123"),
+    "P": ("puzzlefusion_plusplus_tpu_torch/csrc/fps.cu",
+          "puzzlefusion_plusplus_tpu/ops/fps.py:167"),
 }
-INFERENCE_KERNELS, TRAIN_KERNELS = "SFGNM", "FGNAB"
+INFERENCE_KERNELS, TRAIN_KERNELS = "SFGNMP", "FGNAB"
+MERGE_ONLY_KERNELS = "MP"  # launched only when a merge fires (the merge phase)
+ENCODER_MODE_KERNELS, DENOISER_KERNELS = "RSGA", "SFGNA"
+PATH_KERNELS = {"inference": INFERENCE_KERNELS, "train": TRAIN_KERNELS,
+                "encoder_modes": ENCODER_MODE_KERNELS, "train_denoiser": DENOISER_KERNELS}
+MAIN_PATH = {"A": "train", "B": "train", "R": "encoder_modes"}  # the rest: "inference"
 
 
 def emit(obj) -> None:
@@ -183,6 +213,38 @@ def phase_kernels(results: dict) -> None:
                    w2, b2, w3, b3), 3),
                nbytes, flops, max_rel_err=rel, seconds=time.perf_counter() - t0)
 
+    # R: the three SA stages of the 'always' encode of the engine batch's M = 96 clouds
+    for stage, (N, Cin, S, K, widths) in {
+        "SA1": (1000, 3, 256, 32, (64, 64, 128)),
+        "SA2": (256, 131, 128, 64, (128, 128, 256)),
+        "SA3": (128, 259, 25, 64, (256, 256, 512)),
+    }.items():
+        t0 = time.perf_counter()
+        pts = randn(M, N, Cin)
+        fidx = torch.randint(0, N, (M, S), generator=gen, device=dev, dtype=torch.int32)
+        gidx = torch.randint(0, N, (M, S, K), generator=gen, device=dev, dtype=torch.int32)
+        weights, cin = [], Cin
+        for c in widths:
+            weights.append((randn(cin, c, scale=cin ** -0.5), randn(c, scale=0.1)))
+            cin = c
+        out = sa_fused.sa_stage_fused(pts, fidx, gidx, weights)
+        ref = sa_fused.sa_stage_fused_plain(pts, fidx, gidx, weights)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        rel = err / max(ref.abs().max().item(), 1e-30)
+        _check(rel <= 1e-4, f"R {stage}: relative error {rel}")
+        C1, C2, C3 = widths
+        # layer 1 is linear before its ReLU: the feature block's product is needed once per
+        # point, and recentring only touches the 3 xyz rows (counted as for S)
+        flops = 2 * M * S * K * (3 * C1 + C1 * C2 + C2 * C3) + 2 * M * N * (Cin - 3) * C1
+        nbytes = 4 * (pts.numel() + fidx.numel() + gidx.numel()
+                      + sum(w.numel() + b.numel() for w, b in weights) + M * S * C3)
+        record("R", stage, err,
+               cuda_ms(lambda: sa_fused.sa_stage_fused(pts, fidx, gidx, weights), 20),
+               cuda_ms(lambda: sa_fused.sa_stage_fused_plain(pts, fidx, gidx, weights), 3),
+               nbytes, flops, path="encoder_modes", max_rel_err=rel,
+               seconds=time.perf_counter() - t0)
+
     # F: the cache build's first stage and the merge resample (partial mask), then the three
     # SA stages of a training step at M = 160 clouds
     for B, N, npoint, masked, path in ((96, 1000, 256, False, "inference"),
@@ -204,6 +266,28 @@ def phase_kernels(results: dict) -> None:
                cuda_ms(lambda: fps.farthest_point_sample(xyz, npoint, mask), 3),
                cuda_ms(lambda: fps.farthest_point_sample_plain(xyz, npoint, mask), 1),
                nbytes, 9.0 * B * N * npoint, path=path, indices_equal=match,
+               seconds=time.perf_counter() - t0)
+
+    # P: the cache build's first stage, then the merge resample at the forced-merge batch's
+    # pad (2 shapes x K = 4 clouds of P = 8 parts) and at the widest pad (K = 10, P = 20);
+    # indices equal to the plain version and to F, whose time is taken beside P's
+    for B, N, npoint, masked in ((96, 1000, 256, False), (8, 8000, 1000, True),
+                                 (10, 20000, 1000, True)):
+        t0 = time.perf_counter()
+        xyz = randn(B, N, 3)
+        mask = (torch.rand((B, N), generator=gen, device=dev) < 0.6) if masked else None
+        out = fps.farthest_point_sample_per_cloud(xyz, npoint, mask)
+        match = bool(torch.equal(out, fps.farthest_point_sample_per_cloud_plain(xyz, npoint,
+                                                                                 mask)))
+        match_f = bool(torch.equal(out, fps.farthest_point_sample(xyz, npoint, mask)))
+        _check(match and match_f, f"P [{B},{N}]->{npoint}: indices differ (plain {match}, "
+                                  f"F {match_f})")
+        nbytes = 4 * B * N * 3 + (B * N if masked else 0) + 4 * B * npoint
+        record("P", f"[{B},{N}]->{npoint}" + (" masked" if masked else ""), 0.0,
+               cuda_ms(lambda: fps.farthest_point_sample_per_cloud(xyz, npoint, mask), 3),
+               cuda_ms(lambda: fps.farthest_point_sample_per_cloud_plain(xyz, npoint, mask), 1),
+               nbytes, 9.0 * B * N * npoint, indices_equal=match, indices_equal_f=match_f,
+               f_ms=cuda_ms(lambda: fps.farthest_point_sample(xyz, npoint, mask), 3),
                seconds=time.perf_counter() - t0)
 
     def gather_row(name, fn, B, N, C, idx_shape, path, reps):
@@ -386,11 +470,13 @@ def phase_merge(data_root: str) -> dict:
     t_gpu = time.perf_counter() - t0
     cpu = build_engine_fn(cfg, "cpu", state_dicts=sds)(batch, noise=noise)
     _check(int(gpu["n_merged_pairs"].sum()) > 0, f"no merge fired: {gpu['n_merged_pairs']}")
-    _check(counts["M"] > 0 and counts["F"] > 0, f"merge kernels not launched: {counts}")
+    _check(counts["M"] > 0 and counts["P"] > 0, f"merge kernels not launched: {counts}")
     same = {k: bool(np.array_equal(gpu[k], cpu[k]))
             for k in ("n_iters", "n_merged_pairs", "acc_per_part")}
     traj_err = float(np.abs(gpu["trajectory"] - cpu["trajectory"]).max())
     row = {"phase": "merge", "seconds": time.perf_counter() - t0, "gpu_seconds": t_gpu,
+           "batch_parts": P, "merge_fps_clouds": B * (P // 2),
+           "merge_fps_points": P * batch["part_pcs"].shape[2],
            "n_merged_pairs": gpu["n_merged_pairs"].tolist(),
            "n_iters": int(gpu["n_iters"][0]), "launches": counts,
            "gpu_vs_cpu_equal": same, "gpu_vs_cpu_max_traj_err": traj_err}
@@ -485,7 +571,8 @@ def phase_train_parity(data_root: str) -> dict:
 
 # A launches G's kernel, so a profile shows their time as one group
 KERNEL_NAMES = {"sa_cached_kernel": "S", "fps_kernel": "F", "gather_kernel": "G+A",
-                "nn_kernel": "N", "masked_pair_kernel": "M", "scatter_add_kernel": "B"}
+                "nn_kernel": "N", "masked_pair_kernel": "M", "scatter_add_kernel": "B",
+                "sa_raw_kernel": "R", "fps_cluster_kernel": "P"}
 
 
 def _profile(fn, warmups: int = 1) -> dict:
@@ -558,10 +645,236 @@ def phase_profile_train(data_root: str) -> dict:
     return row
 
 
+def phase_encoder_modes(data_root: str) -> dict:
+    """The frozen encoder's three modes on the engine batch's clouds at full width (phase 9)."""
+    import numpy as np
+    import torch
+
+    from puzzlefusion_plusplus_tpu_torch import ops
+    from puzzlefusion_plusplus_tpu_torch.data.bucketing import part_bucket, slice_batch_parts
+    from puzzlefusion_plusplus_tpu_torch.data.datasets import DenoiserDataset
+    from puzzlefusion_plusplus_tpu_torch.data.loader import Loader
+    from puzzlefusion_plusplus_tpu_torch.inference.run import make_models
+    from puzzlefusion_plusplus_tpu_torch.inference.sampler import FUSED_MODES, make_frozen_encoder
+    from puzzlefusion_plusplus_tpu_torch.training import parity
+    from puzzlefusion_plusplus_tpu_torch.utils.masking import compact_parts, compaction_indices
+    from puzzlefusion_plusplus_tpu_torch.utils.transforms import quat_normalize, quat_to_matrix
+
+    t0 = time.perf_counter()
+    cfg = _full_config(data_root)
+    vq = make_models(cfg)[0]
+    parity.spread_codebook(vq)  # codes of unit scale, so that a tie within 1e-5 is rare
+    encs = {mode: make_frozen_encoder(vq.cuda(), mode) for mode in FUSED_MODES}
+    ds = DenoiserDataset(cfg.data.data_val_dir, mode="test",
+                         matching_data_path=cfg.data.matching_data_path)
+    batch = next(iter(Loader(ds, 8, shuffle=False, drop_last=False)))
+    batch = slice_batch_parts(batch, part_bucket(int(np.max(batch["num_parts"]))))
+    pcs = torch.from_numpy(batch["part_pcs"]).cuda()
+    B, P, N, _ = pcs.shape
+    _, src, _ = compaction_indices(torch.from_numpy(batch["part_valids"]).cuda())
+    flat = compact_parts(pcs, src).reshape(B * P, N, 3)  # the engine's compacted clouds
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rot = quat_to_matrix(quat_normalize(torch.randn((B * P, 4), generator=gen, device="cuda")))
+    rotated = torch.einsum("mnd,med->mne", flat, rot).contiguous()
+    with torch.no_grad():
+        idx, geom = encs["cached"].grouping(flat)  # on the unrotated clouds
+    calls = {"always": lambda: encs["always"].apply(rotated, idx),
+             "never": lambda: encs["never"].apply(rotated, idx),
+             "cached": lambda: encs["cached"].apply(flat, idx, geom, rot)}
+    ops.reset_launch_counts()  # the encoder-modes path's run starts here
+    outs = {mode: fn() for mode, fn in calls.items()}
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    _check(counts["R"] == 3 and counts["S"] == 3, f"R/S launches {counts}")
+    ref = outs["never"]["z_e"]
+    scale = ref.abs().max().item()
+    z_err = {m: (outs[m]["z_e"] - ref).abs().max().item() / scale for m in ("always", "cached")}
+    xyz_err = {m: (outs[m]["xyz"] - outs["never"]["xyz"]).abs().max().item()
+               for m in ("always", "cached")}
+    codebook = encs["never"].w["codebook"]
+    d = torch.cdist(ref.reshape(-1, 16), codebook) ** 2
+    two = d.topk(2, dim=-1, largest=False).values
+    near = (two[:, 1] - two[:, 0]) <= 1e-5
+    codes = {m: torch.cdist(outs[m]["z_e"].reshape(-1, 16), codebook).argmin(-1)
+             for m in FUSED_MODES}
+    differ = {m: int(((codes[m] != codes["never"]) & ~near).sum()) for m in ("always", "cached")}
+    row = {"phase": "encoder_modes", "clouds": B * P, "z_e_max_rel_err_vs_never": z_err,
+           "xyz_max_abs_err_vs_never": xyz_err, "codes": int(near.numel()),
+           "codes_within_1e-5_of_a_tie": int(near.sum()),
+           "codes_differing_elsewhere": differ,
+           "ms_per_encode": {m: cuda_ms(fn, 5) for m, fn in calls.items()},
+           "launches": counts, "seconds": time.perf_counter() - t0}
+    emit(row)
+    _check(max(z_err.values()) <= 1e-4 and not any(differ.values()),
+           f"encoder modes disagree: {row}")
+    return row
+
+
+DENOISER_SHAPES, DENOISER_BATCH = 64, 64  # per split; shapes a step (x 20 part slots)
+
+
+def _denoiser_config(data_root: str, out_dir: str, encoder_ckpt: str):
+    """Config() at full width: batch 64 shapes x max_num_part 20 = 1280 encoder clouds a
+    step; one step an epoch on 64 shapes, so epoch 6 ends in the validation pass."""
+    from puzzlefusion_plusplus_tpu_torch.utils.config import Config
+
+    cfg = Config()
+    cfg.data.data_dir = os.path.join(data_root, "pc_data", "train")
+    cfg.data.data_val_dir = os.path.join(data_root, "pc_data", "val")
+    cfg.data.batch_size = cfg.data.val_batch_size = DENOISER_BATCH
+    cfg.trainer.output_dir = out_dir
+    cfg.trainer.log_every = 1
+    cfg.denoiser.epochs = cfg.denoiser.val_every = 6
+    cfg.denoiser.encoder_ckpt_path = encoder_ckpt
+    return cfg
+
+
+def _vqvae_checkpoint(trained: bool) -> str:
+    """Phase 6's checkpoint directory, or "" (a seeded encoder) when phase 6 did not run in
+    this invocation (a checkpoint left by an earlier one is not used)."""
+    path = os.path.join(REPO, ".smoke", "train_out", "everyday", "vqvae", "ckpt")
+    return path if trained and os.path.isdir(path) else ""
+
+
+def phase_train_denoiser(data_root: str, vqvae_trained: bool) -> dict:
+    """Six steps and a validation pass of the denoiser trainer, then one step with the
+    cached-geometry encode (phase 10); per-step times from its metrics stream."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from puzzlefusion_plusplus_tpu_torch import ops
+    from puzzlefusion_plusplus_tpu_torch.training.denoiser import EVAL_KEYS, train
+
+    t0 = time.perf_counter()
+    out_dir = os.path.join(REPO, ".smoke", "denoiser_out")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cfg = _denoiser_config(data_root, out_dir, _vqvae_checkpoint(vqvae_trained))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()  # the denoiser training path's run starts here
+    state = train(cfg, device="cuda")
+    t_cached = time.perf_counter()
+    cfg.denoiser.epochs, cfg.denoiser.train_encode_cached = 7, True
+    state = train(cfg, max_steps=7, device="cuda")  # resumes at step 6
+    torch.cuda.synchronize()
+    t_cached = time.perf_counter() - t_cached
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    run_dir = os.path.join(out_dir, cfg.trainer.experiment_name, "denoiser")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as fh:
+        recs = [json.loads(line) for line in fh]
+    steps = [r for r in recs if "mse_loss" in r]
+    evals = [r for r in recs if "eval_part_acc" in r]
+    _check(state.step == 7 and len(steps) == 7 and len(evals) == 1,
+           f"{state.step} steps, {len(steps)} step logs, {len(evals)} eval logs")
+    _check(all(np.isfinite(r["mse_loss"]) for r in steps), f"non-finite loss: {steps}")
+    _check(all(np.isfinite(evals[0][f"eval_{k}"]) for k in EVAL_KEYS), f"eval: {evals}")
+    _check(all(counts[k] > 0 for k in DENOISER_KERNELS), f"a kernel never launched: {counts}")
+    timed_s = steps[5]["wall_s"] - steps[0]["wall_s"]
+    row = {"phase": "train_denoiser", "seconds": time.perf_counter() - t0,
+           "encoder_ckpt": cfg.denoiser.encoder_ckpt_path or "seeded (phase train not run)",
+           "batch_shapes": DENOISER_BATCH, "clouds_per_step": DENOISER_BATCH * 20,
+           "timed_steps": 5, "steps_per_s": 5 / timed_s,
+           "shapes_per_s": 5 * DENOISER_BATCH / timed_s,
+           "step_wall_s": [b["wall_s"] - a["wall_s"] for a, b in zip(steps[:6], steps[1:6])],
+           "validation_wall_s": evals[0]["wall_s"] - steps[5]["wall_s"],
+           "cached_encode_call_s": t_cached,
+           "per_step": [{"step": r["step"], "mse_loss": r["mse_loss"]} for r in steps],
+           "eval": {k: evals[0][f"eval_{k}"] for k in EVAL_KEYS},
+           "max_memory_allocated_bytes": peak, "launches": counts,
+           "checkpoints": sorted(d for d in os.listdir(os.path.join(run_dir, "ckpt"))
+                                 if d.startswith("step_"))}
+    emit(row)
+    return row
+
+
+def _denoiser_parts(data_root: str, n: int):
+    """(config without dropout, a batch of n train shapes, the frozen-encoder maker). The
+    encoder is the seeded one with its codebook spread to unit scale, so that no code sits
+    within float error of a tie (``training/parity.py``)."""
+    from puzzlefusion_plusplus_tpu_torch.data import DenoiserDataset, Loader
+    from puzzlefusion_plusplus_tpu_torch.inference.sampler import make_frozen_encoder
+    from puzzlefusion_plusplus_tpu_torch.training import parity
+    from puzzlefusion_plusplus_tpu_torch.training.denoiser import load_frozen_encoder
+    from puzzlefusion_plusplus_tpu_torch.training.vqvae import make_model as make_ae
+
+    cfg = _denoiser_config(data_root, os.path.join(REPO, ".smoke", "denoiser_out"), "")
+    cfg.denoiser.dropout = cfg.denoiser.pe_dropout = 0.0
+    batch = next(iter(Loader(DenoiserDataset(cfg.data.data_dir, mode="train"), n,
+                             shuffle=False)))
+    ae = load_frozen_encoder(cfg, "cpu").model
+    parity.spread_codebook(ae)
+    ae_sd = ae.state_dict()
+
+    def make_encoder(device):
+        model = make_ae(cfg)
+        model.load_state_dict(ae_sd)
+        return make_frozen_encoder(model.to(device))
+
+    return cfg, batch, make_encoder
+
+
+def phase_denoiser_parity(data_root: str) -> dict:
+    """One denoiser train_step on the card and one on the CPU (phase 11)."""
+    import torch
+
+    from puzzlefusion_plusplus_tpu_torch.training import parity
+    from puzzlefusion_plusplus_tpu_torch.training.denoiser import make_model
+
+    t0 = time.perf_counter()
+    cfg, batch, make_encoder = _denoiser_parts(data_root, 2)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.trainer.seed)
+        sd = make_model(cfg).state_dict()
+    gen = torch.Generator().manual_seed(2)
+    timesteps = torch.randint(0, 1000, (2,), generator=gen)
+    noise = torch.randn(batch["part_trans"].shape[:2] + (7,), generator=gen)
+    args = (lambda: make_model(cfg), sd, make_encoder, batch)
+    gpu = parity.denoiser_step_on(*args, "cuda", timesteps, noise)
+    t_gpu = time.perf_counter() - t0
+    cpu = parity.denoiser_step_on(*args, "cpu", timesteps, noise)
+    row = {"phase": "denoiser_parity", "gpu_seconds": t_gpu,
+           "clouds": int(batch["part_valids"].size), "timesteps": timesteps.tolist(),
+           "loss_gpu": gpu["metrics"]["mse_loss"], "loss_cpu": cpu["metrics"]["mse_loss"],
+           "code_margin_gpu": gpu["code_margin"], "code_margin_cpu": cpu["code_margin"]}
+    row["errors"] = parity.compare(cpu, gpu, ("mse_loss",))
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+    return row
+
+
+def phase_profile_denoiser(data_root: str) -> dict:
+    """Where one full-width denoiser training step's device time goes (phase 12)."""
+    import torch
+
+    from puzzlefusion_plusplus_tpu_torch.models.scheduler import DDPMParams
+    from puzzlefusion_plusplus_tpu_torch.training.denoiser import make_model, train_step
+    from puzzlefusion_plusplus_tpu_torch.training.state import adamw_reference
+    from puzzlefusion_plusplus_tpu_torch.training.vqvae import to_device
+
+    t0 = time.perf_counter()
+    cfg, batch, make_encoder = _denoiser_parts(data_root, DENOISER_BATCH)
+    batch = to_device(batch, "cuda")
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.trainer.seed)
+        model = make_model(cfg).cuda()
+    d = cfg.denoiser
+    state = adamw_reference(model, d.lr, d.b1, d.b2, d.weight_decay)
+    encoder, ddpm = make_encoder("cuda"), DDPMParams.piecewise()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    row = {"phase": "profile_denoiser",
+           **_profile(lambda: train_step(state, batch, encoder, ddpm, gen))}
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,engine,merge,profile,train,"
-                                        "train_parity,profile_train")
+                                        "train_parity,profile_train,encoder_modes,"
+                                        "train_denoiser,denoiser_parity,profile_denoiser")
     phases = ap.parse_args().phases.split(",")
 
     import torch
@@ -582,64 +895,88 @@ def main() -> int:
     if "kernels" in phases:
         phase_kernels(results)
     launches = {}  # per path: the counts of its own run
-    if "engine" in phases or "merge" in phases:
+    data_root = os.path.join(REPO, ".smoke", "chip_smoke_data")
+    if {"engine", "merge", "profile", "encoder_modes"} & set(phases):
         t0 = time.perf_counter()
-        data_root = os.path.join(REPO, ".smoke", "chip_smoke_data")
         generate_dataset(data_root, num_shapes=8, seed=7, split="val", min_parts=3,
                          max_parts=12)
         emit({"phase": "data", "seconds": time.perf_counter() - t0})
+    if "engine" in phases or "merge" in phases:
         ops.reset_launch_counts()  # phase_engine resets again after its warm-up call
         if "engine" in phases:
             phase_engine(data_root)
         if "merge" in phases:
             phase_merge(data_root)  # its GPU run closes the main path's run
         launches["inference"] = ops.launch_counts()
-        _check(all(launches["inference"][k] > 0 for k in INFERENCE_KERNELS),
+        expected = [k for k in INFERENCE_KERNELS
+                    if "merge" in phases or k not in MERGE_ONLY_KERNELS]
+        _check(all(launches["inference"][k] > 0 for k in expected),
                f"kernel never launched: {launches['inference']}")
-        if "profile" in phases:
-            phase_profile(data_root)
+    if "profile" in phases:
+        phase_profile(data_root)
     if {"train", "train_parity", "profile_train"} & set(phases):
         t0 = time.perf_counter()
-        data_root = os.path.join(REPO, ".smoke", "chip_smoke_train_data")
-        generate_dataset(data_root, num_shapes=TRAIN_SHAPES, seed=11, split="train",
+        train_root = os.path.join(REPO, ".smoke", "chip_smoke_train_data")
+        generate_dataset(train_root, num_shapes=TRAIN_SHAPES, seed=11, split="train",
                          min_parts=3, max_parts=12)
         emit({"phase": "train_data", "seconds": time.perf_counter() - t0})
         if "train" in phases:
-            launches["train"] = phase_train(data_root)["launches"]
+            launches["train"] = phase_train(train_root)["launches"]
         if "train_parity" in phases:
-            phase_train_parity(data_root)
+            phase_train_parity(train_root)
         if "profile_train" in phases:
-            phase_profile_train(data_root)
+            phase_profile_train(train_root)
+    if "encoder_modes" in phases:
+        launches["encoder_modes"] = phase_encoder_modes(data_root)["launches"]
+    if {"train_denoiser", "denoiser_parity", "profile_denoiser"} & set(phases):
+        t0 = time.perf_counter()
+        den_root = os.path.join(REPO, ".smoke", "chip_smoke_denoiser_data")
+        for split, seed in (("train", 13), ("val", 14)):
+            generate_dataset(den_root, num_shapes=DENOISER_SHAPES, seed=seed, split=split,
+                             min_parts=3, max_parts=12)
+        emit({"phase": "denoiser_data", "seconds": time.perf_counter() - t0})
+        if "train_denoiser" in phases:
+            launches["train_denoiser"] = phase_train_denoiser(
+                den_root, "train" in phases)["launches"]
+        if "denoiser_parity" in phases:
+            phase_denoiser_parity(den_root)
+        if "profile_denoiser" in phases:
+            phase_profile_denoiser(den_root)
 
     if results:
         rows = []
         for name, recs in results.items():
-            # S, A, B: the sum over one step's shapes; F, G, N, M: the largest inference
-            # shape, with every shape (training's too) under "per_shape"
+            # S, R, A, B: the sum over one step's shapes; F, G, N, M, P: the largest shape of
+            # the first path, with every shape (training's too) under "per_shape"
             main_rec = [r for r in recs if r["path"] == recs[0]["path"]][-1]
-            agg = (lambda key: sum(r[key] for r in recs)) if name in "SAB" else (
+            agg = (lambda key: sum(r[key] for r in recs)) if name in "SRAB" else (
                 lambda key: main_rec[key])
             source, replaces = REPLACES[name]
             per_path = {path: counts[name] for path, counts in launches.items()
-                        if name in (INFERENCE_KERNELS if path == "inference" else
-                                    TRAIN_KERNELS)}
-            rows.append({
+                        if name in PATH_KERNELS[path]}
+            row = {
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
-                # each kernel's count on its own path (training for A and B)
-                "launches": per_path.get("train" if name in "AB" else "inference"),
+                # each kernel's count on its own path (training for A and B, the encoder
+                # modes for R, inference for the rest)
+                "launches": per_path.get(MAIN_PATH.get(name, "inference")),
                 "launches_per_path": per_path,
                 "max_abs_err": max(r["max_abs_err"] for r in recs),
                 "ms": agg("ms"), "plain_ms": agg("plain_ms"), "bound_ms": agg("bound_ms"),
                 "bound_by": main_rec["bound_by"],
                 "library_ms": agg("library_ms") if main_rec["library_ms"] is not None else None,
                 "shape": {"S": "SA1+SA2+SA3 of one denoise step",
+                          "R": "SA1+SA2+SA3 of one 'always' encode",
                           "A": "SA2+SA3 feature gathers of one training step",
                           "B": "chamfer + SA2 + SA3 backward of one training step"}.get(
                               name, main_rec["shape"]),
                 "per_shape": [{k: r[k] for k in ("path", "shape", "max_abs_err", "ms",
-                                                 "plain_ms", "bound_ms", "library_ms")}
+                                                 "plain_ms", "bound_ms", "library_ms")
+                               + (("f_ms",) if name == "P" else ())}
                               for r in recs],
-            })
+            }
+            if name == "P":
+                row["f_ms"] = main_rec["f_ms"]  # kernel F on the same input
+            rows.append(row)
         print(json.dumps({"kernels": rows}), flush=True)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,12 +5,14 @@ The JAX package beside it is the reference this port is held against. This packa
 package's numpy-only modules it keeps its own copy.
 
 * ``utils``     — quaternion/SE(3) transforms, part compaction, metrics, the typed config.
-* ``models``    — DDPM scheduler, embeddings, the frozen VQ-VAE encoder, the denoiser and
-                  verifier transformers (``nn.Module``s with the original repo's keys).
-* ``ops``       — geometry ops; each TPU Pallas kernel of the inference path is a CUDA kernel
+* ``models``    — DDPM scheduler, embeddings, the VQ-VAE, the denoiser and verifier
+                  transformers (``nn.Module``s with the original repo's keys).
+* ``ops``       — geometry ops; each of the JAX package's Pallas kernels is a CUDA kernel
                   for Hopper under ``csrc/``, with a plain PyTorch version beside it.
-* ``inference`` — the auto-agglomerative denoise-verify-merge engine and its entry point.
-* ``data``      — synthetic fixtures, the test-mode dataset, the loader, part bucketing.
+* ``inference`` — the frozen encoder, the sampler, the auto-agglomerative
+                  denoise-verify-merge engine and its entry point.
+* ``training``  — stage-1 VQ-VAE and stage-2 denoiser training, checkpoints, device parity.
+* ``data``      — synthetic fixtures, the datasets, the loader, part bucketing.
 * ``convert``   — flax parameter trees -> torch ``state_dict``s.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

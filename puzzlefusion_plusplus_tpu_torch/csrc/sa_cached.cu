@@ -17,50 +17,17 @@
 // max over K is folded into each W3 pass through a small shared reduction, so SA3's
 // 256x512 W3 (512 KB) is streamed in column chunks and never held whole. Shared memory
 // reaches 149 KB at SA3, above the default 48 KB, hence cudaFuncSetAttribute per launch.
-#include "common.cuh"
+// Layers 2-3 and the max over K are sa_common.cuh's mlp_tail, shared with kernel R.
+#include "sa_common.cuh"
 
 namespace {
 
-constexpr int kRows = 64;         // (centre, neighbour) rows per block
-constexpr int kHS = kRows + 4;    // channel stride of h1/h2 in shared memory (float4-aligned)
-constexpr int kThreads = 256;     // 16 row groups x 16 column groups, 4x4 outputs each
-constexpr int kKT = 32;           // input channels per staged weight tile
-constexpr int kCT = 64;           // output columns per pass
+using sa::kHS;
+using sa::kRows;
+using sa::kThreads;
 
 size_t smem_bytes(int C1, int C2) {
-  return sizeof(float) *
-         ((size_t)(C1 + C2) * kHS + kKT * kCT + 16 * kCT + kRows * 3 + kRows);
-}
-
-// acc[i][j] = sum_k hin[k][rg*4 + i] * W[k][c0 + cg*4 + j] for k < Cin.
-__device__ __forceinline__ void dense_pass(const float* hin, int Cin,
-                                           const float* __restrict__ W, int Cout, int c0,
-                                           float* ws, float (&acc)[4][4]) {
-  const int tid = threadIdx.x, cg = tid % 16, rg = tid / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < Cin; k0 += kKT) {
-    __syncthreads();  // earlier readers of ws (and writers of hin) are done
-    for (int v = tid; v < kKT * kCT / 4; v += kThreads) {
-      const int kk = v / (kCT / 4), cc = (v % (kCT / 4)) * 4;
-      *reinterpret_cast<float4*>(&ws[kk * kCT + cc]) =
-          *reinterpret_cast<const float4*>(&W[(size_t)(k0 + kk) * Cout + c0 + cc]);
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kKT; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&hin[(k0 + kk) * kHS + rg * 4]);
-      const float4 w = *reinterpret_cast<const float4*>(&ws[kk * kCT + cg * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float wv[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
-    }
-  }
+  return sizeof(float) * ((size_t)(C1 + C2) * kHS + sa::kTailScratch + kRows * 3 + kRows);
 }
 
 __global__ void __launch_bounds__(kThreads) sa_cached_kernel(
@@ -72,15 +39,13 @@ __global__ void __launch_bounds__(kThreads) sa_cached_kernel(
   extern __shared__ float4 smem4[];
   float* h1 = reinterpret_cast<float*>(smem4);  // [C1][kHS]
   float* h2 = h1 + (size_t)C1 * kHS;             // [C2][kHS]
-  float* ws = h2 + (size_t)C2 * kHS;             // [kKT][kCT]
-  float* red = ws + kKT * kCT;                   // [16][kCT] per-row-group column maxima
-  float* gs = red + 16 * kCT;                    // [kRows][3]
+  float* scratch = h2 + (size_t)C2 * kHS;        // the tail's weight tile and maxima
+  float* gs = scratch + sa::kTailScratch;        // [kRows][3]
   int* gi = reinterpret_cast<int*>(gs + kRows * 3);
 
   const int m = blockIdx.y;
-  const int cpb = kRows / K;  // centres per block
-  const int s0 = blockIdx.x * cpb;
-  const int tid = threadIdx.x, cg = tid % 16, rg = tid / 16;
+  const int s0 = blockIdx.x * (kRows / K);
+  const int tid = threadIdx.x;
 
   for (int r = tid; r < kRows; r += kThreads) {
     const int s = s0 + r / K;
@@ -102,41 +67,7 @@ __global__ void __launch_bounds__(kThreads) sa_cached_kernel(
     h1[c * kHS + r] = fmaxf(v + b1[c], 0.f);
   }
 
-  float acc[4][4];
-  // layer 2 -> h2
-  for (int c0 = 0; c0 < C2; c0 += kCT) {
-    dense_pass(h1, C1, w2, C2, c0, ws, acc);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + cg * 4 + j;
-      const float bias = b2[c];
-      *reinterpret_cast<float4*>(&h2[c * kHS + rg * 4]) =
-          make_float4(fmaxf(acc[0][j] + bias, 0.f), fmaxf(acc[1][j] + bias, 0.f),
-                      fmaxf(acc[2][j] + bias, 0.f), fmaxf(acc[3][j] + bias, 0.f));
-    }
-  }
-
-  // layer 3 + max over the K neighbours of each centre, one 64-column pass at a time
-  const int gpc = K / 4;  // row groups per centre
-  for (int c0 = 0; c0 < C3; c0 += kCT) {
-    dense_pass(h2, C2, w3, C3, c0, ws, acc);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float bias = b3[c0 + cg * 4 + j];
-      float mx = 0.f;  // every term is a ReLU output, so 0 is the identity of this max
-#pragma unroll
-      for (int i = 0; i < 4; ++i) mx = fmaxf(mx, fmaxf(acc[i][j] + bias, 0.f));
-      red[rg * kCT + cg * 4 + j] = mx;
-    }
-    __syncthreads();
-    for (int e = tid; e < cpb * kCT; e += kThreads) {
-      const int ct = e / kCT, col = e % kCT, s = s0 + ct;
-      if (s >= S) continue;
-      float mx = red[(ct * gpc) * kCT + col];
-      for (int q = 1; q < gpc; ++q) mx = fmaxf(mx, red[(ct * gpc + q) * kCT + col]);
-      out[((size_t)m * S + s) * C3 + c0 + col] = mx;
-    }
-  }
+  sa::mlp_tail(h1, h2, scratch, w2, b2, w3, b3, out, m, S, K, s0, C1, C2, C3);
 }
 
 }  // namespace

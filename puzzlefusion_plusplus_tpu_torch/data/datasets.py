@@ -1,11 +1,10 @@
 """Dataset readers over the pc_data / matching_data .npz schemas.
 
-Copies of ``VQVAEDataset`` and of ``DenoiserDataset`` for its ``val`` and ``test`` modes
-(the denoiser's multi-reference training curriculum waits for its training slice) from
+Copies of ``VQVAEDataset`` and ``DenoiserDataset`` (train, val and test modes) from
 ``puzzlefusion_plusplus_tpu/data/datasets.py``, with the per-part augmentation done in numpy
-(the numpy fallback of ``utils/native.py::augment_parts_cpu``). Rotations are drawn in the
-reference rng order, so the same loader seed yields the same samples as the JAX package's
-datasets.
+(the numpy fallback of ``utils/native.py::augment_parts_cpu``). Rotations and the training
+curriculum's draws come in the reference rng order, so the same loader seed yields the same
+samples as the JAX package's datasets.
 """
 
 from __future__ import annotations
@@ -14,6 +13,8 @@ import os
 
 import numpy as np
 from scipy.spatial.transform import Rotation as R
+
+from puzzlefusion_plusplus_tpu_torch.models.scheduler import piecewise_betas
 
 
 def _draw_rotations(num: int, rng: np.random.Generator) -> tuple[np.ndarray, np.ndarray]:
@@ -106,23 +107,35 @@ class VQVAEDataset:
 
 
 class DenoiserDataset:
+    """Whole-shape random rotation, recentre on the reference part, per-part recentre and
+    random rotation giving the GT 7-DoF pose, per-part max-abs normalisation capturing
+    part_scale, pad to ``max_num_part`` (reference denoiser/dataset/dataset.py:163-274).
+    ``train`` adds the multi-reference-part curriculum; ``test`` adds the dense matching
+    arrays of the engine."""
+
     def __init__(
         self,
         data_dir: str,
-        mode: str = "test",  # val | test
+        mode: str = "test",  # train | val | test
         matching_data_path: str | None = None,
         max_num_part: int = 20,
+        multiple_ref_parts: bool = True,
         overfit: int = -1,
         max_area_points_per_part: int | None = None,
         max_corr: int = 128,
         max_edges_dense: int = 380,
     ):
-        if mode not in ("val", "test"):
-            raise ValueError(f"mode {mode!r}: the port serves val/test data only")
+        if mode not in ("train", "val", "test"):
+            raise ValueError(f"mode must be train, val or test, got {mode!r}")
         if mode == "test" and matching_data_path is None:
             raise ValueError("test mode needs matching_data_path")
         self.mode = mode
         self.max_num_part = max_num_part
+        self.multiple_ref_parts = multiple_ref_parts
+        # forward-process arrays of the curriculum's perturbation (dataset.py:263-271)
+        abar = np.cumprod(1.0 - piecewise_betas().astype(np.float64))
+        self._sqrt_abar = np.sqrt(abar).astype(np.float32)
+        self._sqrt_1m_abar = np.sqrt(1.0 - abar).astype(np.float32)
         self.A = max_area_points_per_part
         self.K = max_corr
         self.E = max_edges_dense
@@ -149,6 +162,30 @@ class DenoiserDataset:
 
     def num_parts_list(self) -> np.ndarray:
         return np.asarray([int(s["num_parts"]) for s in self.data_list], np.int32)
+
+    def _curriculum_ref_parts(self, d: dict, rng: np.random.Generator) -> dict:
+        """Multi-reference-part sampling and its noise perturbation (dataset.py:228-271):
+        with probability 1/2 (never for 2 parts), some parts connected to the reference
+        part become references too, their poses noised to a timestep below 50."""
+        if d["num_parts"] == 2 or rng.random() < 0.5:
+            return d
+        ref_part = d["ref_part"]
+        ref_idx = np.where(ref_part)[0]
+        connect = np.where(d["graph"][ref_idx, :])[1]
+        larger = [p for p in connect if d["part_scale"][p] > 0.05]
+        if not larger:
+            return d
+        # the reference draws the count from the larger parts and the parts from all
+        # connected ones; kept as it is
+        sample_num = rng.integers(0, len(larger))
+        sampled = rng.choice(connect, sample_num, replace=False)
+        ref_part[sampled] = True
+        t = int(rng.integers(0, 50))
+        for key in ("part_trans", "part_rots"):
+            x = d[key][sampled]
+            noise = rng.standard_normal(x.shape).astype(np.float32)
+            d[key][sampled] = self._sqrt_abar[t] * x + self._sqrt_1m_abar[t] * noise
+        return d
 
     def _densify_matching(self, d: dict, matching: dict) -> dict:
         """Ragged matching arrays -> dense fixed-shape arrays in the sample frame."""
@@ -254,4 +291,6 @@ class DenoiserDataset:
         d["init_pose_t"] = pose_gt_t.astype(np.float32)
         if self.mode == "test":
             d = self._densify_matching(d, s["matching"])
+        elif self.mode == "train" and self.multiple_ref_parts:
+            d = self._curriculum_ref_parts(d, rng)
         return d

@@ -32,7 +32,7 @@ from puzzlefusion_plusplus_tpu_torch.models.scheduler import (
     step as ddpm_step,
 )
 from puzzlefusion_plusplus_tpu_torch.ops.chamfer import masked_pairwise_nn
-from puzzlefusion_plusplus_tpu_torch.ops.fps import farthest_point_sample
+from puzzlefusion_plusplus_tpu_torch.ops.fps import farthest_point_sample_per_cloud
 from puzzlefusion_plusplus_tpu_torch.ops.grouping import index_points
 from puzzlefusion_plusplus_tpu_torch.ops.normals import estimate_pointcloud_normals
 from puzzlefusion_plusplus_tpu_torch.utils.transforms import (
@@ -312,7 +312,8 @@ def merge_geometry(ctx: MergeCtx, node_valids: torch.Tensor, cfg: AgglConfig):
     flat_pts = ctx.transformed_pts.reshape(B, P * N, 3)
     fps_mask = (_take(member, sel)[..., None] & node_valids[:, None, :, None]
                 & keep[:, None]).reshape(B, K, P * N) & sel_valid[..., None]
-    fps_idx = farthest_point_sample(
+    # few clouds of many points: kernel P keeps each one resident on chip
+    fps_idx = farthest_point_sample_per_cloud(
         flat_pts[:, None].expand(B, K, P * N, 3).reshape(B * K, P * N, 3), N,
         mask=fps_mask.reshape(B * K, P * N),
     ).reshape(B, K * N)

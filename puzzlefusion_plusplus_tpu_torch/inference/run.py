@@ -23,17 +23,12 @@ from puzzlefusion_plusplus_tpu_torch.data.datasets import DenoiserDataset
 from puzzlefusion_plusplus_tpu_torch.data.loader import Loader
 from puzzlefusion_plusplus_tpu_torch.inference.engine import AgglConfig, auto_agglomerate_batch
 from puzzlefusion_plusplus_tpu_torch.inference.sampler import FrozenEncoder
-from puzzlefusion_plusplus_tpu_torch.models.denoiser import DenoiserTransformer
+from puzzlefusion_plusplus_tpu_torch.models.denoiser import make_denoiser
 from puzzlefusion_plusplus_tpu_torch.models.scheduler import DDPMParams
 from puzzlefusion_plusplus_tpu_torch.models.verifier import VerifierTransformer
 from puzzlefusion_plusplus_tpu_torch.models.vqvae import VQVAE
 from puzzlefusion_plusplus_tpu_torch.utils.config import Config, config_from_argv
-from puzzlefusion_plusplus_tpu_torch.utils.metrics import (
-    calc_part_acc,
-    calc_shape_cd,
-    rot_metrics,
-    trans_metrics,
-)
+from puzzlefusion_plusplus_tpu_torch.utils.metrics import assembly_metrics
 
 SAMPLE_KEYS = (
     "part_pcs", "part_trans", "part_rots", "part_scale", "part_valids", "ref_part",
@@ -65,11 +60,7 @@ def make_models(cfg: Config):
         torch.manual_seed(cfg.trainer.seed)
         vqvae = VQVAE(cfg.ae.n_embeddings, cfg.ae.embedding_dim, cfg.ae.num_point,
                       cfg.ae.num_dim, cfg.ae.local_decode_pts)
-        denoiser = DenoiserTransformer(
-            cfg.denoiser.embed_dim, cfg.denoiser.num_layers, cfg.denoiser.num_heads,
-            cfg.denoiser.num_dim, cfg.data.max_num_part, cfg.denoiser.multires,
-            num_ada_embeds=max(6 * cfg.denoiser.embed_dim, cfg.denoiser.ddpm_train_steps),
-        )
+        denoiser = make_denoiser(cfg)
         verifier = VerifierTransformer(cfg.verifier.embed_dim, cfg.verifier.num_layers,
                                        cfg.verifier.num_heads, cfg.verifier.max_nodes,
                                        cfg.verifier.num_features)
@@ -109,26 +100,12 @@ def build_engine_fn(cfg: Config, device=None, state_dicts: dict | None = None,
         out = auto_agglomerate_batch(denoiser, verifier, encoder, ddpm, t, acfg,
                                      noise=noise, generator=generator)
         pts = t["part_pcs"] * t["part_scale"][..., None]  # original local clouds
-        gt_trans, gt_rots, valids = t["part_trans"], t["part_rots"], t["part_valids"]
-        acc, acc_per_part, _ = calc_part_acc(pts, out["pred_trans"], gt_trans,
-                                             out["pred_rots"], gt_rots, valids)
-        shape_cd = calc_shape_cd(pts, out["pred_trans"], gt_trans, out["pred_rots"],
-                                 gt_rots, valids)
-        # ref parts are pinned to GT; nonref excludes those give-away parts (all-ref -> 1)
-        nonref = (valids == 1) & ~t["ref_part"].bool()
-        n_nonref = nonref.sum(-1)
-        acc_nonref = torch.where(
-            n_nonref > 0, (acc_per_part & nonref).sum(-1) / n_nonref.clamp_min(1),
-            torch.ones_like(acc),
-        )
         res = {
-            "part_acc": acc, "part_acc_nonref": acc_nonref, "shape_cd": shape_cd,
-            "rmse_r": rot_metrics(out["pred_rots"], gt_rots, valids, "rmse"),
-            "rmse_t": trans_metrics(out["pred_trans"], gt_trans, valids, "rmse"),
-            "acc_per_part": acc_per_part,
+            **assembly_metrics(pts, out["pred_trans"], out["pred_rots"], t["part_trans"],
+                               t["part_rots"], t["part_valids"], t["ref_part"]),
             "trajectory": out["trajectory"],
             "n_merged_pairs": out["final_state"].adj.sum((-1, -2)) // 2,
-            "n_iters": torch.full_like(n_nonref, out["n_iters"]),
+            "n_iters": torch.full_like(t["num_parts"], out["n_iters"]),
         }
         return {k: v.cpu().numpy() for k, v in res.items()}
 

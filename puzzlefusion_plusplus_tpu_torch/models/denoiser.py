@@ -1,5 +1,8 @@
 """SE(3) pose-diffusion denoiser transformer (port of
-``puzzlefusion_plusplus_tpu/models/denoiser.py``), eval mode.
+``puzzlefusion_plusplus_tpu/models/denoiser.py``).
+
+Dropout sits where the JAX model has it (attention outputs, the GEGLU feed-forward, the
+per-part position encoding); it is active in ``train()`` mode only.
 
 Parameters carry the original repo's keys (``transformer_layers.{i}.norm1.emb``,
 ``...self_attn.to_q``, ``...to_out.0``, ``...ff.net.0.proj``, ``mlp_out_trans.{0,2,4}``), which
@@ -50,17 +53,17 @@ def attention(q, k, v, heads: int, bias):
 class Attention(nn.Module):
     """diffusers-style attention: biasless q/k/v, biased out-projection ``to_out.0``."""
 
-    def __init__(self, dim: int, heads: int):
+    def __init__(self, dim: int, heads: int, dropout: float = 0.0):
         super().__init__()
         self.heads = heads
         self.to_q = nn.Linear(dim, dim, bias=False)
         self.to_k = nn.Linear(dim, dim, bias=False)
         self.to_v = nn.Linear(dim, dim, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(dim, dim), nn.Dropout(0.0)])
+        self.to_out = nn.ModuleList([nn.Linear(dim, dim), nn.Dropout(dropout)])
 
     def forward(self, x, bias):
         out = attention(self.to_q(x), self.to_k(x), self.to_v(x), self.heads, bias)
-        return self.to_out[0](out)
+        return self.to_out[1](self.to_out[0](out))
 
 
 class GEGLU(nn.Module):
@@ -74,26 +77,26 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
-    def __init__(self, dim: int, mult: int = 4):
+    def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0):
         super().__init__()
-        self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Dropout(0.0),
+        self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Dropout(dropout),
                                   nn.Linear(dim * mult, dim)])
 
     def forward(self, x):
-        return self.net[2](self.net[0](x))
+        return self.net[2](self.net[1](self.net[0](x)))
 
 
 class EncoderLayer(nn.Module):
     """AdaLN -> part-local attention -> AdaLN -> global attention -> LN -> GEGLU FF."""
 
-    def __init__(self, dim: int, heads: int, num_ada: int):
+    def __init__(self, dim: int, heads: int, num_ada: int, dropout: float = 0.0):
         super().__init__()
         self.norm1 = AdaLayerNorm(dim, num_ada)
-        self.self_attn = Attention(dim, heads)
+        self.self_attn = Attention(dim, heads, dropout)
         self.norm2 = AdaLayerNorm(dim, num_ada)
-        self.global_attn = Attention(dim, heads)
+        self.global_attn = Attention(dim, heads, dropout)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
-        self.ff = FeedForward(dim)
+        self.ff = FeedForward(dim, dropout=dropout)
 
     def forward(self, x, self_bias, gen_bias, timestep):
         x = x + self.self_attn(self.norm1(x, timestep), self_bias)
@@ -116,14 +119,18 @@ class DenoiserTransformer(nn.Module):
         max_parts: int = 20,
         multires: int = 10,
         num_ada_embeds: int = 3072,
+        dropout: float = 0.2,
+        pe_dropout: float = 0.1,
     ):
         super().__init__()
         self.embed_dim = embed_dim
         self.multires = multires
         self.ref_part_emb = nn.Embedding(2, embed_dim)
         self.transformer_layers = nn.ModuleList(
-            [EncoderLayer(embed_dim, num_heads, num_ada_embeds) for _ in range(num_layers)]
+            [EncoderLayer(embed_dim, num_heads, num_ada_embeds, dropout)
+             for _ in range(num_layers)]
         )
+        self.pe_dropout = nn.Dropout(pe_dropout)
         nerf = 1 + 2 * multires
         self.shape_embedding = nn.Linear(num_dim + 3 * nerf + nerf, embed_dim)
         self.param_fc = nn.Linear(7 * nerf, embed_dim)
@@ -144,7 +151,7 @@ class DenoiserTransformer(nn.Module):
         x_emb = self.param_fc(nerf_embed(x, self.multires))
         x_emb = x_emb + self.ref_part_emb.weight[ref_part.long()]
         data = x_emb[:, :, None, :] + shape_emb + self.pe[:P][None, :, None, :]
-        data = data.reshape(B, T, C)
+        data = self.pe_dropout(data).reshape(B, T, C)
 
         part_id = torch.arange(T, device=x.device) // L
         zero = torch.zeros((), dtype=data.dtype, device=x.device)
@@ -157,3 +164,15 @@ class DenoiserTransformer(nn.Module):
 
         out = data.reshape(B, P, L, C).mean(dim=2)
         return torch.cat([self.mlp_out_trans(out), self.mlp_out_rot(out)], dim=-1)
+
+
+def make_denoiser(cfg) -> DenoiserTransformer:
+    """The denoiser at a ``Config``'s widths. The AdaLN tables have the reference's
+    6 * embed_dim rows (3072 at width 512, the released checkpoints' size), and at least one
+    per training timestep, so that small test widths still index every timestep."""
+    d = cfg.denoiser
+    return DenoiserTransformer(
+        d.embed_dim, d.num_layers, d.num_heads, d.num_dim, cfg.data.max_num_part, d.multires,
+        num_ada_embeds=max(6 * d.embed_dim, d.ddpm_train_steps), dropout=d.dropout,
+        pe_dropout=d.pe_dropout,
+    )

@@ -50,6 +50,15 @@ def leading_timesteps(num_train_timesteps: int, num_inference_steps: int) -> np.
     return (np.arange(num_inference_steps) * step_ratio).round()[::-1].copy().astype(np.int32)
 
 
+def add_noise(params: DDPMParams, sample: torch.Tensor, noise: torch.Tensor,
+              t: torch.Tensor) -> torch.Tensor:
+    """Forward-process noising sqrt(abar_t) x0 + sqrt(1 - abar_t) eps, in float32; ``t``
+    integer timesteps over sample's leading dims (e.g. [B] against [B, P, 7])."""
+    abar = torch.as_tensor(params.alphas_cumprod, device=sample.device)[t.long()]
+    abar = abar.reshape(abar.shape + (1,) * (sample.dim() - abar.dim()))
+    return torch.sqrt(abar) * sample + torch.sqrt(1.0 - abar) * noise
+
+
 def step_coefficients(params: DDPMParams, t: int, num_inference_steps: int):
     """float32 (pred_x0 sample weight, pred_x0 noise weight, x0 coeff, sample coeff, std)."""
     f32 = np.float32

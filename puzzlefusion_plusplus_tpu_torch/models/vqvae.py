@@ -126,15 +126,40 @@ class SetAbstraction(nn.Module):
             cin = c
 
     def forward(self, xyz: torch.Tensor, points: torch.Tensor | None,
-                bn_mask: torch.Tensor | None = None):
-        """xyz [B, N, 3], points [B, N, D] or None -> (new_xyz [B, S, 3], feats [B, S, C])."""
-        fps_idx, group_idx = sa_stage_indices(xyz, self.npoint, self.radius, self.nsample)
-        new_xyz = index_points(xyz, fps_idx)
-        h = index_points(xyz, group_idx) - new_xyz[:, :, None, :]
-        if points is not None:  # conv0 sees cat(grouped_xyz, grouped_feats)
-            h = torch.cat([h, index_points_matmul_safe(points, group_idx)], dim=-1)
-        for conv, bn in zip(self.mlp_convs, self.mlp_bns):
-            h = torch.relu(bn(F.linear(h, conv.weight.flatten(1), conv.bias), bn_mask))
+                bn_mask: torch.Tensor | None = None, idx=None, geom=None,
+                rot: torch.Tensor | None = None):
+        """xyz [B, N, 3], points [B, N, D] or None -> (new_xyz [B, S, 3], feats [B, S, C]).
+
+        ``idx``: cached (fps_idx, group_idx) of this stage, which skip FPS and the ball
+        query (they are invariant under rigid rotation, so they may come from any rotation
+        of ``xyz``). ``geom``: cached (new_xyz, grouped_rel) from ``pn2_grouping_geometry``,
+        which skip the xyz gathers (``xyz`` is then unused). With ``rot``
+        [B, 3, 3] the cached geometry is unrotated and the rotation is folded into conv0's
+        xyz block: conv0(g R^T) = g (R^T K_xyz), and the centres come out rotated."""
+        fps_idx, group_idx = (idx if idx is not None else
+                              sa_stage_indices(xyz, self.npoint, self.radius, self.nsample))
+        if geom is not None:
+            new_xyz, grouped_xyz = geom
+            if rot is not None:
+                new_xyz = torch.einsum("bsd,bed->bse", new_xyz, rot)
+        else:
+            new_xyz = index_points(xyz, fps_idx)
+            grouped_xyz = index_points(xyz, group_idx) - new_xyz[:, :, None, :]
+        # conv0 sees cat(grouped_xyz, grouped_feats); the features go through kernel A
+        feats = None if points is None else index_points_matmul_safe(points, group_idx)
+        conv0 = self.mlp_convs[0]
+        w0 = conv0.weight.flatten(1)  # [C, 3 + D]
+        if geom is not None and rot is not None:
+            w_eff = torch.einsum("bed,ce->bdc", rot, w0[:, :3])  # R^T K_xyz, [B, 3, C]
+            h = torch.einsum("bskd,bdc->bskc", grouped_xyz, w_eff)
+            h = h + (conv0.bias if feats is None else F.linear(feats, w0[:, 3:], conv0.bias))
+        else:
+            h = grouped_xyz if feats is None else torch.cat([grouped_xyz, feats], dim=-1)
+            h = F.linear(h, w0, conv0.bias)
+        for j, (conv, bn) in enumerate(zip(self.mlp_convs, self.mlp_bns)):
+            if j:
+                h = F.linear(h, conv.weight.flatten(1), conv.bias)
+            h = torch.relu(bn(h, bn_mask))
         return new_xyz, h.amax(dim=2)
 
 
@@ -158,17 +183,22 @@ class PN2(nn.Module):
         self.fc2 = nn.Linear(256, 512)
         self.fc3 = nn.Linear(512, local_decode_pts * 3)
 
-    def _stage(self, sa: SetAbstraction, xyz, points, bn_mask):
+    def _stage(self, sa: SetAbstraction, *args):
         if self.remat and torch.is_grad_enabled():
-            return checkpoint(sa, xyz, points, bn_mask, use_reentrant=False,
+            return checkpoint(sa, *args, use_reentrant=False,
                               context_fn=lambda: (contextlib.nullcontext(), _stats_frozen(sa)))
-        return sa(xyz, points, bn_mask)
+        return sa(*args)
 
-    def encode(self, xyz: torch.Tensor, bn_mask: torch.Tensor | None = None):
-        """xyz [B, N, 3] -> (z_e [B, num_point, num_dim], token centres [B, num_point, 3])."""
-        l1_xyz, l1 = self._stage(self.sa1, xyz, None, bn_mask)
-        l2_xyz, l2 = self._stage(self.sa2, l1_xyz, l1, bn_mask)
-        l3_xyz, l3 = self._stage(self.sa3, l2_xyz, l2, bn_mask)
+    def encode(self, xyz: torch.Tensor, bn_mask: torch.Tensor | None = None, cached_idx=None,
+               cached_geom=None, rot: torch.Tensor | None = None):
+        """xyz [B, N, 3] -> (z_e [B, num_point, num_dim], token centres [B, num_point, 3]).
+        ``cached_idx`` / ``cached_geom`` (per stage, from ``pn2_grouping_geometry``) and
+        ``rot`` are ``SetAbstraction.forward``'s ``idx`` / ``geom`` / ``rot``."""
+        i1, i2, i3 = cached_idx if cached_idx is not None else (None, None, None)
+        g1, g2, g3 = cached_geom if cached_geom is not None else (None, None, None)
+        l1_xyz, l1 = self._stage(self.sa1, xyz, None, bn_mask, i1, g1, rot)
+        l2_xyz, l2 = self._stage(self.sa2, l1_xyz, l1, bn_mask, i2, g2, rot)
+        l3_xyz, l3 = self._stage(self.sa3, l2_xyz, l2, bn_mask, i3, g3, rot)
         return F.linear(l3, self.conv6.weight.flatten(1), self.conv6.bias), l3_xyz
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
@@ -184,17 +214,21 @@ class VectorQuantizer(nn.Module):
         self.embedding = nn.Embedding(n_e, e_dim)
         nn.init.uniform_(self.embedding.weight, -1.0 / n_e, 1.0 / n_e)
 
+    def nearest(self, z: torch.Tensor) -> torch.Tensor:
+        """z [..., e_dim] -> index of the nearest code (expanded L2, first minimum on ties)."""
+        cb = self.embedding.weight
+        flat = z.reshape(-1, self.e_dim)
+        d = flat.square().sum(1, keepdim=True) + cb.square().sum(1) - 2.0 * flat @ cb.T
+        return d.argmin(1).reshape(z.shape[:-1])
+
     def forward(self, z: torch.Tensor, mask: torch.Tensor | None = None):
         """z [B, T, e_dim] -> (embedding_loss, z_q (straight-through), perplexity,
         codes [B, T]). ``mask`` [B] {0,1}: losses and perplexity over the masked samples."""
         cb = self.embedding.weight
-        flat = z.reshape(-1, self.e_dim)
-        d = flat.square().sum(1, keepdim=True) + cb.square().sum(1) - 2.0 * flat @ cb.T
-        idx = d.argmin(1)
-        z_q = cb[idx].reshape(z.shape)
+        codes = self.nearest(z)
+        z_q = cb[codes]
         sq_to_code = (z_q.detach() - z).square()
         sq_to_z = (z_q - z.detach()).square()
-        codes = idx.reshape(z.shape[:-1])
         onehot = F.one_hot(codes, self.n_e).to(z.dtype)  # [B, T, n_e]
         if mask is None:
             loss = sq_to_code.mean() + self.beta * sq_to_z.mean()
@@ -241,6 +275,18 @@ class VQVAE(nn.Module):
         z_q = z_q.reshape(B, L, -1)
         return {"embedding_loss": loss, "pc_offset": self.pn2.decode(z_q),
                 "perplexity": perplexity, "xyz": xyz, "z_q": z_q, "code_idx": codes}
+
+    def encode(self, part_pcs: torch.Tensor, cached_idx=None, cached_geom=None,
+               rot: torch.Tensor | None = None) -> dict:
+        """The composable encode of the frozen encoder (eval-mode BatchNorm when the module is
+        in eval mode): part_pcs [B, N, 3] -> z_q [B, L, num_dim] (the nearest codes, chosen
+        in fp32), token centres xyz [B, L, 3] and the unquantized z_e. The cached arguments
+        are ``PN2.encode``'s."""
+        z_e, xyz = self.pn2.encode(part_pcs, None, cached_idx, cached_geom, rot)
+        B, L, _ = z_e.shape
+        codes = self.vector_quantization.nearest(z_e.float().reshape(B, 4 * L, -1))
+        z_q = self.vector_quantization.embedding.weight[codes].reshape(B, L, -1)
+        return {"z_q": z_q, "xyz": xyz, "z_e": z_e}
 
     def reconstruction(self, out: dict) -> torch.Tensor:
         """Offsets + token centres -> [B, num_point * local_decode_pts, 3]."""

@@ -10,16 +10,23 @@ kernel (counting the launch in ``<wrapper>.launches``) on CUDA tensors.
 | M | ``chamfer.masked_pairwise_nn`` | ``csrc/nn.cu`` |
 | A | ``gather.gather_points_approx`` (G's kernel, its own count) | ``csrc/gather.cu`` |
 | B | ``gather.scatter_add`` (backward of G, A and of N's target side) | ``csrc/scatter_add.cu`` |
+| R | ``sa_fused.sa_stage_fused`` (the frozen encoder's ``fused='always'`` mode) | ``csrc/sa_raw.cu`` |
+| P | ``fps.farthest_point_sample_per_cloud`` (the engine's merge resample) | ``csrc/fps.cu`` |
+
+S and R share their layers 2-3 and max over K (``csrc/sa_common.cuh``); P returns F's indices.
 """
 
 from puzzlefusion_plusplus_tpu_torch.ops.chamfer import masked_pairwise_nn, nn_distance
-from puzzlefusion_plusplus_tpu_torch.ops.fps import farthest_point_sample
+from puzzlefusion_plusplus_tpu_torch.ops.fps import (
+    farthest_point_sample,
+    farthest_point_sample_per_cloud,
+)
 from puzzlefusion_plusplus_tpu_torch.ops.gather import (
     gather_points,
     gather_points_approx,
     scatter_add,
 )
-from puzzlefusion_plusplus_tpu_torch.ops.sa_fused import sa_stage_fused_cached
+from puzzlefusion_plusplus_tpu_torch.ops.sa_fused import sa_stage_fused, sa_stage_fused_cached
 
 KERNEL_WRAPPERS = {
     "S": sa_stage_fused_cached,
@@ -29,6 +36,8 @@ KERNEL_WRAPPERS = {
     "M": masked_pairwise_nn,
     "A": gather_points_approx,
     "B": scatter_add,
+    "R": sa_stage_fused,
+    "P": farthest_point_sample_per_cloud,
 }
 
 

@@ -29,12 +29,16 @@ SIGNATURES = {
         "pfpp_gather": [_P, _P, _P, _LL, _LL, _LL, _LL, _P],
         "pfpp_error_string": [_I],
     },
-    "fps": {"pfpp_fps": [_P, _P, _I, _I, _I, _P, _P]},
+    "fps": {
+        "pfpp_fps": [_P, _P, _I, _I, _I, _P, _P],
+        "pfpp_fps_cluster": [_P, _P, _I, _I, _I, _P, _P],
+    },
     "nn": {
         "pfpp_nn_distance": [_P, _P, _I, _I, _I, _P, _P, _P],
         "pfpp_masked_pairwise_nn": [_P, _P, _I, _I, _I, _P, _P],
     },
     "sa_cached": {"pfpp_sa_cached": [_P] * 10 + [_I] * 7 + [_P]},
+    "sa_raw": {"pfpp_sa_raw": [_P] * 10 + [_I] * 8 + [_P]},
     "scatter_add": {
         "pfpp_scatter_add": [_P, _P, _P, _I, _I, _LL, _I, _P],
         "pfpp_scatter_add_tile": [_I, _I],
@@ -60,10 +64,8 @@ def _stale(name: str) -> bool:
     lib = os.path.join(BUILD_DIR, f"lib{name}.so")
     if not os.path.exists(lib):
         return True
-    newest = max(
-        os.path.getmtime(os.path.join(CSRC, f))
-        for f in (f"{name}.cu", "common.cuh")
-    )
+    headers = [f for f in os.listdir(CSRC) if f.endswith(".cuh")]
+    newest = max(os.path.getmtime(os.path.join(CSRC, f)) for f in [f"{name}.cu", *headers])
     return os.path.getmtime(lib) < newest
 
 

@@ -1,12 +1,16 @@
-"""Fused set-abstraction stage over cached geometry: kernel S (``csrc/sa_cached.cu``) and
-its plain version.
+"""Fused set-abstraction stages: kernels S (``csrc/sa_cached.cu``) and R
+(``csrc/sa_raw.cu``) and their plain versions. Bound: FP32 operations on the CUDA cores
+(see the source notes). Neither kernel has a backward: the frozen encoder needs none.
 
-Replaces ``puzzlefusion_plusplus_tpu/ops/sa_fused_pallas.py::sa_stage_fused_cached``
-(``_sa_cached_kernel``) with its ``'onehot'`` semantics, an exact gather. Per cloud m and
-centre s: h1 = relu(g_rel @ W_eff[m] + (feats[m] @ K_feat)[gidx] + b1), two BatchNorm-folded
-Dense+ReLU layers, then the max over the K neighbours. The per-cloud projection
-``feats @ K_feat`` is a plain matmul outside the kernel, as in the JAX package. Bound: FP32
-operations on the CUDA cores (see the source note).
+* S replaces ``puzzlefusion_plusplus_tpu/ops/sa_fused_pallas.py::sa_stage_fused_cached``
+  (``_sa_cached_kernel``) with its ``'onehot'`` semantics, an exact gather. Per cloud m and
+  centre s: h1 = relu(g_rel @ W_eff[m] + (feats[m] @ K_feat)[gidx] + b1), two
+  BatchNorm-folded Dense+ReLU layers, then the max over the K neighbours. The per-cloud
+  projection ``feats @ K_feat`` is a plain matmul outside the kernel, as in the JAX package.
+* R replaces ``sa_fused_pallas.py::sa_stage_fused`` (``_sa_kernel``), the stage over a raw
+  cloud ``xyz ++ feats`` and cached indices: it gathers the K neighbour rows and the centre
+  row, recentres the xyz channels, and runs all three folded layers (layer 1 included)
+  and the max over K in the kernel.
 """
 
 from __future__ import annotations
@@ -92,3 +96,60 @@ def sa_stage_fused_cached(
 
 
 sa_stage_fused_cached.launches = 0
+
+
+def sa_stage_fused_plain(pts_cat, fps_idx, group_idx, weights) -> torch.Tensor:
+    """pts_cat [M, N, Cin] (xyz ++ feats), fps_idx [M, S], group_idx [M, S, K], weights
+    3 x (kernel [Cin_i, C_i], bias [C_i]) -> [M, S, C3]."""
+    rows = torch.arange(pts_cat.shape[0], device=pts_cat.device)
+    grouped = pts_cat[rows[:, None, None], group_idx.long()]  # [M, S, K, Cin]
+    centre = pts_cat[rows[:, None], fps_idx.long()][:, :, None, :3]
+    h = torch.cat([grouped[..., :3] - centre, grouped[..., 3:]], dim=-1)
+    for w, b in weights:
+        h = torch.relu(h @ w + b)
+    return h.amax(dim=2)
+
+
+def sa_stage_fused(pts_cat: torch.Tensor, fps_idx: torch.Tensor, group_idx: torch.Tensor,
+                   weights) -> torch.Tensor:
+    """-> new_feats [M, S, C3]; kernel R on CUDA tensors, which has no backward (it raises
+    where autograd would need one; the plain version on CPU tensors differentiates).
+    ``weights``: 3 x (BN-folded kernel [Cin_i, C_i], bias [C_i]). The stage's new xyz is
+    ``pts_cat[..., :3]`` gathered at ``fps_idx`` (the caller's)."""
+    if pts_cat.device.type == "cpu":
+        return sa_stage_fused_plain(pts_cat, fps_idx, group_idx, weights)
+    (w1, b1), (w2, b2), (w3, b3) = weights
+    cuda_build.forbid_grad("sa_stage_fused", pts_cat, w1, b1, w2, b2, w3, b3)
+    M, N, Cin = pts_cat.shape
+    S, K = group_idx.shape[1], group_idx.shape[2]
+    C1, C2, C3 = w1.shape[1], w2.shape[1], w3.shape[1]
+    _check_kernel_shapes(K, C1, C2, C3)
+    if (Cin - 3) % 32 or C1 % 64:
+        raise ValueError(f"kernel R takes Cin - 3 % 32 == 0 and C1 % 64 == 0; got Cin={Cin}, "
+                         f"C1={C1}")
+    pts_cat = pts_cat.contiguous()
+    w1, b1, w2, b2, w3, b3 = (t.contiguous() for t in (w1, b1, w2, b2, w3, b3))
+    fidx = fps_idx.to(torch.int32).contiguous()
+    gidx = group_idx.to(torch.int32).contiguous()
+    cuda_build.require(pts_cat, "pts_cat", torch.float32, 3)
+    for name, t, nd in (("w1", w1, 2), ("b1", b1, 1), ("w2", w2, 2), ("b2", b2, 1),
+                        ("w3", w3, 2), ("b3", b3, 1)):
+        cuda_build.require(t, name, torch.float32, nd, align16=nd == 2)
+    if (w1.shape[0] != Cin or w2.shape[0] != C1 or w3.shape[0] != C2 or b1.shape != (C1,)
+            or b2.shape != (C2,) or b3.shape != (C3,)):
+        raise ValueError("inconsistent layer widths")
+    if fidx.shape != (M, S) or gidx.shape != (M, S, K) or fidx.device != pts_cat.device:
+        raise ValueError("fps_idx / group_idx do not match pts_cat")
+    out = torch.empty((M, S, C3), dtype=torch.float32, device=pts_cat.device)
+    cuda_build.check(
+        cuda_build.library("sa_raw").pfpp_sa_raw(
+            pts_cat.data_ptr(), fidx.data_ptr(), gidx.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), w3.data_ptr(), b3.data_ptr(),
+            out.data_ptr(), M, N, Cin, S, K, C1, C2, C3, cuda_build.stream_ptr(pts_cat)),
+        "sa_stage_fused",
+    )
+    sa_stage_fused.launches += 1
+    return out
+
+
+sa_stage_fused.launches = 0

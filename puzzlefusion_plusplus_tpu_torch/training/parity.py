@@ -1,10 +1,12 @@
-"""One VQ-VAE training step on two devices from the same weights and batch, compared.
+"""One training step on two devices from the same weights and batch, compared.
 
-This is how the port shows that its step on the card (kernels A, B, F, G, N) computes what
-its step on the CPU (their plain versions, through the same ``autograd.Function``s)
-computes: the loss and metrics, every parameter's gradient, BatchNorm's running statistics,
-and the parameters after the AdamW update. ``chip_smoke.py`` (phase ``train_parity``) and
-``tests/test_torch_port_cuda.py`` run it.
+This is how the port shows that its step on the card computes what its step on the CPU
+(the kernels' plain versions, through the same ``autograd.Function``s) computes: the loss
+and metrics, every parameter's gradient, the buffers (BatchNorm's running statistics), and
+the parameters after the AdamW update. ``step_on`` runs a VQ-VAE step (kernels A, B, F, G,
+N), ``denoiser_step_on`` a denoiser step (the frozen encoder's kernels F, G, A, or S with
+``encode_cached``). ``chip_smoke.py`` (phases ``train_parity`` and ``denoiser_parity``) and
+``tests/test_torch_port_cuda.py`` run them.
 
 Tolerances and why (``compare``):
   * loss and metrics 1e-5 relative;
@@ -24,15 +26,24 @@ Tolerances and why (``compare``):
     gradient clearly differs from 0 (beyond twice its elementwise tolerance; for the SA
     stages beyond 0.1 of the largest entry) the parameters agree to 1e-6, and elsewhere
     to 2 lr.
+The denoiser step is held to the same tolerances (it has no SA stage and no BatchNorm, so
+all its gradients are held elementwise), with its injected timesteps and noise, dropout
+off, and the same frozen-encoder codes on both devices (``denoiser_step_on`` returns the
+smallest code margin so a caller can check that no code sat within float error of a tie).
 """
 
 from __future__ import annotations
 
 import torch
 
+from puzzlefusion_plusplus_tpu_torch.inference.sampler import build_feature_cache
+from puzzlefusion_plusplus_tpu_torch.models.scheduler import DDPMParams, add_noise
 from puzzlefusion_plusplus_tpu_torch.models.vqvae import VQVAE
-from puzzlefusion_plusplus_tpu_torch.training.state import adamw_multistep
+from puzzlefusion_plusplus_tpu_torch.training import denoiser as den_train
+from puzzlefusion_plusplus_tpu_torch.training.state import adamw_multistep, adamw_reference
 from puzzlefusion_plusplus_tpu_torch.training.vqvae import METRIC_KEYS, to_device, train_step
+from puzzlefusion_plusplus_tpu_torch.utils.masking import compact_parts
+from puzzlefusion_plusplus_tpu_torch.utils.transforms import quat_normalize, quat_to_matrix
 
 
 def spread_codebook(model: VQVAE, seed: int = 0) -> None:
@@ -52,6 +63,10 @@ def step_on(make_model, state_dict: dict, batch: dict, device, lr: float = 5e-4,
     model.load_state_dict(state_dict)
     state = adamw_multistep(model, lr, (), 0.5, weight_decay)
     metrics = train_step(state, to_device(batch, device))
+    return _result(model, metrics, lr)
+
+
+def _result(model, metrics: dict, lr: float) -> dict:
     return {
         "metrics": {k: float(v) for k, v in metrics.items()},
         "grads": {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
@@ -62,6 +77,41 @@ def step_on(make_model, state_dict: dict, batch: dict, device, lr: float = 5e-4,
     }
 
 
+def denoiser_step_on(make_model, state_dict: dict, make_encoder, batch: dict, device,
+                     timesteps: torch.Tensor, noise: torch.Tensor, encode_cached: bool = False,
+                     lr: float = 2e-4, weight_decay: float = 1e-6) -> dict:
+    """One denoiser ``train_step`` on ``device`` with the given timesteps [B] and noise
+    [B, P, 7]; ``make_model()`` must build the denoiser without dropout and
+    ``make_encoder(device)`` the frozen encoder. -> ``step_on``'s result plus
+    ``code_margin``, the smallest gap between a valid part's nearest and second-nearest
+    code distances."""
+    model = make_model().to(device)
+    model.load_state_dict(state_dict)
+    encoder = make_encoder(device)
+    state = adamw_reference(model, lr, weight_decay=weight_decay)
+    batch = to_device(batch, device)
+    metrics = den_train.train_step(state, batch, encoder, DDPMParams.piecewise(), None, None,
+                                   encode_cached, timesteps.to(device), noise.to(device))
+    margin = code_margin(encoder, batch, timesteps.to(device), noise.to(device))
+    return {**_result(model, metrics, lr), "code_margin": margin}
+
+
+@torch.no_grad()
+def code_margin(encoder, batch: dict, timesteps: torch.Tensor, noise: torch.Tensor) -> float:
+    """The smallest code-distance gap (second-nearest minus nearest) over the parts, each
+    encoded at the noisy rotation that a denoiser step with these draws gives it."""
+    gt = torch.cat([batch["part_trans"], batch["part_rots"]], -1)
+    ref = batch["ref_part"].bool()[..., None]
+    noisy = torch.where(ref, gt, add_noise(DDPMParams.piecewise(), gt, noise, timesteps))
+    cache = build_feature_cache(encoder, batch["part_pcs"], batch["part_valids"])
+    B, P = gt.shape[:2]
+    quat = compact_parts(quat_normalize(noisy[..., 3:]), cache.src).reshape(B * P, 4)
+    z_e = encoder.encode(cache.idx_stages, cache.geom_stages, quat_to_matrix(quat))["z_e"]
+    d = torch.cdist(z_e.reshape(-1, encoder.e_dim), encoder.w["codebook"]) ** 2
+    two = d.topk(2, dim=-1, largest=False).values
+    return float((two[:, 1] - two[:, 0]).min())
+
+
 def _pre_bn_bias(name: str) -> bool:
     return ".mlp_convs." in name and name.endswith(".bias")
 
@@ -69,11 +119,11 @@ def _pre_bn_bias(name: str) -> bool:
 GRAD_REL, GRAD_ATOL, SA_GRAD_REL_L2 = 1e-3, 1e-5, 5e-2
 
 
-def compare(ref: dict, out: dict) -> dict:
-    """Max errors of ``out`` against ``ref`` (two ``step_on`` results); raises
-    AssertionError naming every quantity outside its tolerance."""
+def compare(ref: dict, out: dict, metric_keys=METRIC_KEYS) -> dict:
+    """Max errors of ``out`` against ``ref`` (two ``step_on`` or ``denoiser_step_on``
+    results); raises AssertionError naming every quantity outside its tolerance."""
     bad, errs = [], {}
-    for k in METRIC_KEYS:
+    for k in metric_keys:
         e = abs(out["metrics"][k] - ref["metrics"][k]) / max(abs(ref["metrics"][k]), 1e-30)
         errs[f"metric/{k}"] = e
         if e > 1e-5:
@@ -122,6 +172,7 @@ def compare(ref: dict, out: dict) -> dict:
     if bad:
         raise AssertionError("devices disagree:\n" + "\n".join(bad))
     return {k: float(v) for k, v in errs.items() if not k.startswith(("buffer/", "bias_"))} | {
-        "buffer_max": max(v for k, v in errs.items() if k.startswith("buffer/")),
-        "pre_bn_bias_noise_max": max(v for k, v in errs.items() if k.startswith("bias_")),
+        "buffer_max": max((v for k, v in errs.items() if k.startswith("buffer/")), default=0.0),
+        "pre_bn_bias_noise_max": max((v for k, v in errs.items() if k.startswith("bias_")),
+                                     default=0.0),
     }

@@ -4,7 +4,7 @@
 * Optimizer: ``torch.optim.AdamW`` (eps 1e-8, decay on every parameter, as optax's
   ``adamw``) with ``MultiStepLR`` stepped once per update, so update k (counting from 1)
   runs at ``lr * gamma^#{m : m <= k - 1}`` — the rate ``optax.piecewise_constant_schedule``
-  gives at optax's count k - 1.
+  gives at optax's count k - 1. The denoiser's ``adamw_reference`` has no milestones.
 * Checkpoints: PyTorch's own format. ``<ckpt_dir>/step_N/state.pt`` holds the model's and
   the optimizer's and scheduler's ``state_dict``s and the step; a save writes
   ``step_N.tmp`` and renames it, so an interrupted save never looks complete. Auto-resume,
@@ -44,6 +44,14 @@ def adamw_multistep(model: torch.nn.Module, base_lr: float, milestones_steps, ga
     sched = torch.optim.lr_scheduler.MultiStepLR(opt, [int(m) for m in milestones_steps],
                                                  gamma)
     return TrainState(model, opt, sched, 0)
+
+
+def adamw_reference(model: torch.nn.Module, lr: float, b1: float = 0.95, b2: float = 0.999,
+                    weight_decay: float = 1e-6) -> TrainState:
+    """The denoiser's optimizer: AdamW at a constant rate (reference denoiser.py:228-236)."""
+    opt = torch.optim.AdamW(model.parameters(), lr=lr, betas=(b1, b2), eps=1e-8,
+                            weight_decay=weight_decay)
+    return TrainState(model, opt, torch.optim.lr_scheduler.MultiStepLR(opt, []), 0)
 
 
 # ---------------------------------------------------------------- checkpointing

@@ -62,3 +62,23 @@ def calc_shape_cd(pts, trans1, trans2, rot1, rot2, valids) -> torch.Tensor:
     pts2 = transform_pc(trans2, rot2, pts).reshape(B, P * N, 3)
     fwd, bwd = chamfer_distance_per_point(pts1, pts2)
     return valid_mean((fwd + bwd).reshape(B, P, N).mean(-1), valids)
+
+
+def assembly_metrics(pts, pred_trans, pred_rots, gt_trans, gt_rots, valids,
+                     ref_part) -> dict:
+    """Per-shape [B] metrics of predicted poses: part_acc, part_acc_nonref (the non-reference
+    parts only, 1 where every valid part is a reference: reference parts are pinned to the
+    GT and would count as correct for free), shape_cd, rmse_r, rmse_t; and acc_per_part
+    [B, P]. pts [B, P, N, 3] in world scale, poses [B, P, 3] / [B, P, 4]."""
+    acc, acc_per_part, _ = calc_part_acc(pts, pred_trans, gt_trans, pred_rots, gt_rots, valids)
+    nonref = (valids == 1) & ~ref_part.bool()
+    n_nonref = nonref.sum(-1)
+    acc_nonref = torch.where(n_nonref > 0, (acc_per_part & nonref).sum(-1) / n_nonref.clamp_min(1),
+                             torch.ones_like(acc))
+    return {
+        "part_acc": acc, "part_acc_nonref": acc_nonref,
+        "shape_cd": calc_shape_cd(pts, pred_trans, gt_trans, pred_rots, gt_rots, valids),
+        "rmse_r": rot_metrics(pred_rots, gt_rots, valids, "rmse"),
+        "rmse_t": trans_metrics(pred_trans, gt_trans, valids, "rmse"),
+        "acc_per_part": acc_per_part,
+    }

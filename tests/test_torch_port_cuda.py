@@ -5,12 +5,14 @@ Marked ``cuda``; they skip without a card. This file imports neither JAX nor the
 so on a machine without JAX it runs with the conftest left out:
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py``.
 
-Tolerances: FPS / gather (G and A) / NN indices and values exact (the kernels compute
-distances with the plain version's rounding, no FMA); S 1e-4 (FP32 sums in another order);
+Tolerances: FPS (F and P) / gather (G and A) / NN indices and values exact (the kernels
+compute distances with the plain version's rounding, no FMA; P equals F too); S and R 1e-4
+of the largest output (FP32 sums in another order);
 B 1e-5 of the largest sum against the plain index_add_, which adds with atomics in no fixed
 order on the card, and bit for bit against the CPU's index_add_ and its own second launch
 (it adds in row order); engine trajectories 1e-3 on damped weights, discrete outcomes exact;
-a training step on the card against the CPU within ``training/parity.py``'s tolerances."""
+a VQ-VAE and a denoiser training step on the card against the CPU within
+``training/parity.py``'s tolerances."""
 
 import numpy as np
 import pytest
@@ -25,6 +27,8 @@ from puzzlefusion_plusplus_tpu_torch.data import (
 )
 from puzzlefusion_plusplus_tpu_torch.inference import run as R
 from puzzlefusion_plusplus_tpu_torch.inference.engine import draw_noise
+from puzzlefusion_plusplus_tpu_torch.inference.sampler import make_frozen_encoder
+from puzzlefusion_plusplus_tpu_torch.models.denoiser import DenoiserTransformer
 from puzzlefusion_plusplus_tpu_torch.models.vqvae import VQVAE
 from puzzlefusion_plusplus_tpu_torch.ops import chamfer as tch
 from puzzlefusion_plusplus_tpu_torch.ops import fps as tfps
@@ -125,6 +129,50 @@ def test_training_step_on_card_matches_cpu(dev, tmp_path):
     parity.compare(cpu, gpu)
 
 
+def _raw_sa_args(g, dev, M, N, Cin, S, K, widths):
+    pts = torch.randn((M, N, Cin), generator=g, device=dev)
+    fidx = torch.randint(0, N, (M, S), generator=g, device=dev)
+    gidx = torch.randint(0, N, (M, S, K), generator=g, device=dev)
+    weights, cin = [], Cin
+    for c in widths:
+        weights.append((torch.randn((cin, c), generator=g, device=dev) * cin ** -0.5,
+                        torch.randn((c,), generator=g, device=dev) * 0.1))
+        cin = c
+    return pts, fidx, gidx, weights
+
+
+@pytest.mark.parametrize("N,Cin,S,K,widths", [
+    (1000, 3, 256, 32, (64, 64, 128)),  # SA1
+    (256, 131, 128, 64, (128, 128, 256)),  # SA2
+    (128, 259, 25, 64, (256, 256, 512)),  # SA3: S not a multiple of the block's centres
+    (50, 35, 7, 8, (64, 64, 128)),
+])
+def test_sa_raw_kernel_matches_plain_on_card(dev, N, Cin, S, K, widths):
+    g = torch.Generator(device=dev).manual_seed(3)
+    args = _raw_sa_args(g, dev, 3, N, Cin, S, K, widths)
+    ops.reset_launch_counts()
+    out = tsa.sa_stage_fused(*args)
+    assert ops.launch_counts()["R"] == 1
+    ref = tsa.sa_stage_fused_plain(*args)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("B,N,npoint,masked", [(12, 12000, 1000, True), (2, 20000, 1000, True),
+                                               (96, 1000, 256, False), (3, 700, 64, True)])
+def test_fps_per_cloud_kernel_matches_f_and_plain_on_card(dev, B, N, npoint, masked):
+    g = torch.Generator(device=dev).manual_seed(4)
+    xyz = torch.randn((B, N, 3), generator=g, device=dev)
+    mask = (torch.rand((B, N), generator=g, device=dev) < 0.6) if masked else None
+    if masked:
+        mask[0] = False  # a cloud with no valid point starts at 0, as F does
+        mask[1, : N // 2] = False
+    ops.reset_launch_counts()
+    out = tfps.farthest_point_sample_per_cloud(xyz, npoint, mask)
+    assert ops.launch_counts()["P"] == 1 and ops.launch_counts()["F"] == 0
+    assert torch.equal(out, tfps.farthest_point_sample(xyz, npoint, mask))
+    assert torch.equal(out, tfps.farthest_point_sample_per_cloud_plain(xyz, npoint, mask))
+
+
 def test_kernel_wrappers_reject_bad_input(dev):
     x = torch.randn((2, 10, 3), device=dev)
     with pytest.raises(TypeError):
@@ -154,6 +202,51 @@ def test_kernels_without_backward_refuse_inputs_that_need_grad(dev):
         tsa.sa_stage_fused_cached(args[0], args[1], None, None, None, *args[2:])
     with torch.no_grad():
         tsa.sa_stage_fused_cached(args[0], args[1], None, None, None, *args[2:])
+    g = torch.Generator(device=dev).manual_seed(5)
+    pts, fidx, gidx, weights = _raw_sa_args(g, dev, 1, 40, 35, 4, 8, (64, 64, 128))
+    weights[1][0].requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        tsa.sa_stage_fused(pts, fidx, gidx, weights)
+    with torch.no_grad():
+        tsa.sa_stage_fused(pts, fidx, gidx, weights)
+
+
+@pytest.mark.parametrize("encode_cached", [False, True])
+def test_denoiser_step_on_card_matches_cpu(dev, tmp_path, encode_cached):
+    """One denoiser train_step on the card (the frozen encoder's kernels F, G, A, or S when
+    cached) against the CPU, from the same weights, batch, timesteps and noise."""
+    root = str(tmp_path)
+    generate_dataset(root, num_shapes=2, seed=6, split="train", min_parts=3, max_parts=4,
+                     n_points=300)
+    batch = next(iter(Loader(DenoiserDataset(root + "/pc_data/train", mode="train",
+                                             max_num_part=4), 2, shuffle=False)))
+    torch.manual_seed(0)
+    vq = VQVAE(64, 16, 25, 64, sa_npoints=(96, 48), sa_nsamples=(16, 32, 32))
+    parity.spread_codebook(vq)
+    vq_sd = vq.state_dict()
+
+    def make():
+        return DenoiserTransformer(64, 2, 4, 64, max_parts=4, num_ada_embeds=1000,
+                                   dropout=0.0, pe_dropout=0.0)
+
+    def make_encoder(device):
+        m = VQVAE(64, 16, 25, 64, sa_npoints=(96, 48), sa_nsamples=(16, 32, 32))
+        m.load_state_dict(vq_sd)
+        return make_frozen_encoder(m.to(device))
+
+    sd = make().state_dict()
+    g = torch.Generator().manual_seed(1)
+    timesteps, noise = torch.randint(0, 1000, (2,), generator=g), torch.randn((2, 4, 7),
+                                                                             generator=g)
+    ops.reset_launch_counts()
+    gpu = parity.denoiser_step_on(make, sd, make_encoder, batch, dev, timesteps, noise,
+                                  encode_cached)
+    counts = ops.launch_counts()
+    assert all(counts[k] > 0 for k in ("SFG" if encode_cached else "FGA")), counts
+    cpu = parity.denoiser_step_on(make, sd, make_encoder, batch, "cpu", timesteps, noise,
+                                  encode_cached)
+    assert min(cpu["code_margin"], gpu["code_margin"]) > 1e-4
+    parity.compare(cpu, gpu, ("mse_loss",))
 
 
 def test_engine_on_card_matches_cpu(dev, tmp_path):

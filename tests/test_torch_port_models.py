@@ -201,3 +201,53 @@ def test_frozen_encoder_cached_features(vq_weights):
     np.testing.assert_allclose(tlat.numpy()[clear], np.asarray(jlat)[clear], rtol=0,
                                atol=1e-6)
     assert not tlat.numpy()[~valids.astype(bool)].any()  # invalid parts are zero
+
+
+@pytest.mark.parametrize("fused", ["cached", "always", "never"])
+def test_frozen_encoder_modes_match_jax(vq_weights, fused, monkeypatch):
+    """``FrozenEncoder.apply`` in each mode against the JAX package's ``apply`` on the same
+    indices, geometry and rotations: 'cached' gets geometry + rotations (kernel S's path),
+    'always' and 'never' the rotated clouds + cached indices (kernel R's path and the
+    composable one). The JAX package honours its fused modes on a TPU only, so on the CPU it
+    takes its composable path, which computes the same function. z_e within 1e-4 of its
+    largest entry, token centres 1e-5, codes equal where the margin exceeds 1e-4."""
+    model, params, stats = vq_weights
+    rng = np.random.default_rng(6)
+    M, N = 4, 96
+    pcs = (rng.normal(size=(M, N, 3)) * 0.4).astype(np.float32)
+    q = rng.normal(size=(M, 4)).astype(np.float32)
+    rot = tsampler.quat_to_matrix(T(q / np.linalg.norm(q, axis=-1, keepdims=True))).numpy()
+    rotated = np.einsum("mnd,med->mne", pcs, rot).astype(np.float32)
+
+    jenc = jsampler.make_frozen_encoder(model, params, stats, fused=fused)
+    jidx, jgeom = jenc.grouping(jnp.asarray(pcs))
+    tenc = tsampler.make_frozen_encoder(_port_vq(params, stats), fused)
+    kernels = []
+    for name in ("sa_stage_fused", "sa_stage_fused_cached"):
+        orig = getattr(tsampler, name)
+        monkeypatch.setattr(tsampler, name,
+                            lambda *a, _o=orig, _n=name: kernels.append(_n) or _o(*a))
+    with torch.no_grad():
+        tidx, tgeom = tenc.grouping(T(pcs))
+        if fused == "cached":
+            jargs = (jnp.asarray(pcs), jidx, jgeom, jnp.asarray(rot))
+            tout = tenc.apply(T(pcs), tidx, tgeom, T(rot))
+        else:
+            jargs = (jnp.asarray(rotated), jidx)
+            tout = tenc.apply(T(rotated), tidx)
+    assert kernels == {"cached": ["sa_stage_fused_cached"] * 3,
+                       "always": ["sa_stage_fused"] * 3, "never": []}[fused]
+    jout = jenc.apply(*jargs)
+    variables = {"params": params, "batch_stats": stats}
+    jz_e = np.asarray(model.apply(variables, *jargs,
+                                  method=lambda m, x, *c: m.pn2.encode(x, False, *c))[0])
+    np.testing.assert_allclose(tout["z_e"].numpy(), jz_e, rtol=0,
+                               atol=1e-4 * np.abs(jz_e).max())
+    np.testing.assert_allclose(tout["xyz"].numpy(), np.asarray(jout["xyz"]), atol=1e-5)
+    z = tout["z_e"].reshape(-1, 16)
+    d = torch.cdist(z, tenc.w["codebook"]) ** 2
+    two = d.topk(2, dim=-1, largest=False).values
+    clear = (two[:, 1] - two[:, 0] > 1e-4).reshape(M, 25, 4).repeat_interleave(16, -1).numpy()
+    assert clear.mean() > 0.5
+    np.testing.assert_allclose(tout["z_q"].numpy()[clear], np.asarray(jout["z_q"])[clear],
+                               rtol=0, atol=1e-6)

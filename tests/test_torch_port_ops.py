@@ -8,16 +8,27 @@ Tolerances and why:
     the expanded x^2 - 2xy + y^2 form, so indices are compared exactly only where the
     second-best distance is more than 1e-5 away.
   * S against ``sa_stage_fused_cached(..., interpret=True)``: 1e-4.
+  * R (``sa_stage_fused``'s plain version) against the Pallas ``sa_stage_fused`` in interpret
+    mode: 1e-4 relative to the largest output (FP32 sums in another order; the Pallas
+    gathers are exact byte-plane one-hot matmuls).
+  * P (``farthest_point_sample_per_cloud``) against the Pallas
+    ``farthest_point_sample_pallas`` in interpret mode: indices exact, masked and unmasked,
+    wherever a cloud has a valid point. A cloud with none differs on purpose: the Pallas
+    kernel starts at its padded length, an index outside the cloud, where the port (and
+    ``farthest_point_sample_xla``, the JAX package's dispatcher off the TPU) starts at 0.
   * M: active entries against ``masked_pairwise_nn(..., interpret=True)`` at 1e-4.
   * normals: ``lax.top_k`` and ``torch.topk`` may order equal kNN distances differently, and
     the two kNN sets come from the expanded-form distances, so normals agree up to sign to
     1e-3 on all but a few percent of points (degenerate neighbourhoods).
 """
 
+import functools
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
 from puzzlefusion_plusplus_tpu.ops import chamfer as jch
 from puzzlefusion_plusplus_tpu.ops import fps as jfps
@@ -26,6 +37,7 @@ from puzzlefusion_plusplus_tpu.ops import normals as jnorm
 from puzzlefusion_plusplus_tpu.ops.chamfer_pallas import masked_pairwise_nn as jmasked
 from puzzlefusion_plusplus_tpu.ops.sa_fused_pallas import (
     fold_batchnorm as jfold,
+    sa_stage_fused as jsa_raw,
     sa_stage_fused_cached as jsa,
 )
 from puzzlefusion_plusplus_tpu_torch import ops
@@ -41,6 +53,12 @@ torch.set_num_threads(2)
 
 def T(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
+
+
+@pytest.fixture
+def pallas_interpret(monkeypatch):
+    """Run the JAX package's Pallas kernels in interpret mode on the CPU."""
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -59,6 +77,55 @@ def test_fps_indices_exact(masked):
     out = tfps.farthest_point_sample(T(xyz), npoint, None if mask is None else T(mask))
     assert out.dtype == torch.int32
     np.testing.assert_array_equal(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_fps_per_cloud_matches_pallas_interpret(pallas_interpret, masked):
+    rng = np.random.default_rng(10)
+    B, N, npoint = 3, 300, 40  # N not a multiple of the Pallas kernel's 128 lanes
+    xyz = rng.normal(size=(B, N, 3)).astype(np.float32)
+    mask = None
+    if masked:
+        mask = rng.random((B, N)) < 0.5
+        mask[0, :10] = False  # start is the first VALID point
+        mask[2] = False
+        mask[2, 150:160] = True  # fewer valid points than selections
+    ref = np.asarray(jfps.farthest_point_sample_pallas(
+        jnp.asarray(xyz), npoint, None if mask is None else jnp.asarray(mask)))
+    out = tfps.farthest_point_sample_per_cloud(T(xyz), npoint,
+                                               None if mask is None else T(mask))
+    assert out.dtype == torch.int32
+    np.testing.assert_array_equal(out.numpy(), ref)
+    np.testing.assert_array_equal(
+        tfps.farthest_point_sample_per_cloud_plain(T(xyz), npoint,
+                                                   None if mask is None else T(mask)).numpy(),
+        ref)
+
+
+def _raw_sa_inputs(rng, M, N, Cin, S, K, widths):
+    pts = rng.standard_normal((M, N, Cin)).astype(np.float32)
+    fidx = rng.integers(0, N, size=(M, S)).astype(np.int32)
+    gidx = rng.integers(0, N, size=(M, S, K)).astype(np.int32)
+    weights, cin = [], Cin
+    for c in widths:
+        weights.append((rng.standard_normal((cin, c)).astype(np.float32) * cin ** -0.5,
+                        rng.standard_normal(c).astype(np.float32) * 0.1))
+        cin = c
+    return pts, fidx, gidx, weights
+
+
+@pytest.mark.parametrize("stage", ["xyz_only", "feats"])
+def test_sa_stage_fused_matches_pallas_interpret(pallas_interpret, stage):
+    """R's plain version (what every CPU path runs) against the Pallas kernel it replaces;
+    both gather the centre row and recentre only the xyz channels."""
+    rng = np.random.default_rng(11)
+    Cin = 3 if stage == "xyz_only" else 3 + 32
+    pts, fidx, gidx, weights = _raw_sa_inputs(rng, 2, 40, Cin, 12, 8, (64, 64, 128))
+    ref = np.asarray(jsa_raw(jnp.asarray(pts), jnp.asarray(fidx), jnp.asarray(gidx),
+                             [(jnp.asarray(w), jnp.asarray(b)) for w, b in weights]))
+    out = tsa.sa_stage_fused(T(pts), T(fidx), T(gidx), [(T(w), T(b)) for w, b in weights])
+    assert out.shape == (2, 12, 128)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-4 * np.abs(ref).max())
 
 
 def test_gather_and_index_points_exact():
@@ -185,7 +252,7 @@ def test_wrappers_use_plain_version_only_on_cpu():
     tfps.farthest_point_sample(x, 2)
     tga.gather_points_approx(x, idx)
     tga.scatter_add(x[:, :2], idx, 4)
-    assert ops.launch_counts() == {k: 0 for k in "SFGNMAB"}
+    assert ops.launch_counts() == {k: 0 for k in "SFGNMABRP"}
     with pytest.raises(ValueError):
         tch.nn_distance(x.to("meta"), x.to("meta"))
     with pytest.raises(ValueError):
@@ -195,8 +262,8 @@ def test_wrappers_use_plain_version_only_on_cpu():
 
 
 def test_kernels_without_backward_refuse_grad_off_the_cpu():
-    """S and M have no backward: off the CPU they raise where autograd would need one (and
-    before anything is built); on the CPU their plain versions differentiate."""
+    """S, M and R have no backward: off the CPU they raise where autograd would need one
+    (and before anything is built); on the CPU their plain versions differentiate."""
     pts = torch.randn((1, 2, 5, 3), requires_grad=True)
     pm = torch.ones((1, 2, 2), dtype=torch.bool)
     tch.masked_pairwise_nn(pts, pm).sum().backward()
@@ -214,3 +281,17 @@ def test_kernels_without_backward_refuse_grad_off_the_cpu():
         tsa.sa_stage_fused_cached(meta[0], meta[1], None, None, None, *meta[2:])
     with torch.no_grad(), pytest.raises(ValueError):  # past the guard: not a CUDA tensor
         tsa.sa_stage_fused_cached(meta[0], meta[1], None, None, None, *meta[2:])
+
+    rng = np.random.default_rng(12)
+    pts, fidx, gidx, weights = _raw_sa_inputs(rng, 1, 20, 35, 4, 8, (64, 64, 128))
+    w = [(T(a).requires_grad_(), T(b)) for a, b in weights]
+    tsa.sa_stage_fused(T(pts), T(fidx), T(gidx), w).sum().backward()
+    assert w[0][0].grad is not None
+    meta_w = [(a.detach().to("meta").requires_grad_(), b.to("meta")) for a, b in w]
+    with pytest.raises(RuntimeError, match="no backward"):
+        tsa.sa_stage_fused(T(pts).to("meta"), T(fidx).to("meta"), T(gidx).to("meta"), meta_w)
+    with torch.no_grad(), pytest.raises(ValueError):  # past the guard: not a CUDA tensor
+        tsa.sa_stage_fused(T(pts).to("meta"), T(fidx).to("meta"), T(gidx).to("meta"), meta_w)
+    with pytest.raises(ValueError, match="1 to"):  # P's resident-cloud limit
+        tfps.farthest_point_sample_per_cloud(torch.zeros((1, tfps.P_MAX_POINTS + 1, 3),
+                                                         device="meta"), 4)
