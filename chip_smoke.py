@@ -9,7 +9,13 @@ Phases, each printing one JSON object per line (with its seconds):
                M = 160 clouds), on seeded inputs, against its plain PyTorch version on the card
                (P also against F):
                error, exact-index agreement, and CUDA-event times of the kernel, the plain
-               version and (where one exists) a single PyTorch library call.
+               version and (where one exists) a single PyTorch library call. G, A and B
+               also time the bare launch on int32 indices into buffers made beforehand
+               (``kernel_ms``, beside ``ms``, the call as callers make it), and the bare
+               launch and the library call replayed from a CUDA graph (``kernel_graph_ms``,
+               ``library_graph_ms``: the card's time without host gaps); A also runs at the
+               denoiser step's frozen-encode shapes (M = 1280) and B with every row to one
+               index, both listed under ``per_shape`` and left out of the step's sum.
   3. engine  — the full-width engine (``Config()`` defaults: VQ-VAE 1000 pts / 25x64 tokens /
                1024x16 codebook, denoiser 512/6/8, verifier 256/6/8, 6 iterations x 20 steps,
                fp32, batch 8) on 8 synthetic shapes of 3-12 parts (seed 7) through
@@ -119,6 +125,30 @@ def cuda_ms(fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call of ``reps`` calls captured in one CUDA graph and replayed,
+    CUDA events: the card's time for them without the host's gaps between launches."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
@@ -292,7 +322,9 @@ def phase_kernels(results: dict) -> None:
 
     def gather_row(name, fn, B, N, C, idx_shape, path, reps):
         """G or A against the plain version; bytes: the source read once, idx read, the
-        output written; the library call is one torch.gather on int64 indices."""
+        output written; the library call is one torch.gather on int64 indices. ``ms`` is the
+        call as callers make it, ``kernel_ms`` the bare launch on int32 indices into an
+        output made beforehand."""
         t0 = time.perf_counter()
         pts = randn(B, N, C)
         idx = torch.randint(0, N, (B,) + idx_shape, generator=gen, device=dev,
@@ -300,12 +332,19 @@ def phase_kernels(results: dict) -> None:
         match = bool(torch.equal(fn(pts, idx), gather.gather_points_plain(pts, idx)))
         _check(match, f"{name} [{B},{N},{C}] by {idx_shape}: gathered values differ")
         idx64 = idx.reshape(B, -1).long()[..., None].expand(-1, -1, C)
+        flat = idx.reshape(B, -1)
+        out = torch.empty((B, flat.shape[1], C), device=dev)
+        bare = lambda: gather._launch_gather(pts, flat, out)  # noqa: E731
+        library = lambda: torch.gather(pts, 1, idx64)  # noqa: E731
         record(name, f"[{B},{N},{C}] by [{B},{','.join(map(str, idx_shape))}]", 0.0,
                cuda_ms(lambda: fn(pts, idx), reps),
                cuda_ms(lambda: gather.gather_points_plain(pts, idx), reps),
                4 * (pts.numel() + idx.numel() + idx.numel() * C), 0.0,
-               library_ms=cuda_ms(lambda: torch.gather(pts, 1, idx64), reps), path=path,
-               values_equal=match, seconds=time.perf_counter() - t0)
+               library_ms=cuda_ms(library, reps), path=path,
+               kernel_ms=cuda_ms(bare, reps), kernel_graph_ms=graph_ms(bare, reps),
+               library_graph_ms=graph_ms(library, reps),
+               unit_floats=gather.gather_width(C, pts.data_ptr()), values_equal=match,
+               seconds=time.perf_counter() - t0)
 
     # G: the largest grouping gather of the cache build (SA1 neighbourhoods), then the
     # neighbourhood xyz gathers of a training step's SA1, SA2 and SA3 at M = 160
@@ -331,17 +370,23 @@ def phase_kernels(results: dict) -> None:
                library_ms=cuda_ms(lambda: torch.cdist(x, y).min(-1), 3), path=path,
                max_rel_err=rel, indices_equal=match, seconds=time.perf_counter() - t0)
 
-    # A: the feature gathers of one training step's SA2 and SA3 at M = 160 clouds
+    # A: the feature gathers of one training step's SA2 and SA3 at M = 160 clouds, then of
+    # the denoiser step's frozen encode at M = 1280 (listed apart from the step's sum)
     for N, C, S, K in ((256, 128, 128, 64), (128, 256, 25, 64)):
         gather_row("A", gather.gather_points_approx, 160, N, C, (S, K), "train", 20)
+    for N, C, S, K in ((256, 128, 128, 64), (128, 256, 25, 64)):
+        gather_row("A", gather.gather_points_approx, 1280, N, C, (S, K), "train_denoiser", 5)
 
-    # B: the backward of those gathers and the chamfer loss's target side, at M = 160.
+    # B: the backward of those gathers and the chamfer loss's target side, at M = 160, then
+    # the chamfer case with every row to one index (listed apart from the step's sum).
     # Tolerance 1e-5 of the largest sum: the plain version's index_add_ on the card adds
     # with atomics in no fixed order; the kernel adds in row order and is deterministic.
-    for N, C, R in ((1000, 3, 1000), (256, 128, 128 * 64), (128, 256, 25 * 64)):
+    for N, C, R, skewed in ((1000, 3, 1000, False), (256, 128, 128 * 64, False),
+                            (128, 256, 25 * 64, False), (1000, 3, 1000, True)):
         t0 = time.perf_counter()
         g = randn(160, R, C)
-        idx = torch.randint(0, N, (160, R), generator=gen, device=dev, dtype=torch.int32)
+        idx = (torch.zeros((160, R), device=dev, dtype=torch.int32) if skewed else
+               torch.randint(0, N, (160, R), generator=gen, device=dev, dtype=torch.int32))
         out = gather.scatter_add(g, idx, N)
         again = gather.scatter_add(g, idx, N)
         ref = gather.scatter_add_plain(g, idx, N)
@@ -354,12 +399,20 @@ def phase_kernels(results: dict) -> None:
                f"{deterministic}")
         rows = (idx.long() + N * torch.arange(160, device=dev)[:, None]).reshape(-1)
         g2, acc = g.reshape(-1, C), torch.zeros((160 * N, C), device=dev)
-        record("B", f"[160,{R},{C}]->[160,{N},{C}]", err,
+        dst = torch.empty((160, N, C), device=dev)
+        ints = gather.scatter_scratch_ints(160, R, N, C)
+        scratch = torch.empty(ints, dtype=torch.int32, device=dev) if ints else None
+        launch = lambda: gather._launch_scatter_add(g, idx, dst, scratch)  # noqa: E731
+        library = lambda: acc.zero_().index_add_(0, rows, g2)  # noqa: E731
+        record("B", f"[160,{R},{C}]->[160,{N},{C}]" + (" every row to n=0" if skewed else ""),
+               err,
                cuda_ms(lambda: gather.scatter_add(g, idx, N), 10),
                cuda_ms(lambda: gather.scatter_add_plain(g, idx, N), 10),
                4 * (g.numel() + idx.numel() + 160 * N * C), float(g.numel()),
-               library_ms=cuda_ms(lambda: acc.zero_().index_add_(0, rows, g2), 10),
-               path="train", max_rel_err=err / scale, deterministic=deterministic,
+               library_ms=cuda_ms(library, 10), path="train", kernel_ms=cuda_ms(launch, 10),
+               kernel_graph_ms=graph_ms(launch, 10), library_graph_ms=graph_ms(library, 10),
+               max_rel_err=err / scale, deterministic=deterministic, skewed=skewed,
+               launches_a_call=1 if ints == 0 else 2,
                seconds=time.perf_counter() - t0)
 
     # M: one merge step's pairs at P = 20, N = 1000, 3 active pairs
@@ -570,9 +623,11 @@ def phase_train_parity(data_root: str) -> dict:
 
 
 # A launches G's kernel, so a profile shows their time as one group
-KERNEL_NAMES = {"sa_cached_kernel": "S", "fps_kernel": "F", "gather_kernel": "G+A",
-                "nn_kernel": "N", "masked_pair_kernel": "M", "scatter_add_kernel": "B",
-                "sa_raw_kernel": "R", "fps_cluster_kernel": "P"}
+KERNEL_NAMES = {"sa_cached_kernel": "S", "fps_kernel": "F", "pfpp_gather_rows_kernel": "G+A",
+                "pfpp_gather_staged_kernel": "G+A", "nn_kernel": "N",
+                "masked_pair_kernel": "M", "sa_raw_kernel": "R", "fps_cluster_kernel": "P",
+                "pfpp_scatter_fused_kernel": "B", "pfpp_scatter_csr_kernel": "B",
+                "pfpp_scatter_sum_kernel": "B"}
 
 
 def _profile(fn, warmups: int = 1) -> dict:
@@ -946,11 +1001,15 @@ def main() -> int:
     if results:
         rows = []
         for name, recs in results.items():
-            # S, R, A, B: the sum over one step's shapes; F, G, N, M, P: the largest shape of
-            # the first path, with every shape (training's too) under "per_shape"
-            main_rec = [r for r in recs if r["path"] == recs[0]["path"]][-1]
-            agg = (lambda key: sum(r[key] for r in recs)) if name in "SRAB" else (
+            # S, R, A, B: the sum over one step's shapes (of the first path; B's skewed case
+            # apart); F, G, N, M, P: the largest shape of the first path; every shape under
+            # "per_shape"
+            step = [r for r in recs if r["path"] == recs[0]["path"] and not r.get("skewed")]
+            main_rec = step[-1]
+            agg = (lambda key: sum(r[key] for r in step)) if name in "SRAB" else (
                 lambda key: main_rec[key])
+            timed = (("ms", "kernel_ms", "kernel_graph_ms", "library_graph_ms")
+                     if "kernel_ms" in main_rec else ("ms",))
             source, replaces = REPLACES[name]
             per_path = {path: counts[name] for path, counts in launches.items()
                         if name in PATH_KERNELS[path]}
@@ -961,15 +1020,16 @@ def main() -> int:
                 "launches": per_path.get(MAIN_PATH.get(name, "inference")),
                 "launches_per_path": per_path,
                 "max_abs_err": max(r["max_abs_err"] for r in recs),
-                "ms": agg("ms"), "plain_ms": agg("plain_ms"), "bound_ms": agg("bound_ms"),
+                **{k: agg(k) for k in timed}, "plain_ms": agg("plain_ms"),
+                "bound_ms": agg("bound_ms"),
                 "bound_by": main_rec["bound_by"],
                 "library_ms": agg("library_ms") if main_rec["library_ms"] is not None else None,
                 "shape": {"S": "SA1+SA2+SA3 of one denoise step",
                           "R": "SA1+SA2+SA3 of one 'always' encode",
-                          "A": "SA2+SA3 feature gathers of one training step",
+                          "A": "SA2+SA3 feature gathers of one VQ-VAE training step",
                           "B": "chamfer + SA2 + SA3 backward of one training step"}.get(
                               name, main_rec["shape"]),
-                "per_shape": [{k: r[k] for k in ("path", "shape", "max_abs_err", "ms",
+                "per_shape": [{k: r[k] for k in ("path", "shape", "max_abs_err", *timed,
                                                  "plain_ms", "bound_ms", "library_ms")
                                + (("f_ms",) if name == "P" else ())}
                               for r in recs],

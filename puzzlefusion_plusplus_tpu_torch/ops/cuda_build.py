@@ -22,11 +22,11 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 BUILD_DIR = os.path.join(CSRC, "build")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I = ctypes.c_void_p, ctypes.c_int
 # source -> {exported function: argtypes}; every function returns its launch's error code
 SIGNATURES = {
     "gather": {
-        "pfpp_gather": [_P, _P, _P, _LL, _LL, _LL, _LL, _P],
+        "pfpp_gather": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
         "pfpp_error_string": [_I],
     },
     "fps": {
@@ -39,14 +39,12 @@ SIGNATURES = {
     },
     "sa_cached": {"pfpp_sa_cached": [_P] * 10 + [_I] * 7 + [_P]},
     "sa_raw": {"pfpp_sa_raw": [_P] * 10 + [_I] * 8 + [_P]},
-    "scatter_add": {
-        "pfpp_scatter_add": [_P, _P, _P, _I, _I, _LL, _I, _P],
-        "pfpp_scatter_add_tile": [_I, _I],
-    },
+    "scatter_add": {"pfpp_scatter_add": [_P] * 4 + [_I] * 4 + [_P]},
 }
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[tuple[str, str], object] = {}
 build_seconds: dict[str, float] = {}  # per source, from the last build in this process
 
 
@@ -115,6 +113,16 @@ def library(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
+def function(src: str, name: str):
+    """The bound launch function ``name`` of ``csrc/<src>.cu``: looked up through
+    ``library`` once, then from a plain dict without the lock (the per-call cost of a
+    wrapper is host time the card may wait on)."""
+    fn = _fns.get((src, name))
+    if fn is None:
+        fn = _fns[(src, name)] = getattr(library(src), name)
+    return fn
+
+
 def check(code: int, what: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if code != 0:
@@ -123,8 +131,9 @@ def check(code: int, what: str) -> None:
 
 
 def stream_ptr(t: torch.Tensor) -> int:
-    """PyTorch's current stream on ``t``'s device, as the launch functions take it."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """PyTorch's current stream on ``t``'s device, as the launch functions take it (the raw
+    handle, without building a ``torch.cuda.Stream`` object on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,

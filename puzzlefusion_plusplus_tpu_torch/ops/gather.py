@@ -15,7 +15,13 @@ its own launch counter.
 B replaces ``gather_pallas.py::_gather_bwd_pallas`` (``_scatter_add_kernel``): the gradient
 of both gathers, and of the chamfer loss for its target cloud. ``_GatherFn`` runs the same
 forward and backward code on both devices: the kernels on CUDA tensors, the plain versions
-on CPU tensors.
+on CPU tensors. Where no gradient can flow (grad mode off, or points that need none, as in
+the engine and the frozen encoder) the gathers launch without ``autograd.Function``.
+
+The wrappers choose G's unit width (``gather_width``) and B's route (``scatter_fused``),
+both pure functions tested on the CPU; ``_launch_gather`` and ``_launch_scatter_add`` are
+the bare launches on buffers made beforehand, which ``chip_smoke.py`` times apart from the
+call path.
 """
 
 from __future__ import annotations
@@ -41,30 +47,86 @@ def scatter_add_plain(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tenso
     return out.index_add_(0, rows, g.reshape(B * R, C)).reshape(B, n, C)
 
 
+GATHER_MAX_ROW_UNITS = 8192  # kernel G divides by a row's units with a 32-bit reciprocal
+SCATTER_MAX_N = 58112  # kernel B counts a cloud's n keys in 227 KB of shared memory
+SCATTER_FUSED_FLOATS = 8192  # a cloud's g up to this size takes kernel B's one-launch route
+
+
+def gather_width(C: int, points_ptr: int) -> int:
+    """Floats a unit of kernel G moves: 4 (float4 loads and stores) when a row is whole
+    float4s and the source is 16-byte aligned (outputs come from ``torch.empty``, which
+    aligns them), else 1 (a view at an odd storage offset takes the scalar path)."""
+    return 4 if C % 4 == 0 and points_ptr % 16 == 0 else 1
+
+
 def _flat_idx(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if idx.device != points.device or idx.shape[0] != points.shape[0]:
         raise ValueError("idx must be [B, ...] on the points' device")
     return idx.reshape(idx.shape[0], -1).to(torch.int32).contiguous()
 
 
-def _gather_kernel(points: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
-    """Launch G's kernel: points [B, N, C] f32 CUDA, flat [B, R] int32 -> [B, R, C]."""
+def _launch_gather(points: torch.Tensor, flat: torch.Tensor, out: torch.Tensor) -> None:
+    """Kernel G's bare launch: points [B, N, C] f32, flat [B, R] int32, out [B, R, C], all
+    contiguous on the card (checked by the caller)."""
+    B, N, C = points.shape
+    width = gather_width(C, points.data_ptr())
+    if C // width > GATHER_MAX_ROW_UNITS:
+        raise ValueError(f"kernel G takes rows of at most {GATHER_MAX_ROW_UNITS} units, "
+                         f"got C = {C}")
+    cuda_build.check(
+        cuda_build.function("gather", "pfpp_gather")(
+            points.data_ptr(), flat.data_ptr(), out.data_ptr(), B, N, flat.shape[1], C,
+            width == 4, cuda_build.stream_ptr(points)),
+        "gather_points",
+    )
+
+
+def _gather_forward(points: torch.Tensor, idx: torch.Tensor, approx: bool) -> torch.Tensor:
+    """The plain gather on CPU tensors; kernel G on CUDA tensors, counted as G's or, with
+    ``approx``, as A's launch."""
+    if points.device.type == "cpu":
+        return gather_points_plain(points, idx)
+    flat = _flat_idx(points, idx)
     cuda_build.require(points, "points", torch.float32, 3)
     B, N, C = points.shape
     out = torch.empty((B, flat.shape[1], C), dtype=points.dtype, device=points.device)
+    _launch_gather(points, flat, out)
+    (gather_points_approx if approx else gather_points).launches += 1
+    return out.reshape(tuple(idx.shape) + (C,))
+
+
+def _launch_scatter_add(g: torch.Tensor, flat: torch.Tensor, out: torch.Tensor,
+                        scratch: torch.Tensor | None) -> None:
+    """Kernel B's bare launch: g [B, R, C] f32, flat [B, R] int32, out [B, n, C]; scratch
+    None for the fused route (one launch), else ``scatter_scratch_ints`` int32 (two)."""
+    B, R, C = g.shape
     cuda_build.check(
-        cuda_build.library("gather").pfpp_gather(
-            points.data_ptr(), flat.data_ptr(), out.data_ptr(), B, N, flat.shape[1], C,
-            cuda_build.stream_ptr(points)),
-        "gather_points",
+        cuda_build.function("scatter_add", "pfpp_scatter_add")(
+            g.data_ptr(), flat.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), B, out.shape[1], R, C,
+            cuda_build.stream_ptr(g)),
+        "scatter_add",
     )
-    return out
+
+
+def scatter_fused(R: int, C: int, n: int) -> bool:
+    """Kernel B's route: one launch when a cloud's g is small (R * C <= 8192 floats) and
+    one warp's n counts fit shared memory beside two copies of it and a counter; else two
+    launches through scratch (``csrc/scatter_add.cu`` sizes the same way)."""
+    return R * C <= SCATTER_FUSED_FLOATS and n + 2 * R * C + 1 <= SCATTER_MAX_N
+
+
+def scatter_scratch_ints(B: int, R: int, n: int, C: int) -> int:
+    """Kernel B's scratch: none on the fused route, else each cloud's CSR lists (R ints)
+    and row pointers (n + 1)."""
+    return 0 if scatter_fused(R, C, n) else B * (R + n + 1)
 
 
 def scatter_add(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     """g [B, R, C] f32, idx [B, R] int in [0, n) -> dpoints [B, n, C]; kernel B on CUDA
-    tensors. The kernel keeps a cloud's [n, tile] sum in shared memory, so n * 4 bytes must
-    fit 227 KB (n <= 58112). Indices are not checked (that would cost a sync)."""
+    tensors, deterministic and equal to the rows added in order. The kernel counts a cloud's
+    n keys in shared memory, so n <= 58112. Indices are not checked (that would cost a
+    sync)."""
     if g.device.type == "cpu":
         return scatter_add_plain(g, idx, n)
     g = g.contiguous()
@@ -72,16 +134,14 @@ def scatter_add(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     B, R, C = g.shape
     if idx.shape != (B, R) or idx.device != g.device:
         raise ValueError(f"idx must be [{B}, {R}] on g's device, got {tuple(idx.shape)}")
-    lib = cuda_build.library("scatter_add")
-    if lib.pfpp_scatter_add_tile(n, C) == 0:
-        raise ValueError(f"kernel B holds [n, 1] f32 in shared memory: n = {n} is too large")
+    if n > SCATTER_MAX_N:
+        raise ValueError(f"kernel B counts n keys in shared memory: n = {n} is above "
+                         f"{SCATTER_MAX_N}")
     flat = idx.to(torch.int32).contiguous()
     out = torch.empty((B, n, C), dtype=torch.float32, device=g.device)
-    cuda_build.check(
-        lib.pfpp_scatter_add(g.data_ptr(), flat.data_ptr(), out.data_ptr(), B, n, R, C,
-                             cuda_build.stream_ptr(g)),
-        "scatter_add",
-    )
+    ints = scatter_scratch_ints(B, R, n, C)
+    scratch = torch.empty(ints, dtype=torch.int32, device=g.device) if ints else None
+    _launch_scatter_add(g, flat, out, scratch)
     scatter_add.launches += 1
     return out
 
@@ -96,14 +156,8 @@ class _GatherFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, points, idx, approx):
         ctx.n = points.shape[1]
-        if points.device.type == "cpu":
-            ctx.save_for_backward(idx)
-            return gather_points_plain(points, idx)
-        flat = _flat_idx(points, idx)
-        out = _gather_kernel(points, flat)
-        (gather_points_approx if approx else gather_points).launches += 1
-        ctx.save_for_backward(flat)
-        return out.reshape(tuple(idx.shape) + (points.shape[2],))
+        ctx.save_for_backward(idx)
+        return _gather_forward(points, idx, approx)
 
     @staticmethod
     def backward(ctx, grad):
@@ -112,11 +166,18 @@ class _GatherFn(torch.autograd.Function):
         return scatter_add(grad.reshape(B, -1, C), idx.reshape(B, -1), ctx.n), None, None
 
 
+def _gather(points: torch.Tensor, idx: torch.Tensor, approx: bool) -> torch.Tensor:
+    # autograd's bookkeeping only where a gradient can flow (the engine's gathers skip it)
+    if torch.is_grad_enabled() and points.requires_grad:
+        return _GatherFn.apply(points, idx, approx)
+    return _gather_forward(points, idx, approx)
+
+
 def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """points [B, N, C] f32, idx [B, ...] int -> [B, ..., C]; kernel G on CUDA tensors,
     differentiable in ``points`` (kernel B). Indices must lie in [0, N): the kernel does not
     check them (that would cost a sync)."""
-    return _GatherFn.apply(points, idx, False)
+    return _gather(points, idx, False)
 
 
 gather_points.launches = 0
@@ -125,7 +186,7 @@ gather_points.launches = 0
 def gather_points_approx(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Kernel A: the gather of grouped features that feed a Dense layer. Exact on Hopper
     (see the module note); same arguments as ``gather_points``."""
-    return _GatherFn.apply(points, idx, True)
+    return _gather(points, idx, True)
 
 
 gather_points_approx.launches = 0

@@ -31,6 +31,7 @@ from puzzlefusion_plusplus_tpu_torch.inference.sampler import make_frozen_encode
 from puzzlefusion_plusplus_tpu_torch.models.denoiser import DenoiserTransformer
 from puzzlefusion_plusplus_tpu_torch.models.vqvae import VQVAE
 from puzzlefusion_plusplus_tpu_torch.ops import chamfer as tch
+from puzzlefusion_plusplus_tpu_torch.ops import cuda_build
 from puzzlefusion_plusplus_tpu_torch.ops import fps as tfps
 from puzzlefusion_plusplus_tpu_torch.ops import gather as tga
 from puzzlefusion_plusplus_tpu_torch.ops import sa_fused as tsa
@@ -91,6 +92,99 @@ def test_gather_approx_and_scatter_add_match_plain_on_card(dev, N, C, shape):
     again = tga.scatter_add(flat_up, flat_idx, N)
     assert torch.equal(again, pts.grad)  # deterministic
     assert torch.equal(again.cpu(), tga.scatter_add_plain(flat_up.cpu(), flat_idx.cpu(), N))
+
+
+@pytest.mark.parametrize("B,N,C,shape", [
+    (3, 50, 1, (37,)),          # one-float rows
+    (3, 1000, 3, (9, 37)),      # the xyz gathers' scalar path; 333 rows: a partial tile
+    (64, 1000, 3, (256, 32)),   # more tiles than one wave of warps: each warp strides
+    (2, 30, 4, (35,)),          # one float4 a row
+    (3, 40, 33, (7, 5)),        # rows that are not whole float4s
+    (2, 256, 128, (29, 3)),     # SA2's feature width; 87 rows, not a multiple of the unroll
+    (2, 128, 256, (25, 3)),     # SA3's: two 32-lane steps a row
+])
+def test_gather_kernel_paths_on_card(dev, B, N, C, shape):
+    g = torch.Generator(device=dev).manual_seed(3)
+    pts = torch.randn((B, N, C), generator=g, device=dev)
+    idx = torch.randint(0, N, (B,) + shape, generator=g, device=dev, dtype=torch.int32)
+    assert tga.gather_width(C, pts.data_ptr()) == (4 if C % 4 == 0 else 1)
+    ops.reset_launch_counts()
+    assert torch.equal(tga.gather_points(pts, idx), tga.gather_points_plain(pts, idx))
+    assert torch.equal(tga.gather_points(pts, idx.long()), tga.gather_points_plain(pts, idx))
+    assert ops.launch_counts()["G"] == 2
+
+
+def test_gather_of_an_unaligned_view_takes_the_scalar_path(dev):
+    """A points view one float into its storage is not 16-byte aligned: the wrapper picks
+    one-float units, and the launch refuses a float4 request on it."""
+    B, N, C = 2, 64, 128
+    buf = torch.randn(B * N * C + 1, device=dev)
+    pts = buf[1:].view(B, N, C)
+    assert pts.is_contiguous() and pts.data_ptr() % 16 == 4
+    assert tga.gather_width(C, pts.data_ptr()) == 1
+    idx = torch.randint(0, N, (B, 40), device=dev, dtype=torch.int32)
+    assert torch.equal(tga.gather_points_approx(pts, idx), tga.gather_points_plain(pts, idx))
+    out = torch.empty((B, 40, C), device=dev)
+    fn = cuda_build.function("gather", "pfpp_gather")
+    code = fn(pts.data_ptr(), idx.data_ptr(), out.data_ptr(), B, N, 40, C, 1,
+              cuda_build.stream_ptr(pts))
+    assert code != 0
+
+
+def test_gather_without_grad_skips_autograd_and_counts_its_launch(dev):
+    g = torch.Generator(device=dev).manual_seed(4)
+    pts = torch.randn((2, 100, 64), generator=g, device=dev, requires_grad=True)
+    idx = torch.randint(0, 100, (2, 16, 8), generator=g, device=dev)
+    ops.reset_launch_counts()
+    with_grad = tga.gather_points(pts, idx)
+    assert with_grad.grad_fn is not None and ops.launch_counts()["G"] == 1
+    with torch.no_grad():
+        fast = tga.gather_points(pts, idx)
+    assert fast.grad_fn is None and ops.launch_counts()["G"] == 2
+    assert torch.equal(fast, with_grad.detach())
+    detached = tga.gather_points_approx(pts.detach(), idx)  # needs no gradient either
+    assert detached.grad_fn is None and ops.launch_counts()["A"] == 1
+    assert torch.equal(detached, with_grad.detach())
+
+
+@pytest.mark.parametrize("case,B,R,N,C", [
+    ("random", 3, 1000, 1000, 3),
+    ("random", 2, 37, 11, 4),         # R not a multiple of the unroll or of a warp
+    ("random", 2, 300, 40, 33),
+    ("random", 2, 8192, 256, 128),    # SA2's backward: 32 CSR warps a cloud
+    ("random", 2, 1600, 128, 256),
+    ("one_index", 3, 1000, 1000, 3),  # every row to n = 0: one list of R rows
+    ("one_index", 2, 2000, 256, 128),
+    ("n_is_1", 2, 333, 1, 5),
+    ("untouched", 2, 20, 5000, 16),   # most rows of the output take no row
+    ("limit", 2, 3000, tga.SCATTER_MAX_N, 3),  # one warp's counts fill shared memory
+    ("fused_wide_n", 2, 100, 20000, 3),  # one launch with one sorting warp
+    ("n_is_1", 2, 333, 1, 3),         # one launch: all rows to n = 0 by construction
+])
+def test_scatter_add_kernel_paths_on_card(dev, case, B, R, N, C):
+    g = torch.Generator(device=dev).manual_seed(6)
+    up = torch.randn((B, R, C), generator=g, device=dev)
+    idx = (torch.zeros((B, R), dtype=torch.int32, device=dev) if case == "one_index" else
+           torch.randint(0, N, (B, R), generator=g, device=dev, dtype=torch.int32))
+    ops.reset_launch_counts()
+    out = tga.scatter_add(up, idx, N)
+    again = tga.scatter_add(up, idx, N)
+    assert ops.launch_counts()["B"] == 2  # one a call, though each call runs two kernels
+    assert torch.equal(out, again)  # deterministic
+    cpu = tga.scatter_add_plain(up.cpu(), idx.cpu(), N)
+    assert torch.equal(out.cpu(), cpu)  # rows added in order, as the CPU's index_add_
+    hit = torch.zeros((B, N), dtype=torch.bool)
+    hit.scatter_(1, idx.long().cpu(), True)
+    assert (out.cpu()[~hit] == 0).all()
+    if case in ("untouched", "one_index"):
+        assert (~hit).any()
+
+
+def test_scatter_add_refuses_n_above_its_limit(dev):
+    up = torch.randn((1, 4, 3), device=dev)
+    idx = torch.zeros((1, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        tga.scatter_add(up, idx, tga.SCATTER_MAX_N + 1)
 
 
 def test_nn_distance_gradient_on_card_matches_cpu(dev):

@@ -135,6 +135,36 @@ def test_gather_and_index_points_exact():
     ref = np.asarray(jgr.index_points(jnp.asarray(pts), jnp.asarray(idx)))
     np.testing.assert_array_equal(tga.gather_points(T(pts), T(idx)).numpy(), ref)
     np.testing.assert_array_equal(tgr.index_points(T(pts), T(idx).long()).numpy(), ref)
+    p = T(pts).requires_grad_()
+    with torch.no_grad():  # the path without autograd gives the same values
+        fast = tga.gather_points(p, T(idx))
+    assert fast.grad_fn is None and tga.gather_points(p, T(idx)).grad_fn is not None
+    np.testing.assert_array_equal(fast.numpy(), ref)
+
+
+@pytest.mark.parametrize("C,offset_floats,width", [
+    (3, 0, 1), (4, 0, 4), (33, 0, 1), (128, 0, 4), (256, 0, 4), (128, 1, 1), (128, 4, 4),
+])
+def test_gather_unit_width_follows_row_width_and_alignment(C, offset_floats, width):
+    """Kernel G moves float4s only when a row is whole float4s and the source is 16-byte
+    aligned; a view at an odd storage offset takes one-float units."""
+    assert tga.gather_width(C, 256 + 4 * offset_floats) == width
+
+
+@pytest.mark.parametrize("R,C,n,fused", [
+    (1000, 3, 1000, True),       # the chamfer loss's target side: one launch
+    (2048, 4, 1000, True),       # 8192 floats
+    (2731, 3, 1000, False),      # 8193 floats: two launches
+    (64, 128, 10, True),         # wide rows, few of them
+    (8192, 128, 256, False),     # SA2's backward
+    (100, 3, 57511, True),       # n counts, two copies of g and a counter: 58112 words
+    (100, 3, 57512, False),
+])
+def test_scatter_route_and_scratch(R, C, n, fused):
+    """Kernel B runs in one launch (no scratch) when a cloud's g is small and fits shared
+    memory beside the counts, else in two through scratch: the lists and row pointers."""
+    assert tga.scatter_fused(R, C, n) == fused
+    assert tga.scatter_scratch_ints(3, R, n, C) == (0 if fused else 3 * (R + n + 1))
 
 
 def test_square_distance_and_ball_query_exact():

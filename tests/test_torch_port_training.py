@@ -81,18 +81,19 @@ def pallas_interpret(monkeypatch):
 # ------------------------------------------------------------------ kernels B and A
 
 
-@pytest.mark.parametrize("case", ["duplicates", "untouched_rows", "one_row"])
+@pytest.mark.parametrize("case", ["duplicates", "untouched_rows", "one_row", "one_index"])
 def test_scatter_add_matches_pallas_interpret(pallas_interpret, case):
     rng = np.random.default_rng(0)
     B, N, C = 2, 40, 16
-    shape = {"duplicates": (B, 8, 6), "untouched_rows": (B, 5, 3), "one_row": (B, 1)}[case]
-    hi = {"duplicates": 6, "untouched_rows": N, "one_row": N}[case]
-    idx = rng.integers(0, hi, size=shape).astype(np.int32)
+    shape = {"duplicates": (B, 8, 6), "untouched_rows": (B, 5, 3), "one_row": (B, 1),
+             "one_index": (B, 9, 7)}[case]
+    hi = {"duplicates": 6, "untouched_rows": N, "one_row": N, "one_index": 1}[case]
+    idx = rng.integers(0, hi, size=shape).astype(np.int32)  # one_index: every row to 0
     g = rng.normal(size=shape + (C,)).astype(np.float32)
     ref = np.asarray(jgp._gather_bwd_pallas(jnp.asarray(idx), jnp.asarray(g), N))
     out = tga.scatter_add_plain(T(g).reshape(B, -1, C), T(idx).reshape(B, -1), N)
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-6)
-    if case == "untouched_rows":
+    if case in ("untouched_rows", "one_index"):
         hit = np.zeros((B, N), bool)
         for b in range(B):
             hit[b, idx[b].ravel()] = True
