@@ -13,9 +13,14 @@ Phases, each printing one JSON object per line (with its seconds):
                also time the bare launch on int32 indices into buffers made beforehand
                (``kernel_ms``, beside ``ms``, the call as callers make it), and the bare
                launch and the library call replayed from a CUDA graph (``kernel_graph_ms``,
-               ``library_graph_ms``: the card's time without host gaps); A also runs at the
-               denoiser step's frozen-encode shapes (M = 1280) and B with every row to one
-               index, both listed under ``per_shape`` and left out of the step's sum.
+               ``library_graph_ms``: the card's time without host gaps); A and S also run at
+               the denoiser's frozen-encode shapes (M = 1280) and B with every row to one
+               index, all listed under ``per_shape`` and left out of the step's sum. S and
+               R compute in 3xTF32 on the tensor cores: their ``bound_ms`` counts three TF32
+               MMAs per product at 495 TFLOP/s, ``bound_fp32_ms`` the same work on the CUDA
+               cores; they also give their rows per block, the weight bytes their blocks
+               read from L2 (``l2_weight_bytes``, and with 64-row blocks), and must be
+               bit-equal across two launches.
   3. engine  — the full-width engine (``Config()`` defaults: VQ-VAE 1000 pts / 25x64 tokens /
                1024x16 codebook, denoiser 512/6/8, verifier 256/6/8, 6 iterations x 20 steps,
                fp32, batch 8) on 8 synthetic shapes of 3-12 parts (seed 7) through
@@ -74,6 +79,9 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 H100_FP32_FLOPS = 67e12  # FP32 outside the tensor cores, H100 SXM data sheet
+# TF32 on the tensor cores, dense, H100 SXM data sheet. Kernels S and R compute each FP32
+# product as three TF32 MMAs (3xTF32), so their bound is 3 x flops at this rate.
+H100_TF32_FLOPS = 495e12
 H100_BYTES_PER_S = 3.35e12
 REPLACES = {
     "S": ("puzzlefusion_plusplus_tpu_torch/csrc/sa_cached.cu",
@@ -154,9 +162,14 @@ def graph_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_FP32_FLOPS * 1e3
+def bound(nbytes: float, flops: float, rate: float = H100_FP32_FLOPS) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_3xtf32(nbytes: float, flops: float) -> tuple[float, str]:
+    """Bound of FP32-accurate products on the tensor cores: three TF32 MMAs per product."""
+    return bound(nbytes, 3 * flops, H100_TF32_FLOPS)
 
 
 # ------------------------------------------------------------------------------- phases
@@ -190,7 +203,7 @@ def phase_kernels(results: dict) -> None:
     """Each kernel against its plain version at the main path's shapes."""
     import torch
 
-    from puzzlefusion_plusplus_tpu_torch.ops import chamfer, fps, gather, sa_fused
+    from puzzlefusion_plusplus_tpu_torch.ops import chamfer, cuda_build, fps, gather, sa_fused
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -199,22 +212,34 @@ def phase_kernels(results: dict) -> None:
         return torch.randn(shape, generator=gen, device=dev) * scale
 
     def record(name, shape, err, ms, plain_ms, nbytes, flops, library_ms=None,
-               path="inference", **extra):
-        b_ms, b_by = bound(nbytes, flops)
+               path="inference", tensor_cores=False, **extra):
+        b_ms, b_by = (bound_3xtf32 if tensor_cores else bound)(nbytes, flops)
         row = {"phase": "kernels", "kernel": name, "path": path, "shape": shape,
                "max_abs_err": err,
                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": library_ms, **extra}
+        if tensor_cores:  # the same work as FP32 on the CUDA cores, the parent's route
+            row["bound_fp32_ms"], row["bound_fp32_by"] = bound(nbytes, flops)
         emit(row)
         results.setdefault(name, []).append(row)
 
-    # S: the three SA stages of one denoise step at M = 96 clouds (b8 x P12)
-    M = 96
-    for stage, (S, K, N2, D, C1, C2, C3) in {
-        "SA1": (256, 32, 0, 0, 64, 64, 128),
-        "SA2": (128, 64, 256, 128, 128, 128, 256),
-        "SA3": (25, 64, 128, 256, 256, 256, 512),
-    }.items():
+    def l2_weight_bytes(rows_per_block, M, S, K, weight_floats):
+        """Weight bytes the blocks of one launch read from L2: every block streams all of
+        its layers' weights once."""
+        return 4 * weight_floats * M * -(-S // (rows_per_block // K))
+
+    sa_rows = cuda_build.function("sa_cached", "pfpp_sa_cached_rows")
+    raw_rows = cuda_build.function("sa_raw", "pfpp_sa_raw_rows")
+
+    # S: the three SA stages of one denoise step at M = 96 clouds (b8 x P12), then of the
+    # denoiser validation's frozen encode at M = 1280 (64 shapes x 20 slots; listed apart
+    # from the step's sum)
+    S_STAGES = {"SA1": (256, 32, 0, 0, 64, 64, 128),
+                "SA2": (128, 64, 256, 128, 128, 128, 256),
+                "SA3": (25, 64, 128, 256, 256, 256, 512)}
+    for M, path, reps, plain_reps, (stage, (S, K, N2, D, C1, C2, C3)) in (
+            [(96, "inference", 20, 3, st) for st in S_STAGES.items()]
+            + [(1280, "train_denoiser", 5, 1, st) for st in S_STAGES.items()]):
         t0 = time.perf_counter()
         g = randn(M, S, K, 3, scale=0.1)
         w_eff = randn(M, 3, C1, scale=3 ** -0.5)
@@ -236,14 +261,25 @@ def phase_kernels(results: dict) -> None:
         nbytes = 4 * (g.numel() + w_eff.numel() + (feats.numel() + gidx.numel()
                       + k1f.numel() if D else 0) + C1 + C1 * C2 + C2 + C2 * C3 + C3
                       + M * S * C3)
-        record("S", stage, err,
-               cuda_ms(lambda: sa_fused.sa_stage_fused_cached(*args), 20),
+        del out, ref, proj
+        again = sa_fused.sa_stage_fused_cached(*args)
+        _check(torch.equal(again, sa_fused.sa_stage_fused_cached(*args)),
+               f"S {stage}: two launches differ")
+        del again
+        rows = sa_rows(K, C1, C2)
+        record("S", f"{stage} M={M}", err,
+               cuda_ms(lambda: sa_fused.sa_stage_fused_cached(*args), reps),
                cuda_ms(lambda: sa_fused.sa_stage_plain(
                    g, w_eff, None if feats is None else torch.matmul(feats, k1f), gidx, b1,
-                   w2, b2, w3, b3), 3),
-               nbytes, flops, max_rel_err=rel, seconds=time.perf_counter() - t0)
+                   w2, b2, w3, b3), plain_reps),
+               nbytes, flops, path=path, tensor_cores=True, max_rel_err=rel,
+               rows_per_block=rows,
+               l2_weight_bytes=l2_weight_bytes(rows, M, S, K, C1 * C2 + C2 * C3),
+               l2_weight_bytes_64_rows=l2_weight_bytes(64, M, S, K, C1 * C2 + C2 * C3),
+               seconds=time.perf_counter() - t0)
 
     # R: the three SA stages of the 'always' encode of the engine batch's M = 96 clouds
+    M = 96
     for stage, (N, Cin, S, K, widths) in {
         "SA1": (1000, 3, 256, 32, (64, 64, 128)),
         "SA2": (256, 131, 128, 64, (128, 128, 256)),
@@ -263,7 +299,11 @@ def phase_kernels(results: dict) -> None:
         err = (out - ref).abs().max().item()
         rel = err / max(ref.abs().max().item(), 1e-30)
         _check(rel <= 1e-4, f"R {stage}: relative error {rel}")
+        _check(torch.equal(out, sa_fused.sa_stage_fused(pts, fidx, gidx, weights)),
+               f"R {stage}: two launches differ")
         C1, C2, C3 = widths
+        rows = raw_rows(K, Cin, C1, C2)
+        weight_floats = (Cin - 3) * C1 + C1 * C2 + C2 * C3
         # layer 1 is linear before its ReLU: the feature block's product is needed once per
         # point, and recentring only touches the 3 xyz rows (counted as for S)
         flops = 2 * M * S * K * (3 * C1 + C1 * C2 + C2 * C3) + 2 * M * N * (Cin - 3) * C1
@@ -272,7 +312,10 @@ def phase_kernels(results: dict) -> None:
         record("R", stage, err,
                cuda_ms(lambda: sa_fused.sa_stage_fused(pts, fidx, gidx, weights), 20),
                cuda_ms(lambda: sa_fused.sa_stage_fused_plain(pts, fidx, gidx, weights), 3),
-               nbytes, flops, path="encoder_modes", max_rel_err=rel,
+               nbytes, flops, path="encoder_modes", tensor_cores=True, max_rel_err=rel,
+               rows_per_block=rows,
+               l2_weight_bytes=l2_weight_bytes(rows, M, S, K, weight_floats),
+               l2_weight_bytes_64_rows=l2_weight_bytes(64, M, S, K, weight_floats),
                seconds=time.perf_counter() - t0)
 
     # F: the cache build's first stage and the merge resample (partial mask), then the three
@@ -439,6 +482,7 @@ def phase_kernels(results: dict) -> None:
            4 * (P * N * 3 + P * P * N) + P * P, 8.0 * len(pairs) * N * N,
            library_ms=cuda_ms(lambda: torch.cdist(xa, xb).min(-1), 20),
            max_rel_err=rel, seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()  # the plain versions at M = 1280 held tens of GB
 
 
 def _full_config(data_root: str):
@@ -1010,6 +1054,10 @@ def main() -> int:
                 lambda key: main_rec[key])
             timed = (("ms", "kernel_ms", "kernel_graph_ms", "library_graph_ms")
                      if "kernel_ms" in main_rec else ("ms",))
+            # S and R: the FP32 CUDA-core bound of the same work and the L2 weight bytes
+            # (this design's and 64-row blocks')
+            summed = tuple(k for k in ("bound_fp32_ms", "l2_weight_bytes",
+                                       "l2_weight_bytes_64_rows") if k in main_rec)
             source, replaces = REPLACES[name]
             per_path = {path: counts[name] for path, counts in launches.items()
                         if name in PATH_KERNELS[path]}
@@ -1022,16 +1070,18 @@ def main() -> int:
                 "max_abs_err": max(r["max_abs_err"] for r in recs),
                 **{k: agg(k) for k in timed}, "plain_ms": agg("plain_ms"),
                 "bound_ms": agg("bound_ms"),
-                "bound_by": main_rec["bound_by"],
+                "bound_by": main_rec["bound_by"], **{k: agg(k) for k in summed},
                 "library_ms": agg("library_ms") if main_rec["library_ms"] is not None else None,
-                "shape": {"S": "SA1+SA2+SA3 of one denoise step",
+                "shape": {"S": "SA1+SA2+SA3 of one denoise step at M=96",
                           "R": "SA1+SA2+SA3 of one 'always' encode",
                           "A": "SA2+SA3 feature gathers of one VQ-VAE training step",
                           "B": "chamfer + SA2 + SA3 backward of one training step"}.get(
                               name, main_rec["shape"]),
                 "per_shape": [{k: r[k] for k in ("path", "shape", "max_abs_err", *timed,
-                                                 "plain_ms", "bound_ms", "library_ms")
-                               + (("f_ms",) if name == "P" else ())}
+                                                 "plain_ms", "bound_ms", "library_ms",
+                                                 *summed)
+                               + (("f_ms",) if name == "P" else ())
+                               + (("rows_per_block",) if name in "SR" else ())}
                               for r in recs],
             }
             if name == "P":

@@ -8,46 +8,63 @@
 // with BatchNorm folded into W2/W3 and the rotation into W_eff on the host. The TPU kernel
 // gathers proj rows with a one-hot matmul; here the gather is a plain load.
 //
-// Bound: FP32 operations (2*rows*(C1*C2 + C2*C3) per stage, ~157 GFLOP per denoise step at
-// 96 clouds) on the CUDA cores, since the port works in full float32. Design: one block of
-// 256 threads owns 64 rows (64/K centres) of one cloud. h1 and h2 stay in shared memory,
-// channel-major with a padded stride, and never touch device memory. The two GEMMs run as
-// 64-column passes: each thread keeps a 4x4 register tile, weights are staged through
-// shared memory 32 input channels at a time, and both operands are read as float4. The
-// max over K is folded into each W3 pass through a small shared reduction, so SA3's
-// 256x512 W3 (512 KB) is streamed in column chunks and never held whole. Shared memory
-// reaches 149 KB at SA3, above the default 48 KB, hence cudaFuncSetAttribute per launch.
-// Layers 2-3 and the max over K are sa_common.cuh's mlp_tail, shared with kernel R.
+// Bound: the two products (2*rows*(C1*C2 + C2*C3) FLOP per stage, ~157 GFLOP per denoise
+// step at 96 clouds), FP32-accurate on the tensor cores as 3xTF32 (three TF32 MMAs per
+// product: 0.97 ms a step at 495 TFLOP/s, against 2.40 ms for FP32 on the CUDA cores).
+// Design (sa_common.cuh): a block of 256 threads owns 128 rows (SA1, SA2) or 64 (SA3, where
+// h1 and h2 of 128 rows would need 266 KB), so each W2/W3 byte read from L2 serves 128 or
+// 64 rows (3.40 GB of weights from L2 a step at 96 clouds, against 4.91 GB with 64-row
+// blocks). Layer 1 (the 3-term xyz product, the gathered proj row and the bias) is FP32
+// elementwise work: the block's proj rows land in h1 by cp.async, all in flight at once,
+// while the ring's first weight tiles load. Layers 2 and 3 run as mma.sync 3xTF32 passes
+// from the ring, and the max over K is fused into layer 3's epilogue. h1 and h2 never leave
+// shared memory (at most 175 KB a block: one block an SM at SA2 and SA3, two at SA1).
 #include "sa_common.cuh"
 
 namespace {
 
-using sa::kHS;
-using sa::kRows;
-using sa::kThreads;
+constexpr int kRowChoices[2] = {128, 64};  // rows per block, the larger first
 
-size_t smem_bytes(int C1, int C2) {
-  return sizeof(float) * ((size_t)(C1 + C2) * kHS + sa::kTailScratch + kRows * 3 + kRows);
+using sa::kThreads;
+using sa::ld_act;
+
+size_t smem_bytes(int BM, int K, int C1, int C2) {
+  return sizeof(float) * (sa::base_floats(BM, K) + (size_t)BM * (ld_act(C1) + ld_act(C2)));
 }
 
-__global__ void __launch_bounds__(kThreads) sa_cached_kernel(
+// Rows per block: 128 where shared memory allows, else 64, else 0 (no launch possible).
+int rows_per_block(int K, int C1, int C2) {
+  for (int BM : kRowChoices)
+    if (BM % K == 0 && smem_bytes(BM, K, C1, C2) <= sa::kMaxSmem) return BM;
+  return 0;
+}
+
+template <int BM>
+__global__ void __launch_bounds__(kThreads, 2) sa_cached_kernel(
     const float* __restrict__ g, const float* __restrict__ weff,
     const float* __restrict__ proj, const int* __restrict__ gidx,
     const float* __restrict__ b1, const float* __restrict__ w2, const float* __restrict__ b2,
     const float* __restrict__ w3, const float* __restrict__ b3, float* __restrict__ out,
     int S, int K, int N2, int C1, int C2, int C3) {
   extern __shared__ float4 smem4[];
-  float* h1 = reinterpret_cast<float*>(smem4);  // [C1][kHS]
-  float* h2 = h1 + (size_t)C1 * kHS;             // [C2][kHS]
-  float* scratch = h2 + (size_t)C2 * kHS;        // the tail's weight tile and maxima
-  float* gs = scratch + sa::kTailScratch;        // [kRows][3]
-  int* gi = reinterpret_cast<int*>(gs + kRows * 3);
+  float* ring = reinterpret_cast<float*>(smem4);   // [kStages][kKT][kLDW]
+  float* h1 = ring + sa::kRingFloats;               // [BM][C1 + 4]
+  float* h2 = h1 + (size_t)BM * ld_act(C1);         // [BM][C2 + 4]
+  float* red = h2 + (size_t)BM * ld_act(C2);        // [BM / min(K, 32)][kBN]
+  float* gs = red + (BM / (K < 32 ? K : 32)) * sa::kBN;  // [BM][3]
+  int* gi = reinterpret_cast<int*>(gs + BM * 3);
 
   const int m = blockIdx.y;
-  const int s0 = blockIdx.x * (kRows / K);
+  const int s0 = blockIdx.x * (BM / K);
   const int tid = threadIdx.x;
 
-  for (int r = tid; r < kRows; r += kThreads) {
+  sa::WeightStream ws;
+  ws.ring = ring;
+  ws.add(w2, C2, C1, C2);
+  ws.add(w3, C3, C2, C3);
+  ws.prologue();  // W2's first tiles load while layer 1 runs
+
+  for (int r = tid; r < BM; r += kThreads) {
     const int s = s0 + r / K;
     const bool ok = s < S;
     const size_t row = ((size_t)m * S + (ok ? s : 0)) * K + r % K;
@@ -58,19 +75,47 @@ __global__ void __launch_bounds__(kThreads) sa_cached_kernel(
   }
   __syncthreads();
 
-  // layer 1: rotation-folded xyz term + gathered feature projection + bias, ReLU
-  const float* we = weff + (size_t)m * 3 * C1;
-  for (int e = tid; e < kRows * C1; e += kThreads) {
-    const int r = e / C1, c = e % C1;
-    float v = gs[r * 3 + 0] * we[c] + gs[r * 3 + 1] * we[C1 + c] + gs[r * 3 + 2] * we[2 * C1 + c];
-    if (proj != nullptr) v += proj[((size_t)m * N2 + gi[r]) * C1 + c];
-    h1[c * kHS + r] = fmaxf(v + b1[c], 0.f);
+  // the rows' proj vectors straight into h1 (cp.async: all of them in flight at once)
+  const int lane = tid & 31, warp = tid >> 5, ld1 = ld_act(C1);
+  if (proj != nullptr) {  // one warp a row
+    for (int r = warp; r < BM; r += kThreads / 32) {
+      const float* src = proj + ((size_t)m * N2 + gi[r]) * C1;
+      for (int c = lane * 4; c < C1; c += 128) sa::cp_async16(h1 + r * ld1 + c, src + c);
+    }
   }
+  sa::cp_async_commit();
+  sa::cp_async_wait<0>();
+  __syncthreads();
 
-  sa::mlp_tail(h1, h2, scratch, w2, b2, w3, b3, out, m, S, K, s0, C1, C2, C3);
+  // layer 1: rotation-folded xyz term + gathered feature projection + bias, ReLU
+  sa::xyz_layer<BM>(gs, weff + (size_t)m * 3 * C1, b1, h1, C1, proj != nullptr);
+
+  int t = 0;  // the first tile barrier of layer 2 publishes h1
+  sa::mlp_tail<BM>(ws, t, h1, h2, red, b2, b3, out, m, S, K, s0, C1, C2, C3);
+}
+
+template <int BM>
+int launch(const float* g, const float* weff, const float* proj, const int* gidx,
+           const float* b1, const float* w2, const float* b2, const float* w3, const float* b3,
+           float* out, int M, int S, int K, int N2, int C1, int C2, int C3,
+           cudaStream_t stream) {
+  const size_t smem = smem_bytes(BM, K, C1, C2);
+  cudaError_t err = cudaFuncSetAttribute(
+      sa_cached_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int cpb = BM / K;
+  const dim3 grid((S + cpb - 1) / cpb, M);
+  sa_cached_kernel<BM><<<grid, kThreads, smem, stream>>>(g, weff, proj, gidx, b1, w2, b2, w3,
+                                                         b3, out, S, K, N2, C1, C2, C3);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
+
+// Rows of one block at these widths (128 or 64; 0: the layers do not fit shared memory).
+PFPP_EXPORT int pfpp_sa_cached_rows(int K, int C1, int C2) {
+  return rows_per_block(K, C1, C2);
+}
 
 // Shapes: g [M,S,K,3], weff [M,3,C1], proj [M,N2,C1] or null, gidx [M,S,K] or null,
 // w2 [C1,C2], w3 [C2,C3], out [M,S,C3]. Requires 64 % K == 0, K % 4 == 0, C1 % 32 == 0,
@@ -81,13 +126,15 @@ PFPP_EXPORT int pfpp_sa_cached(const float* g, const float* weff, const float* p
                                int M, int S, int K, int N2, int C1, int C2, int C3,
                                void* stream) {
   if (M == 0 || S == 0) return 0;
-  const size_t smem = smem_bytes(C1, C2);
-  cudaError_t err = cudaFuncSetAttribute(
-      sa_cached_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int cpb = kRows / K;
-  const dim3 grid((S + cpb - 1) / cpb, M);
-  sa_cached_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      g, weff, proj, gidx, b1, w2, b2, w3, b3, out, S, K, N2, C1, C2, C3);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (rows_per_block(K, C1, C2)) {
+    case 128:
+      return launch<128>(g, weff, proj, gidx, b1, w2, b2, w3, b3, out, M, S, K, N2, C1, C2,
+                         C3, st);
+    case 64:
+      return launch<64>(g, weff, proj, gidx, b1, w2, b2, w3, b3, out, M, S, K, N2, C1, C2,
+                        C3, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

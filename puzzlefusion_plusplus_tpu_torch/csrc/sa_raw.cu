@@ -8,54 +8,69 @@
 //   out[m, s] = max_k relu(h2 @ W3 + b3)                                     [C3]
 // with BatchNorm folded into W1..W3 on the host. The TPU kernel gathers both row sets with
 // byte-plane one-hot matmuls (its matrix unit rounds f32 operands to bf16); here a gather is
-// a load, and every product is an FP32 FMA.
+// a load.
 //
-// Bound: FP32 operations (2*rows*(Cin*C1 + C1*C2 + C2*C3)), as for S. Design: S's block
-// layout (sa_common.cuh). The block loads its 64 neighbour rows and their centres itself:
-// the recentred xyz go to a [64][3] tile and the D = Cin - 3 feature channels to a
-// channel-major [D][kHS] tile, read with scalar loads because Cin = 131 and 259 leave the
-// rows without 16-byte alignment. Layer 1 stays in the kernel: the feature block
-// x[:, 3:] @ W1[3:] runs as the tail's 64-column dense passes (D is a multiple of 32 at
-// every stage: 0, 128, 256), and the xyz block W1[:3] and the bias are added in the
-// epilogue of each pass; with D = 0 (SA1) layer 1 is S's direct 3-term loop. The feature
-// tile is dead once h1 is written, so it shares its memory with h2 (D <= C2 at every
-// stage); shared memory then peaks at SA3 at S's own 149 KB.
-// Layers 2-3 and the max over K are mlp_tail, S's own code.
+// Bound: the products (2*rows*(C1*C2 + C2*C3) plus layer 1's feature block, which the
+// bound charges once per point), FP32-accurate as 3xTF32 on the tensor cores, as for S.
+// Design: S's block layout and tail (sa_common.cuh). The block loads its 128 (SA1, SA2) or
+// 64 (SA3) neighbour rows and their centres itself: the recentred xyz go to a [BM][3] tile
+// and the D = Cin - 3 feature channels to a row-major [BM][D + 4] tile by 4-byte cp.async
+// (Cin = 131 and 259 leave the rows without 16-byte alignment), all in flight at once.
+// Layer 1 stays in the kernel and per row: the feature block x[:, 3:] @ W1[3:] is the first
+// layer of the weight stream (3xTF32 MMA passes, D a multiple of 32: 0, 128, 256), and
+// the xyz block W1[:3] and the bias are added in its epilogue; with D = 0 (SA1) layer 1 is
+// S's direct 3-term loop. The feature tile is dead once h1 is written, so it shares its
+// memory with h2.
 #include "sa_common.cuh"
 
 namespace {
 
-using sa::kCT;
-using sa::kHS;
-using sa::kRows;
-using sa::kThreads;
+constexpr int kRowChoices[2] = {128, 64};  // rows per block, the larger first
 
-size_t smem_bytes(int D, int C1, int C2) {
-  const int shared_rows = D > C2 ? D : C2;  // the feature tile, then h2
+using sa::kThreads;
+using sa::ld_act;
+
+size_t smem_bytes(int BM, int K, int D, int C1, int C2) {
+  const int shared_width = D > C2 ? D : C2;  // the feature tile, then h2
   return sizeof(float) *
-         ((size_t)(C1 + shared_rows) * kHS + sa::kTailScratch + kRows * 3 + kRows);
+         (sa::base_floats(BM, K) + (size_t)BM * (ld_act(C1) + ld_act(shared_width)));
 }
 
-__global__ void __launch_bounds__(kThreads) sa_raw_kernel(
+int rows_per_block(int K, int D, int C1, int C2) {
+  for (int BM : kRowChoices)
+    if (BM % K == 0 && smem_bytes(BM, K, D, C1, C2) <= sa::kMaxSmem) return BM;
+  return 0;
+}
+
+template <int BM>
+__global__ void __launch_bounds__(kThreads, 2) sa_raw_kernel(
     const float* __restrict__ pts, const int* __restrict__ fidx, const int* __restrict__ gidx,
     const float* __restrict__ w1, const float* __restrict__ b1, const float* __restrict__ w2,
     const float* __restrict__ b2, const float* __restrict__ w3, const float* __restrict__ b3,
     float* __restrict__ out, int N, int Cin, int S, int K, int C1, int C2, int C3) {
   extern __shared__ float4 smem4[];
   const int D = Cin - 3;
-  float* h1 = reinterpret_cast<float*>(smem4);  // [C1][kHS]
-  float* h2 = h1 + (size_t)C1 * kHS;             // [max(D, C2)][kHS]: x's features, then h2
-  float* xf = h2;
-  float* scratch = h2 + (size_t)(D > C2 ? D : C2) * kHS;
-  float* gs = scratch + sa::kTailScratch;        // [kRows][3] recentred xyz
-  int* gi = reinterpret_cast<int*>(gs + kRows * 3);
+  float* ring = reinterpret_cast<float*>(smem4);   // [kStages][kKT][kLDW]
+  float* h1 = ring + sa::kRingFloats;               // [BM][C1 + 4]
+  float* h2 = h1 + (size_t)BM * ld_act(C1);         // [BM][C2 + 4], first x's features
+  float* xf = h2;                                   // [BM][D + 4]
+  float* red = h2 + (size_t)BM * ld_act(D > C2 ? D : C2);
+  float* gs = red + (BM / (K < 32 ? K : 32)) * sa::kBN;  // [BM][3] recentred xyz
+  int* gi = reinterpret_cast<int*>(gs + BM * 3);
 
   const int m = blockIdx.y;
-  const int s0 = blockIdx.x * (kRows / K);
-  const int tid = threadIdx.x, cg = tid % 16, rg = tid / 16;
+  const int s0 = blockIdx.x * (BM / K);
+  const int tid = threadIdx.x;
   const float* cloud = pts + (size_t)m * N * Cin;
 
-  for (int r = tid; r < kRows; r += kThreads) {
+  sa::WeightStream ws;
+  ws.ring = ring;
+  if (D > 0) ws.add(w1 + 3 * C1, C1, D, C1);
+  ws.add(w2, C2, C1, C2);
+  ws.add(w3, C3, C2, C3);
+  ws.prologue();  // the first weight tiles load while the rows are gathered
+
+  for (int r = tid; r < BM; r += kThreads) {
     const int s = s0 + r / K;
     const bool ok = s < S;
     const int n = ok ? gidx[((size_t)m * S + s) * K + r % K] : 0;
@@ -69,43 +84,58 @@ __global__ void __launch_bounds__(kThreads) sa_raw_kernel(
   }
   __syncthreads();
 
+  int t = 0;
   if (D == 0) {  // layer 1 of SA1: the recentred xyz alone
-    for (int e = tid; e < kRows * C1; e += kThreads) {
-      const int r = e / C1, c = e % C1;
-      const float v = gs[r * 3 + 0] * w1[c] + gs[r * 3 + 1] * w1[C1 + c] +
-                      gs[r * 3 + 2] * w1[2 * C1 + c];
-      h1[c * kHS + r] = fmaxf(v + b1[c], 0.f);
-    }
+    sa::xyz_layer<BM>(gs, w1, b1, h1, C1, false);
   } else {
-    // gather the neighbours' feature channels: neighbouring threads read neighbouring
-    // channels of one row
-    for (int e = tid; e < kRows * D; e += kThreads) {
-      const int r = e / D, c = e % D;
-      xf[c * kHS + r] = gi[r] >= 0 ? cloud[(size_t)gi[r] * Cin + 3 + c] : 0.f;
-    }
-    float acc[4][4];
-    for (int c0 = 0; c0 < C1; c0 += kCT) {
-      sa::dense_pass(xf, D, w1 + 3 * C1, C1, c0, scratch, acc);  // barriers cover xf
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = c0 + cg * 4 + j;
-        const float wx = w1[c], wy = w1[C1 + c], wz = w1[2 * C1 + c], bias = b1[c];
-        float v[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = rg * 4 + i;
-          v[i] = fmaxf(acc[i][j] + gs[r * 3 + 0] * wx + gs[r * 3 + 1] * wy +
-                           gs[r * 3 + 2] * wz + bias, 0.f);
-        }
-        *reinterpret_cast<float4*>(&h1[c * kHS + rg * 4]) = make_float4(v[0], v[1], v[2], v[3]);
+    // the neighbours' feature channels, one warp a row (4-byte cp.async: the rows are not
+    // 16-byte aligned; all in flight at once)
+    const int lane = tid & 31, warp = tid >> 5, ldx = ld_act(D);
+    for (int r = warp; r < BM; r += kThreads / 32) {  // one warp a row
+      const int n = gi[r];
+      for (int c = lane; c < D; c += 32) {
+        if (n >= 0)
+          sa::cp_async4(xf + r * ldx + c, cloud + (size_t)n * Cin + 3 + c);
+        else
+          xf[r * ldx + c] = 0.f;
       }
     }
+    sa::cp_async_commit();
+    sa::cp_async_wait<0>();
+    // the feature block on the tensor cores; the xyz block and the bias in the epilogue
+    // (the layer's first tile barrier publishes xf)
+    sa::dense<BM>(ws, t, xf, D, C1, [&](auto& acc, int col0, int row0, int q) {
+      sa::store_relu<BM>(acc, col0, row0, q, h1, C1, b1, [&](int r, int c) {
+        return gs[r * 3 + 0] * w1[c] + gs[r * 3 + 1] * w1[C1 + c] + gs[r * 3 + 2] * w1[2 * C1 + c];
+      });
+    });
   }
-  // the tail's first barrier orders the h1 writes (and the last reads of xf) before h2
-  sa::mlp_tail(h1, h2, scratch, w2, b2, w3, b3, out, m, S, K, s0, C1, C2, C3);
+  // the tail's first tile barrier orders the h1 writes (and the last reads of xf) before h2
+  sa::mlp_tail<BM>(ws, t, h1, h2, red, b2, b3, out, m, S, K, s0, C1, C2, C3);
+}
+
+template <int BM>
+int launch(const float* pts, const int* fidx, const int* gidx, const float* w1,
+           const float* b1, const float* w2, const float* b2, const float* w3, const float* b3,
+           float* out, int M, int N, int Cin, int S, int K, int C1, int C2, int C3,
+           cudaStream_t stream) {
+  const size_t smem = smem_bytes(BM, K, Cin - 3, C1, C2);
+  cudaError_t err = cudaFuncSetAttribute(
+      sa_raw_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int cpb = BM / K;
+  const dim3 grid((S + cpb - 1) / cpb, M);
+  sa_raw_kernel<BM><<<grid, kThreads, smem, stream>>>(pts, fidx, gidx, w1, b1, w2, b2, w3, b3,
+                                                      out, N, Cin, S, K, C1, C2, C3);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
+
+// Rows of one block at these widths (128 or 64; 0: the layers do not fit shared memory).
+PFPP_EXPORT int pfpp_sa_raw_rows(int K, int Cin, int C1, int C2) {
+  return rows_per_block(K, Cin - 3, C1, C2);
+}
 
 // Shapes: pts [M,N,Cin] (xyz ++ features), fidx [M,S], gidx [M,S,K], w1 [Cin,C1],
 // w2 [C1,C2], w3 [C2,C3], out [M,S,C3]. Requires 64 % K == 0, K % 4 == 0, (Cin - 3) % 32 == 0,
@@ -116,13 +146,15 @@ PFPP_EXPORT int pfpp_sa_raw(const float* pts, const int* fidx, const int* gidx,
                             const float* w3, const float* b3, float* out, int M, int N, int Cin,
                             int S, int K, int C1, int C2, int C3, void* stream) {
   if (M == 0 || S == 0) return 0;
-  const size_t smem = smem_bytes(Cin - 3, C1, C2);
-  cudaError_t err = cudaFuncSetAttribute(
-      sa_raw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int cpb = kRows / K;
-  const dim3 grid((S + cpb - 1) / cpb, M);
-  sa_raw_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      pts, fidx, gidx, w1, b1, w2, b2, w3, b3, out, N, Cin, S, K, C1, C2, C3);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (rows_per_block(K, Cin - 3, C1, C2)) {
+    case 128:
+      return launch<128>(pts, fidx, gidx, w1, b1, w2, b2, w3, b3, out, M, N, Cin, S, K, C1, C2,
+                         C3, st);
+    case 64:
+      return launch<64>(pts, fidx, gidx, w1, b1, w2, b2, w3, b3, out, M, N, Cin, S, K, C1, C2,
+                        C3, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,6 +1,13 @@
 """Fused set-abstraction stages: kernels S (``csrc/sa_cached.cu``) and R
-(``csrc/sa_raw.cu``) and their plain versions. Bound: FP32 operations on the CUDA cores
-(see the source notes). Neither kernel has a backward: the frozen encoder needs none.
+(``csrc/sa_raw.cu``) and their plain versions. Neither kernel has a backward: the frozen
+encoder needs none.
+
+Both run their matrix products on the tensor cores in 3xTF32 (each FP32 operand split into
+a TF32 part and its remainder, three TF32 MMAs per product), which keeps them within 1e-6
+of FP32 where one TF32 pass would miss the 1e-4 gate. Bound: those MMAs at 495 TFLOP/s.
+A block holds 128 (centre, neighbour) rows, or 64 where two activation tiles of 128 rows
+would not fit shared memory (SA3), and streams the weights through a cp.async ring, so
+each weight byte read from L2 serves that many rows (see ``csrc/sa_common.cuh``).
 
 * S replaces ``puzzlefusion_plusplus_tpu/ops/sa_fused_pallas.py::sa_stage_fused_cached``
   (``_sa_cached_kernel``) with its ``'onehot'`` semantics, an exact gather. Per cloud m and
@@ -40,6 +47,9 @@ def sa_stage_plain(g_rel, w_eff, proj, group_idx, b1, w2, b2, w3, b3) -> torch.T
 
 
 def _check_kernel_shapes(K: int, C1: int, C2: int, C3: int) -> None:
+    """The kernels' block layout: K rows a centre inside 64-row blocks, 32-channel weight
+    tiles (C1, the input of layer 2) and 64-column passes (C2, C3). Widths whose activation
+    tiles exceed shared memory even at 64 rows make the launch return an error."""
     if 64 % K or K % 4 or C1 % 32 or C2 % 64 or C3 % 64:
         raise ValueError(
             f"kernel S takes K dividing 64 and a multiple of 4, C1 % 32 == 0, C2 % 64 == 0, "
@@ -71,14 +81,15 @@ def sa_stage_fused_cached(
     b1, w2, b2, w3, b3 = (t.contiguous() for t in (b1, w2, b2, w3, b3))
     for name, t, nd in (("g_rel", g_rel, 4), ("w_eff", w_eff, 3), ("b1", b1, 1),
                         ("w2", w2, 2), ("b2", b2, 1), ("w3", w3, 2), ("b3", b3, 1)):
-        cuda_build.require(t, name, torch.float32, nd, align16=name in ("w2", "w3"))
+        cuda_build.require(t, name, torch.float32, nd,
+                           align16=name in ("w_eff", "b1", "w2", "w3"))
     if w_eff.shape != (M, 3, C1) or w2.shape[0] != C1 or w3.shape[0] != C2:
         raise ValueError("inconsistent layer widths")
     n2, proj_ptr, gidx_ptr = 0, None, None
     if proj is not None:
         proj = proj.contiguous()
         gidx = group_idx.to(torch.int32).contiguous()
-        cuda_build.require(proj, "proj", torch.float32, 3)
+        cuda_build.require(proj, "proj", torch.float32, 3, align16=True)
         if gidx.shape != (M, S, K) or proj.shape[0] != M or proj.shape[2] != C1:
             raise ValueError("group_idx / feats do not match g_rel")
         n2, proj_ptr, gidx_ptr = proj.shape[1], proj.data_ptr(), gidx.data_ptr()
@@ -134,7 +145,7 @@ def sa_stage_fused(pts_cat: torch.Tensor, fps_idx: torch.Tensor, group_idx: torc
     cuda_build.require(pts_cat, "pts_cat", torch.float32, 3)
     for name, t, nd in (("w1", w1, 2), ("b1", b1, 1), ("w2", w2, 2), ("b2", b2, 1),
                         ("w3", w3, 2), ("b3", b3, 1)):
-        cuda_build.require(t, name, torch.float32, nd, align16=nd == 2)
+        cuda_build.require(t, name, torch.float32, nd, align16=name in ("w1", "b1", "w2", "w3"))
     if (w1.shape[0] != Cin or w2.shape[0] != C1 or w3.shape[0] != C2 or b1.shape != (C1,)
             or b2.shape != (C2,) or b3.shape != (C3,)):
         raise ValueError("inconsistent layer widths")

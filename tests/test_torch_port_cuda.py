@@ -7,7 +7,8 @@ so on a machine without JAX it runs with the conftest left out:
 
 Tolerances: FPS (F and P) / gather (G and A) / NN indices and values exact (the kernels
 compute distances with the plain version's rounding, no FMA; P equals F too); S and R 1e-4
-of the largest output (FP32 sums in another order);
+of the largest output (3xTF32 products on the tensor cores, FP32 sums in another order),
+and bit-equal across two launches (no float atomics);
 B 1e-5 of the largest sum against the plain index_add_, which adds with atomics in no fixed
 order on the card, and bit for bit against the CPU's index_add_ and its own second launch
 (it adds in row order); engine trajectories 1e-3 on damped weights, discrete outcomes exact;
@@ -71,6 +72,33 @@ def test_kernels_match_plain_on_card(dev):
     out = tsa.sa_stage_fused_cached(*args)
     ref = tsa.sa_stage_plain(args[0], args[1], feats @ k1f, gidx, *args[5:])
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("S", [25, 7])  # neither a multiple of a block's centres
+@pytest.mark.parametrize("K,D,widths", [
+    (32, 0, (64, 64, 128)),  # SA1: 128-row blocks, no features
+    (64, 128, (128, 128, 256)),  # SA2: 128-row blocks, a centre spans two warps
+    (64, 256, (256, 256, 512)),  # SA3: 64-row blocks
+])
+def test_sa_cached_kernel_matches_plain_on_card(dev, K, D, widths, S):
+    g = torch.Generator(device=dev).manual_seed(7)
+    M, N2 = 3, 40
+    C1, C2, C3 = widths
+    r = lambda *s, scale=1.0: torch.randn(s, generator=g, device=dev) * scale  # noqa: E731
+    feats = r(M, N2, D).relu() if D else None
+    gidx = torch.randint(0, N2, (M, S, K), generator=g, device=dev) if D else None
+    k1f = r(D, C1, scale=D ** -0.5) if D else None
+    args = (r(M, S, K, 3, scale=0.1), r(M, 3, C1, scale=3 ** -0.5), feats, gidx, k1f,
+            r(C1, scale=0.1), r(C1, C2, scale=C1 ** -0.5), r(C2, scale=0.1),
+            r(C2, C3, scale=C2 ** -0.5), r(C3, scale=0.1))
+    ops.reset_launch_counts()
+    out = tsa.sa_stage_fused_cached(*args)
+    again = tsa.sa_stage_fused_cached(*args)
+    assert ops.launch_counts()["S"] == 2
+    assert torch.equal(out, again)  # bit-reproducible
+    proj = None if feats is None else feats @ k1f
+    ref = tsa.sa_stage_plain(args[0], args[1], proj, gidx, *args[5:])
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 * ref.abs().max().item())
 
 
 @pytest.mark.parametrize("N,C,shape", [(1000, 3, (1000,)), (256, 128, (128, 64)),
@@ -240,13 +268,18 @@ def _raw_sa_args(g, dev, M, N, Cin, S, K, widths):
     (256, 131, 128, 64, (128, 128, 256)),  # SA2
     (128, 259, 25, 64, (256, 256, 512)),  # SA3: S not a multiple of the block's centres
     (50, 35, 7, 8, (64, 64, 128)),
+    (1000, 3, 25, 32, (64, 64, 128)),  # S not a multiple of the centres of 128 rows
+    (256, 131, 7, 64, (128, 128, 256)),
+    (128, 259, 7, 64, (256, 256, 512)),
 ])
 def test_sa_raw_kernel_matches_plain_on_card(dev, N, Cin, S, K, widths):
     g = torch.Generator(device=dev).manual_seed(3)
     args = _raw_sa_args(g, dev, 3, N, Cin, S, K, widths)
     ops.reset_launch_counts()
     out = tsa.sa_stage_fused(*args)
-    assert ops.launch_counts()["R"] == 1
+    again = tsa.sa_stage_fused(*args)
+    assert ops.launch_counts()["R"] == 2
+    assert torch.equal(out, again)  # bit-reproducible
     ref = tsa.sa_stage_fused_plain(*args)
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 * ref.abs().max().item())
 

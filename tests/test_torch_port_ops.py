@@ -17,6 +17,9 @@ Tolerances and why:
     kernel starts at its padded length, an index outside the cloud, where the port (and
     ``farthest_point_sample_xla``, the JAX package's dispatcher off the TPU) starts at 0.
   * M: active entries against ``masked_pairwise_nn(..., interpret=True)`` at 1e-4.
+  * The 3xTF32 split that S and R run on the tensor cores, emulated in numpy on one
+    SA3-width layer: within 1e-5 of float64 (relative to the largest output), where a
+    single TF32 product misses the kernels' 1e-4 gate.
   * normals: ``lax.top_k`` and ``torch.topk`` may order equal kNN distances differently, and
     the two kNN sets come from the expanded-form distances, so normals agree up to sign to
     1e-3 on all but a few percent of points (degenerate neighbourhoods).
@@ -325,3 +328,39 @@ def test_kernels_without_backward_refuse_grad_off_the_cpu():
     with pytest.raises(ValueError, match="1 to"):  # P's resident-cloud limit
         tfps.farthest_point_sample_per_cloud(torch.zeros((1, tfps.P_MAX_POINTS + 1, 3),
                                                          device="meta"), 4)
+
+
+def _tf32(x, round_nearest: bool):
+    """x rounded to TF32 (10 mantissa bits) as the kernels do it: to nearest, ties away from
+    zero (sa_common.cuh's split), or truncated (what the tensor core keeps of an operand)."""
+    u = np.asarray(x, np.float32).view(np.uint32)
+    if round_nearest:
+        u = u + np.uint32(0x1000)
+    return (u & np.uint32(0xffffe000)).view(np.float32)
+
+
+def test_3xtf32_split_keeps_fp32_accuracy_where_tf32_does_not():
+    """The precision argument of kernels S and R: x = big + small with big = tf32(x) and
+    small = x - big (truncated by the tensor core), and x @ w as small@big + big@small +
+    big@big. Products of TF32 values are exact in float64; the kernels sum them in float32,
+    8 input channels at a time (one m16n8k8 MMA), which the second emulation follows."""
+    rng = np.random.default_rng(21)
+    x = np.maximum(rng.standard_normal((64, 256)), 0).astype(np.float32)  # ReLU inputs
+    w = (rng.standard_normal((256, 512)) * 256 ** -0.5).astype(np.float32)
+    f64 = lambda a: a.astype(np.float64)  # noqa: E731
+    ref = f64(x) @ f64(w)
+    scale = np.abs(ref).max()
+    xb, wb = _tf32(x, True), _tf32(w, True)
+    xs, ws = _tf32(x - xb, False), _tf32(w - wb, False)
+    assert np.array_equal(f64(xb) + f64(x - xb), f64(x))  # the split is exact
+    single = f64(xb) @ f64(wb)
+    pairs = ((xs, wb), (xb, ws), (xb, wb))
+    summed = sum((f64(a) @ f64(b)).astype(np.float32) for a, b in pairs)
+    acc = np.zeros(ref.shape, np.float32)
+    for k in range(0, 256, 8):
+        for a, b in pairs:
+            acc = acc + (f64(a[:, k:k + 8]) @ f64(b[k:k + 8])).astype(np.float32)
+    err = lambda y: np.abs(f64(y) - ref).max() / scale  # noqa: E731
+    assert err(single) > 1e-4, err(single)
+    assert err(summed) < 1e-5, err(summed)
+    assert err(acc) < 1e-5, err(acc)
