@@ -17,10 +17,11 @@ Phases, each printing one JSON object per line (with its seconds):
                the denoiser's frozen-encode shapes (M = 1280) and B with every row to one
                index, all listed under ``per_shape`` and left out of the step's sum. S and
                R compute in 3xTF32 on the tensor cores: their ``bound_ms`` counts three TF32
-               MMAs per product at 495 TFLOP/s, ``bound_fp32_ms`` the same work on the CUDA
-               cores; they also give their rows per block, the weight bytes their blocks
-               read from L2 (``l2_weight_bytes``, and with 64-row blocks), and must be
-               bit-equal across two launches.
+               MMAs per product at 495 TFLOP/s. Their per-shape records add, under
+               ``computed`` (worked out, not measured), the same work's bound on the CUDA
+               cores (``bound_fp32_ms``), the kernel's rows per block and the weight bytes its
+               blocks read from L2 (``l2_weight_bytes``, and with 64-row blocks). Both must
+               be bit-equal across two launches.
   3. engine  — the full-width engine (``Config()`` defaults: VQ-VAE 1000 pts / 25x64 tokens /
                1024x16 codebook, denoiser 512/6/8, verifier 256/6/8, 6 iterations x 20 steps,
                fp32, batch 8) on 8 synthetic shapes of 3-12 parts (seed 7) through
@@ -212,21 +213,36 @@ def phase_kernels(results: dict) -> None:
         return torch.randn(shape, generator=gen, device=dev) * scale
 
     def record(name, shape, err, ms, plain_ms, nbytes, flops, library_ms=None,
-               path="inference", tensor_cores=False, **extra):
+               path="inference", tensor_cores=False, computed=None, **extra):
         b_ms, b_by = (bound_3xtf32 if tensor_cores else bound)(nbytes, flops)
         row = {"phase": "kernels", "kernel": name, "path": path, "shape": shape,
                "max_abs_err": err,
                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": library_ms, **extra}
-        if tensor_cores:  # the same work as FP32 on the CUDA cores, the parent's route
-            row["bound_fp32_ms"], row["bound_fp32_by"] = bound(nbytes, flops)
+        if tensor_cores:  # worked out, not measured; kept out of the final kernels line
+            fp32_ms, fp32_by = bound(nbytes, flops)  # the same work on the CUDA cores
+            row["computed"] = {"bound_fp32_ms": fp32_ms, "bound_fp32_by": fp32_by,
+                               **(computed or {})}
         emit(row)
         results.setdefault(name, []).append(row)
 
-    def l2_weight_bytes(rows_per_block, M, S, K, weight_floats):
-        """Weight bytes the blocks of one launch read from L2: every block streams all of
-        its layers' weights once."""
-        return 4 * weight_floats * M * -(-S // (rows_per_block // K))
+    def l2_weights(rows_per_block, M, S, K, weight_floats):
+        """Rows per block and the weight bytes the blocks of one launch read from L2, worked
+        out from the block count (every block streams all of its layers' weights once)."""
+        def nbytes(rows):
+            return 4 * weight_floats * M * -(-S // (rows // K))
+        return {"rows_per_block": rows_per_block, "l2_weight_bytes": nbytes(rows_per_block),
+                "l2_weight_bytes_64_rows": nbytes(64)}
+
+    def emit_l2_step(name):
+        """The L2 weight bytes of each path's step (worked out, not measured)."""
+        step = {}
+        for r in results[name]:
+            into = step.setdefault(r["path"], dict.fromkeys(
+                ("l2_weight_bytes", "l2_weight_bytes_64_rows"), 0))
+            for key in into:
+                into[key] += r["computed"][key]
+        emit({"phase": "kernels", "kernel": name, "shape": "step", "computed": step})
 
     sa_rows = cuda_build.function("sa_cached", "pfpp_sa_cached_rows")
     raw_rows = cuda_build.function("sa_raw", "pfpp_sa_raw_rows")
@@ -266,17 +282,15 @@ def phase_kernels(results: dict) -> None:
         _check(torch.equal(again, sa_fused.sa_stage_fused_cached(*args)),
                f"S {stage}: two launches differ")
         del again
-        rows = sa_rows(K, C1, C2)
         record("S", f"{stage} M={M}", err,
                cuda_ms(lambda: sa_fused.sa_stage_fused_cached(*args), reps),
                cuda_ms(lambda: sa_fused.sa_stage_plain(
                    g, w_eff, None if feats is None else torch.matmul(feats, k1f), gidx, b1,
                    w2, b2, w3, b3), plain_reps),
                nbytes, flops, path=path, tensor_cores=True, max_rel_err=rel,
-               rows_per_block=rows,
-               l2_weight_bytes=l2_weight_bytes(rows, M, S, K, C1 * C2 + C2 * C3),
-               l2_weight_bytes_64_rows=l2_weight_bytes(64, M, S, K, C1 * C2 + C2 * C3),
+               computed=l2_weights(sa_rows(K, C1, C2), M, S, K, C1 * C2 + C2 * C3),
                seconds=time.perf_counter() - t0)
+    emit_l2_step("S")
 
     # R: the three SA stages of the 'always' encode of the engine batch's M = 96 clouds
     M = 96
@@ -302,7 +316,6 @@ def phase_kernels(results: dict) -> None:
         _check(torch.equal(out, sa_fused.sa_stage_fused(pts, fidx, gidx, weights)),
                f"R {stage}: two launches differ")
         C1, C2, C3 = widths
-        rows = raw_rows(K, Cin, C1, C2)
         weight_floats = (Cin - 3) * C1 + C1 * C2 + C2 * C3
         # layer 1 is linear before its ReLU: the feature block's product is needed once per
         # point, and recentring only touches the 3 xyz rows (counted as for S)
@@ -313,10 +326,9 @@ def phase_kernels(results: dict) -> None:
                cuda_ms(lambda: sa_fused.sa_stage_fused(pts, fidx, gidx, weights), 20),
                cuda_ms(lambda: sa_fused.sa_stage_fused_plain(pts, fidx, gidx, weights), 3),
                nbytes, flops, path="encoder_modes", tensor_cores=True, max_rel_err=rel,
-               rows_per_block=rows,
-               l2_weight_bytes=l2_weight_bytes(rows, M, S, K, weight_floats),
-               l2_weight_bytes_64_rows=l2_weight_bytes(64, M, S, K, weight_floats),
+               computed=l2_weights(raw_rows(K, Cin, C1, C2), M, S, K, weight_floats),
                seconds=time.perf_counter() - t0)
+    emit_l2_step("R")
 
     # F: the cache build's first stage and the merge resample (partial mask), then the three
     # SA stages of a training step at M = 160 clouds
@@ -1054,10 +1066,6 @@ def main() -> int:
                 lambda key: main_rec[key])
             timed = (("ms", "kernel_ms", "kernel_graph_ms", "library_graph_ms")
                      if "kernel_ms" in main_rec else ("ms",))
-            # S and R: the FP32 CUDA-core bound of the same work and the L2 weight bytes
-            # (this design's and 64-row blocks')
-            summed = tuple(k for k in ("bound_fp32_ms", "l2_weight_bytes",
-                                       "l2_weight_bytes_64_rows") if k in main_rec)
             source, replaces = REPLACES[name]
             per_path = {path: counts[name] for path, counts in launches.items()
                         if name in PATH_KERNELS[path]}
@@ -1070,7 +1078,7 @@ def main() -> int:
                 "max_abs_err": max(r["max_abs_err"] for r in recs),
                 **{k: agg(k) for k in timed}, "plain_ms": agg("plain_ms"),
                 "bound_ms": agg("bound_ms"),
-                "bound_by": main_rec["bound_by"], **{k: agg(k) for k in summed},
+                "bound_by": main_rec["bound_by"],
                 "library_ms": agg("library_ms") if main_rec["library_ms"] is not None else None,
                 "shape": {"S": "SA1+SA2+SA3 of one denoise step at M=96",
                           "R": "SA1+SA2+SA3 of one 'always' encode",
@@ -1078,10 +1086,8 @@ def main() -> int:
                           "B": "chamfer + SA2 + SA3 backward of one training step"}.get(
                               name, main_rec["shape"]),
                 "per_shape": [{k: r[k] for k in ("path", "shape", "max_abs_err", *timed,
-                                                 "plain_ms", "bound_ms", "library_ms",
-                                                 *summed)
-                               + (("f_ms",) if name == "P" else ())
-                               + (("rows_per_block",) if name in "SR" else ())}
+                                                 "plain_ms", "bound_ms", "library_ms")
+                               + (("f_ms",) if name == "P" else ())}
                               for r in recs],
             }
             if name == "P":

@@ -11,25 +11,31 @@
 // bound is therefore three TF32 MMAs per product at 495 TFLOP/s.
 //
 // Block layout: 256 threads (8 warps) own BM = 128 or 64 (centre, neighbour) rows of one
-// cloud (each kernel picks the larger that fits shared memory), so each weight byte read
-// from L2 serves BM rows. Activations stay in shared memory, row-major with a row stride of
-// C + 4 floats, so a warp's A-fragment loads hit 32 distinct banks. A layer runs as
-// 64-column passes; each warp owns a 32-row x (BM/4)-column tile of the pass and keeps its
-// accumulators in registers. Weights stream through a ring of kStages 32x64 tiles filled by
-// cp.async (L2 only): the ring runs kStages - 1 tiles ahead across passes and layers, so a
-// tile's L2 load overlaps the MMAs of the tiles before it, and one barrier per tile both
-// publishes it and frees the stage the next load overwrites. The tile stride (72 floats)
-// makes B-fragment loads conflict-free too. The max over K is fused into layer 3's
-// epilogue: warp shuffles over the rows of a centre inside a warp, then a small shared
-// reduction across the warps of a centre (K = 64 spans two). No float atomics: every output
-// is a fixed sequence of operations, so launches are bit-reproducible.
+// cloud, so each weight byte read from L2 serves BM rows. Activations stay in shared memory,
+// row-major with a row stride of C + 4 floats, so a warp's A-fragment loads hit 32 distinct
+// banks. A layer runs as 64-column passes; each warp owns a 32-row x (BM/4)-column tile of
+// the pass and keeps its accumulators in registers. Weights stream through a ring of 4 (or
+// 2) 32x64 tiles filled by cp.async (L2 only): the ring runs its size less one tile ahead
+// across passes and layers, so a tile's L2 load overlaps the MMAs of the tiles before it,
+// and one barrier per tile both publishes it and frees the stage the next load overwrites.
+// The tile stride (72 floats) makes B-fragment loads conflict-free too. The max over K is
+// fused into layer 3's epilogue: warp shuffles over the rows of a centre inside a warp, then
+// a small shared reduction across the warps of a centre (K = 64 spans two). No float
+// atomics: every output is a fixed sequence of operations, so launches are bit-reproducible.
+//
+// Block shape (with_block_shape): the first of 128 rows / 4 stages, 64 / 4, 64 / 2 with which
+// two blocks share an SM, else the first that fits one block. The block is latency-bound
+// (below), so a second block an SM beats halving the weight bytes: SA1 takes 128 rows (two
+// blocks an SM), SA2 64 rows (two blocks; 128 would hold the SM alone) and SA3 64 (one
+// block). The 2-stage ring only serves the widest layers (C1 + C2 up to 808 at 64 rows).
 //
 // What holds it back (measured on the H100, PERF.md): the block is latency-bound, not
 // MMA-bound. With the MMAs taken out it keeps about 80% of its time (fragment loads, the
-// in-register split, the per-tile barrier, layer 1), and one block fits an SM at SA2 and
-// SA3. A wgmma version of the same tail (A split in registers, B split into K-major core
-// matrices) measured slower at every stage.
+// in-register split, the per-tile barrier, layer 1). A wgmma version of the same tail (A
+// split in registers, B split into K-major core matrices) measured slower at every stage.
 #pragma once
+
+#include <initializer_list>
 
 #include "common.cuh"
 
@@ -40,18 +46,38 @@ constexpr int kThreads = 256;                // 8 warps
 constexpr int kKT = 32;                      // input channels per weight tile
 constexpr int kBN = 64;                      // output columns per pass
 constexpr int kLDW = kBN + 8;                // row stride of a staged weight tile (floats)
-constexpr int kStages = 4;                   // weight tiles in the ring
-constexpr int kTileFloats = kKT * kLDW;
-constexpr int kRingFloats = kStages * kTileFloats;
+constexpr int kTileFloats = kKT * kLDW;     // one stage of the weight ring
 constexpr size_t kMaxSmem = 232448;          // 227 KB, the most one block may have
+constexpr size_t kSmemPerSM = 233472;        // 228 KB an SM, of which each block
+constexpr size_t kSmemReserved = 1024;       // holds 1 KB for the system
 
 __host__ __device__ constexpr int ld_act(int C) { return C + 4; }  // activation row stride
 
-// Shared memory (floats) of the parts every kernel has: the ring, the layer-3 maxima of
-// each warp's centres, the rows' xyz and their gather index.
-__host__ __device__ inline size_t base_floats(int BM, int K) {
+// Shared memory (floats) of the parts every kernel has: the ring of `stages` weight tiles,
+// the layer-3 maxima of each warp's centres, the rows' xyz and their gather index.
+__host__ __device__ inline size_t base_floats(int BM, int stages, int K) {
   const int kw = K < 32 ? K : 32;
-  return (size_t)kRingFloats + (size_t)(BM / kw) * kBN + BM * 3 + BM;
+  return (size_t)stages * kTileFloats + (size_t)(BM / kw) * kBN + BM * 3 + BM;
+}
+
+// --------------------------------------------------------------------------- block shape
+
+template <int BM_, int Stages_>
+struct Shape {
+  static constexpr int BM = BM_, kStages = Stages_;
+};
+
+// Returns f(Shape<BM, Stages>{}) for the first of (128, 4), (64, 4), (64, 2) that takes K
+// (BM % K == 0) and with which two blocks share an SM, else for the first that fits one
+// block, else `none`. smem(BM, stages) is a block's shared memory in bytes.
+template <class Smem, class F>
+int with_block_shape(int K, const Smem& smem, F&& f, int none) {
+  for (const size_t limit : {kSmemPerSM / 2 - kSmemReserved, kMaxSmem}) {
+    if (128 % K == 0 && smem(128, 4) <= limit) return f(Shape<128, 4>{});
+    if (64 % K == 0 && smem(64, 4) <= limit) return f(Shape<64, 4>{});
+    if (64 % K == 0 && smem(64, 2) <= limit) return f(Shape<64, 2>{});
+  }
+  return none;
 }
 
 // --------------------------------------------------------------------------- primitives
@@ -89,7 +115,9 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 
 // The weights of up to three Dense layers, streamed through the ring in the order the
 // layers consume them: per layer, 64-column passes, each over its 32-row input tiles.
-// w[l] is row-major [cin[l]][ldw[l]], 16-byte aligned, ldw[l] % 4 == 0.
+// w[l] is row-major [cin[l]][ldw[l]], 16-byte aligned, ldw[l] % 4 == 0. The ring holds
+// kStages tiles.
+template <int kStages>
 struct WeightStream {
   const float* w[3];
   int ldw[3], cin[3], cout[3];
@@ -144,9 +172,9 @@ struct Geom {
 // (+ lane / 4) and the lane's quad q: acc[i][j] holds rows row0 + 16i (+ 8 for [2], [3]) and
 // columns col0 + 8j + 2q (+ 1 for [1], [3]). t counts the ring's tiles consumed so far.
 // Every thread of the block must call it; the layer's tiles are the stream's next ones.
-template <int BM, class Epi>
-__device__ __forceinline__ void dense(WeightStream& ws, int& t, const float* hin, int cin,
-                                      int cout, Epi&& epi) {
+template <int BM, int kStages, class Epi>
+__device__ __forceinline__ void dense(WeightStream<kStages>& ws, int& t, const float* hin,
+                                      int cin, int cout, Epi&& epi) {
   using G = Geom<BM>;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, q = lane & 3, wm = warp % G::kWarpsM, wn = warp / G::kWarpsM;
@@ -313,9 +341,9 @@ __device__ __forceinline__ void xyz_layer(const float* xyz, const float* __restr
 //   h2 = relu(h1 @ W2 + b2);  out[m, s] = max_k relu(h2 @ W3 + b3)
 // h1 [BM][ld_act(C1)] must be complete before the layer's first tile barrier; W2's and W3's
 // tiles are the stream's next ones.
-template <int BM>
-__device__ __forceinline__ void mlp_tail(WeightStream& ws, int& t, const float* h1, float* h2,
-                                         float* red, const float* __restrict__ b2,
+template <int BM, int kStages>
+__device__ __forceinline__ void mlp_tail(WeightStream<kStages>& ws, int& t, const float* h1,
+                                         float* h2, float* red, const float* __restrict__ b2,
                                          const float* __restrict__ b3,
                                          float* __restrict__ out, int m, int S, int K, int s0,
                                          int C1, int C2, int C3) {

@@ -12,8 +12,8 @@
 //
 // Bound: the products (2*rows*(C1*C2 + C2*C3) plus layer 1's feature block, which the
 // bound charges once per point), FP32-accurate as 3xTF32 on the tensor cores, as for S.
-// Design: S's block layout and tail (sa_common.cuh). The block loads its 128 (SA1, SA2) or
-// 64 (SA3) neighbour rows and their centres itself: the recentred xyz go to a [BM][3] tile
+// Design: S's block layout and tail (sa_common.cuh). The block loads its 128 (SA1) or 64
+// (SA2, SA3; sa::with_block_shape) neighbour rows and their centres itself: the recentred xyz go to a [BM][3] tile
 // and the D = Cin - 3 feature channels to a row-major [BM][D + 4] tile by 4-byte cp.async
 // (Cin = 131 and 259 leave the rows without 16-byte alignment), all in flight at once.
 // Layer 1 stays in the kernel and per row: the feature block x[:, 3:] @ W1[3:] is the first
@@ -25,24 +25,16 @@
 
 namespace {
 
-constexpr int kRowChoices[2] = {128, 64};  // rows per block, the larger first
-
 using sa::kThreads;
 using sa::ld_act;
 
-size_t smem_bytes(int BM, int K, int D, int C1, int C2) {
+size_t smem_bytes(int BM, int stages, int K, int D, int C1, int C2) {
   const int shared_width = D > C2 ? D : C2;  // the feature tile, then h2
-  return sizeof(float) *
-         (sa::base_floats(BM, K) + (size_t)BM * (ld_act(C1) + ld_act(shared_width)));
+  return sizeof(float) * (sa::base_floats(BM, stages, K) +
+                          (size_t)BM * (ld_act(C1) + ld_act(shared_width)));
 }
 
-int rows_per_block(int K, int D, int C1, int C2) {
-  for (int BM : kRowChoices)
-    if (BM % K == 0 && smem_bytes(BM, K, D, C1, C2) <= sa::kMaxSmem) return BM;
-  return 0;
-}
-
-template <int BM>
+template <int BM, int kStages>
 __global__ void __launch_bounds__(kThreads, 2) sa_raw_kernel(
     const float* __restrict__ pts, const int* __restrict__ fidx, const int* __restrict__ gidx,
     const float* __restrict__ w1, const float* __restrict__ b1, const float* __restrict__ w2,
@@ -51,7 +43,7 @@ __global__ void __launch_bounds__(kThreads, 2) sa_raw_kernel(
   extern __shared__ float4 smem4[];
   const int D = Cin - 3;
   float* ring = reinterpret_cast<float*>(smem4);   // [kStages][kKT][kLDW]
-  float* h1 = ring + sa::kRingFloats;               // [BM][C1 + 4]
+  float* h1 = ring + kStages * sa::kTileFloats;     // [BM][C1 + 4]
   float* h2 = h1 + (size_t)BM * ld_act(C1);         // [BM][C2 + 4], first x's features
   float* xf = h2;                                   // [BM][D + 4]
   float* red = h2 + (size_t)BM * ld_act(D > C2 ? D : C2);
@@ -63,7 +55,7 @@ __global__ void __launch_bounds__(kThreads, 2) sa_raw_kernel(
   const int tid = threadIdx.x;
   const float* cloud = pts + (size_t)m * N * Cin;
 
-  sa::WeightStream ws;
+  sa::WeightStream<kStages> ws;
   ws.ring = ring;
   if (D > 0) ws.add(w1 + 3 * C1, C1, D, C1);
   ws.add(w2, C2, C1, C2);
@@ -114,19 +106,19 @@ __global__ void __launch_bounds__(kThreads, 2) sa_raw_kernel(
   sa::mlp_tail<BM>(ws, t, h1, h2, red, b2, b3, out, m, S, K, s0, C1, C2, C3);
 }
 
-template <int BM>
+template <int BM, int kStages>
 int launch(const float* pts, const int* fidx, const int* gidx, const float* w1,
            const float* b1, const float* w2, const float* b2, const float* w3, const float* b3,
            float* out, int M, int N, int Cin, int S, int K, int C1, int C2, int C3,
            cudaStream_t stream) {
-  const size_t smem = smem_bytes(BM, K, Cin - 3, C1, C2);
-  cudaError_t err = cudaFuncSetAttribute(
-      sa_raw_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = smem_bytes(BM, kStages, K, Cin - 3, C1, C2);
+  cudaError_t err = cudaFuncSetAttribute(sa_raw_kernel<BM, kStages>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int cpb = BM / K;
   const dim3 grid((S + cpb - 1) / cpb, M);
-  sa_raw_kernel<BM><<<grid, kThreads, smem, stream>>>(pts, fidx, gidx, w1, b1, w2, b2, w3, b3,
-                                                      out, N, Cin, S, K, C1, C2, C3);
+  sa_raw_kernel<BM, kStages><<<grid, kThreads, smem, stream>>>(
+      pts, fidx, gidx, w1, b1, w2, b2, w3, b3, out, N, Cin, S, K, C1, C2, C3);
   return (int)cudaGetLastError();
 }
 
@@ -134,27 +126,27 @@ int launch(const float* pts, const int* fidx, const int* gidx, const float* w1,
 
 // Rows of one block at these widths (128 or 64; 0: the layers do not fit shared memory).
 PFPP_EXPORT int pfpp_sa_raw_rows(int K, int Cin, int C1, int C2) {
-  return rows_per_block(K, Cin - 3, C1, C2);
+  return sa::with_block_shape(
+      K, [&](int BM, int stages) { return smem_bytes(BM, stages, K, Cin - 3, C1, C2); },
+      [](auto shape) { return decltype(shape)::BM; }, 0);
 }
 
 // Shapes: pts [M,N,Cin] (xyz ++ features), fidx [M,S], gidx [M,S,K], w1 [Cin,C1],
 // w2 [C1,C2], w3 [C2,C3], out [M,S,C3]. Requires 64 % K == 0, K % 4 == 0, (Cin - 3) % 32 == 0,
 // C1 % 64 == 0, C2 % 64 == 0, C3 % 64 == 0 and 16-byte aligned w1/w2/w3 (checked by the
-// Python wrapper). Indices are not checked.
+// Python wrapper); C1 + max(Cin - 3, C2) above 808 do not fit shared memory
+// (cudaErrorInvalidValue). Indices are not checked.
 PFPP_EXPORT int pfpp_sa_raw(const float* pts, const int* fidx, const int* gidx,
                             const float* w1, const float* b1, const float* w2, const float* b2,
                             const float* w3, const float* b3, float* out, int M, int N, int Cin,
                             int S, int K, int C1, int C2, int C3, void* stream) {
   if (M == 0 || S == 0) return 0;
-  const cudaStream_t st = (cudaStream_t)stream;
-  switch (rows_per_block(K, Cin - 3, C1, C2)) {
-    case 128:
-      return launch<128>(pts, fidx, gidx, w1, b1, w2, b2, w3, b3, out, M, N, Cin, S, K, C1, C2,
-                         C3, st);
-    case 64:
-      return launch<64>(pts, fidx, gidx, w1, b1, w2, b2, w3, b3, out, M, N, Cin, S, K, C1, C2,
-                        C3, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return sa::with_block_shape(
+      K, [&](int BM, int stages) { return smem_bytes(BM, stages, K, Cin - 3, C1, C2); },
+      [&](auto shape) {
+        using Sh = decltype(shape);
+        return launch<Sh::BM, Sh::kStages>(pts, fidx, gidx, w1, b1, w2, b2, w3, b3, out, M, N,
+                                           Cin, S, K, C1, C2, C3, (cudaStream_t)stream);
+      },
+      (int)cudaErrorInvalidValue);
 }

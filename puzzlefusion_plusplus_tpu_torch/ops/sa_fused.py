@@ -5,9 +5,9 @@ encoder needs none.
 Both run their matrix products on the tensor cores in 3xTF32 (each FP32 operand split into
 a TF32 part and its remainder, three TF32 MMAs per product), which keeps them within 1e-6
 of FP32 where one TF32 pass would miss the 1e-4 gate. Bound: those MMAs at 495 TFLOP/s.
-A block holds 128 (centre, neighbour) rows, or 64 where two activation tiles of 128 rows
-would not fit shared memory (SA3), and streams the weights through a cp.async ring, so
-each weight byte read from L2 serves that many rows (see ``csrc/sa_common.cuh``).
+A block holds 128 (centre, neighbour) rows where two such blocks share an SM (SA1), else
+64 (SA2, SA3), and streams the weights through a cp.async ring, so each weight byte read
+from L2 serves that many rows (see ``csrc/sa_common.cuh``).
 
 * S replaces ``puzzlefusion_plusplus_tpu/ops/sa_fused_pallas.py::sa_stage_fused_cached``
   (``_sa_cached_kernel``) with its ``'onehot'`` semantics, an exact gather. Per cloud m and
@@ -49,7 +49,8 @@ def sa_stage_plain(g_rel, w_eff, proj, group_idx, b1, w2, b2, w3, b3) -> torch.T
 def _check_kernel_shapes(K: int, C1: int, C2: int, C3: int) -> None:
     """The kernels' block layout: K rows a centre inside 64-row blocks, 32-channel weight
     tiles (C1, the input of layer 2) and 64-column passes (C2, C3). Widths whose activation
-    tiles exceed shared memory even at 64 rows make the launch return an error."""
+    tiles exceed shared memory even at 64 rows (S: C1 + C2 above 808; R: C1 + max(Cin - 3,
+    C2)) make the launch return an error."""
     if 64 % K or K % 4 or C1 % 32 or C2 % 64 or C3 % 64:
         raise ValueError(
             f"kernel S takes K dividing 64 and a multiple of 4, C1 % 32 == 0, C2 % 64 == 0, "

@@ -77,8 +77,9 @@ def test_kernels_match_plain_on_card(dev):
 @pytest.mark.parametrize("S", [25, 7])  # neither a multiple of a block's centres
 @pytest.mark.parametrize("K,D,widths", [
     (32, 0, (64, 64, 128)),  # SA1: 128-row blocks, no features
-    (64, 128, (128, 128, 256)),  # SA2: 128-row blocks, a centre spans two warps
-    (64, 256, (256, 256, 512)),  # SA3: 64-row blocks
+    (64, 128, (128, 128, 256)),  # SA2: 64-row blocks, two an SM; a centre spans two warps
+    (64, 256, (256, 256, 512)),  # SA3: 64-row blocks, one an SM
+    (64, 0, (384, 384, 64)),  # 64-row blocks with a 2-stage weight ring
 ])
 def test_sa_cached_kernel_matches_plain_on_card(dev, K, D, widths, S):
     g = torch.Generator(device=dev).manual_seed(7)
@@ -271,6 +272,7 @@ def _raw_sa_args(g, dev, M, N, Cin, S, K, widths):
     (1000, 3, 25, 32, (64, 64, 128)),  # S not a multiple of the centres of 128 rows
     (256, 131, 7, 64, (128, 128, 256)),
     (128, 259, 7, 64, (256, 256, 512)),
+    (128, 387, 7, 64, (384, 384, 64)),  # 64-row blocks with a 2-stage weight ring
 ])
 def test_sa_raw_kernel_matches_plain_on_card(dev, N, Cin, S, K, widths):
     g = torch.Generator(device=dev).manual_seed(3)
