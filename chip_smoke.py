@@ -21,7 +21,13 @@ Phases, each printing one JSON object per line (with its seconds):
                ``computed`` (worked out, not measured), the same work's bound on the CUDA
                cores (``bound_fp32_ms``), the kernel's rows per block and the weight bytes its
                blocks read from L2 (``l2_weight_bytes``, and with 64-row blocks). Both must
-               be bit-equal across two launches.
+               be bit-equal across two launches, as must F and P, which are also held to
+               the plain indices at the inference cache build's three stages and P to F's at
+               the merge resample's pads; their records add ``us_per_selection`` (ms / npoint)
+               and the block shape under ``computed``.
+ 2b. fps_shapes — F and P at every block shape they can take (blocks a cloud, points a
+               thread in registers, threads), each bit-equal to the plain version: the ms of
+               each beside the shape the wrapper picks (``ops/fps.py::cluster_shape``).
   3. engine  — the full-width engine (``Config()`` defaults: VQ-VAE 1000 pts / 25x64 tokens /
                1024x16 codebook, denoiser 512/6/8, verifier 256/6/8, 6 iterations x 20 steps,
                fp32, batch 8) on 8 synthetic shapes of 3-12 parts (seed 7) through
@@ -221,8 +227,9 @@ def phase_kernels(results: dict) -> None:
                "library_ms": library_ms, **extra}
         if tensor_cores:  # worked out, not measured; kept out of the final kernels line
             fp32_ms, fp32_by = bound(nbytes, flops)  # the same work on the CUDA cores
-            row["computed"] = {"bound_fp32_ms": fp32_ms, "bound_fp32_by": fp32_by,
-                               **(computed or {})}
+            computed = {"bound_fp32_ms": fp32_ms, "bound_fp32_by": fp32_by, **(computed or {})}
+        if computed:
+            row["computed"] = computed
         emit(row)
         results.setdefault(name, []).append(row)
 
@@ -330,9 +337,24 @@ def phase_kernels(results: dict) -> None:
                seconds=time.perf_counter() - t0)
     emit_l2_step("R")
 
-    # F: the cache build's first stage and the merge resample (partial mask), then the three
-    # SA stages of a training step at M = 160 clouds
+    def fps_check(name, fn, B, N, npoint, xyz, mask, ref):
+        """Kernel F or P against the plain indices, twice (two launches bit-equal)."""
+        out = fn(xyz, npoint, mask)
+        match = bool(torch.equal(out, ref))
+        _check(match, f"{name} [{B},{N}]->{npoint}: indices differ from the plain version")
+        _check(torch.equal(out, fn(xyz, npoint, mask)), f"{name} [{B},{N}]->{npoint}: two "
+                                                         "launches differ")
+        if mask is not None:  # a cloud with a valid point picks only valid points
+            _check(bool((mask.gather(1, out.long()) | ~mask.any(1, keepdim=True)).all()),
+                   f"{name} picked a masked point")
+        return match
+
+    # F: the inference cache build's three stages at M = 96 clouds and the widest merge pad
+    # (partial mask; the streaming variant), then the three SA stages of a training step at
+    # M = 160 clouds
     for B, N, npoint, masked, path in ((96, 1000, 256, False, "inference"),
+                                       (96, 256, 128, False, "inference"),
+                                       (96, 128, 25, False, "inference"),
                                        (10, 20000, 1000, True, "inference"),
                                        (160, 1000, 256, False, "train"),
                                        (160, 256, 128, False, "train"),
@@ -340,39 +362,45 @@ def phase_kernels(results: dict) -> None:
         t0 = time.perf_counter()
         xyz = randn(B, N, 3)
         mask = (torch.rand((B, N), generator=gen, device=dev) < 0.6) if masked else None
-        out = fps.farthest_point_sample(xyz, npoint, mask)
         ref = fps.farthest_point_sample_plain(xyz, npoint, mask)
-        match = bool(torch.equal(out, ref))
-        _check(match, f"F [{B},{N}]->{npoint}: indices differ")
-        if masked:
-            _check(bool(mask.gather(1, out.long()).all()), "F picked a masked point")
+        match = fps_check("F", fps.farthest_point_sample, B, N, npoint, xyz, mask, ref)
         nbytes = 4 * B * N * 3 + (B * N if masked else 0) + 4 * B * npoint
-        record("F", f"[{B},{N}]->{npoint}" + (" masked" if masked else ""), 0.0,
-               cuda_ms(lambda: fps.farthest_point_sample(xyz, npoint, mask), 3),
+        ms = cuda_ms(lambda: fps.farthest_point_sample(xyz, npoint, mask), 5)
+        ppt, threads = fps.block_shape(N)
+        record("F", f"[{B},{N}]->{npoint}" + (" masked" if masked else ""), 0.0, ms,
                cuda_ms(lambda: fps.farthest_point_sample_plain(xyz, npoint, mask), 1),
                nbytes, 9.0 * B * N * npoint, path=path, indices_equal=match,
+               computed={"us_per_selection": ms * 1e3 / npoint, "points_a_thread": ppt,
+                         "threads": threads},
                seconds=time.perf_counter() - t0)
 
     # P: the cache build's first stage, then the merge resample at the forced-merge batch's
-    # pad (2 shapes x K = 4 clouds of P = 8 parts) and at the widest pad (K = 10, P = 20);
-    # indices equal to the plain version and to F, whose time is taken beside P's
+    # pad (2 shapes x K = 4 clouds of P = 8 parts), at the b8 engine batch's pad (8 shapes x
+    # K = 6 clouds of P = 12 parts, the resample that trained weights hit) and at the widest
+    # pad (K = 10, P = 20); indices equal to the plain version and to F, whose time is taken
+    # beside P's
     for B, N, npoint, masked in ((96, 1000, 256, False), (8, 8000, 1000, True),
-                                 (10, 20000, 1000, True)):
+                                 (48, 12000, 1000, True), (10, 20000, 1000, True)):
         t0 = time.perf_counter()
         xyz = randn(B, N, 3)
         mask = (torch.rand((B, N), generator=gen, device=dev) < 0.6) if masked else None
-        out = fps.farthest_point_sample_per_cloud(xyz, npoint, mask)
-        match = bool(torch.equal(out, fps.farthest_point_sample_per_cloud_plain(xyz, npoint,
-                                                                                 mask)))
-        match_f = bool(torch.equal(out, fps.farthest_point_sample(xyz, npoint, mask)))
-        _check(match and match_f, f"P [{B},{N}]->{npoint}: indices differ (plain {match}, "
-                                  f"F {match_f})")
+        ref = fps.farthest_point_sample_plain(xyz, npoint, mask)
+        match = fps_check("P", fps.farthest_point_sample_per_cloud, B, N, npoint, xyz, mask,
+                          ref)
+        match_f = bool(torch.equal(fps.farthest_point_sample_per_cloud(xyz, npoint, mask),
+                                   fps.farthest_point_sample(xyz, npoint, mask)))
+        _check(match_f, f"P [{B},{N}]->{npoint}: indices differ from F's")
         nbytes = 4 * B * N * 3 + (B * N if masked else 0) + 4 * B * npoint
-        record("P", f"[{B},{N}]->{npoint}" + (" masked" if masked else ""), 0.0,
-               cuda_ms(lambda: fps.farthest_point_sample_per_cloud(xyz, npoint, mask), 3),
+        ms = cuda_ms(lambda: fps.farthest_point_sample_per_cloud(xyz, npoint, mask), 5)
+        f_ms = cuda_ms(lambda: fps.farthest_point_sample(xyz, npoint, mask), 5)
+        cl, ppt, threads = fps.cluster_shape(N)
+        record("P", f"[{B},{N}]->{npoint}" + (" masked" if masked else ""), 0.0, ms,
                cuda_ms(lambda: fps.farthest_point_sample_per_cloud_plain(xyz, npoint, mask), 1),
                nbytes, 9.0 * B * N * npoint, indices_equal=match, indices_equal_f=match_f,
-               f_ms=cuda_ms(lambda: fps.farthest_point_sample(xyz, npoint, mask), 3),
+               f_ms=f_ms,
+               computed={"us_per_selection": ms * 1e3 / npoint,
+                         "f_us_per_selection": f_ms * 1e3 / npoint, "blocks_a_cloud": cl,
+                         "points_a_thread": ppt, "threads": threads},
                seconds=time.perf_counter() - t0)
 
     def gather_row(name, fn, B, N, C, idx_shape, path, reps):
@@ -495,6 +523,49 @@ def phase_kernels(results: dict) -> None:
            library_ms=cuda_ms(lambda: torch.cdist(xa, xb).min(-1), 20),
            max_rel_err=rel, seconds=time.perf_counter() - t0)
     torch.cuda.empty_cache()  # the plain versions at M = 1280 held tens of GB
+
+
+def phase_fps_shapes() -> None:
+    """Kernels F and P at every block shape they can take, at the shapes of phase 2: one line
+    per shape with the CUDA-event ms of each (blocks a cloud, points a thread, threads), each
+    checked bit-equal to the plain version, and the shape the wrapper chooses."""
+    import torch
+
+    from puzzlefusion_plusplus_tpu_torch.ops import fps
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for name, B, N, npoint, masked in (("F", 96, 1000, 256, False), ("F", 160, 1000, 256, False),
+                                       ("F", 96, 256, 128, False), ("F", 96, 128, 25, False),
+                                       ("P", 8, 8000, 1000, True), ("P", 48, 12000, 1000, True),
+                                       ("P", 10, 20000, 1000, True)):
+        t0 = time.perf_counter()
+        xyz = torch.randn((B, N, 3), generator=gen, device=dev)
+        mask = (torch.rand((B, N), generator=gen, device=dev) < 0.6) if masked else None
+        ref = fps.farthest_point_sample_plain(xyz, npoint, mask)
+        times, errors = {}, {}
+        for cl in ((1,) if name == "F" else (1, 2, 4, 8)):
+            slice_ = -(-N // cl)
+            tiers = [t for t in fps.REG_TIERS if -(-slice_ // t) <= fps.REG_MAX_THREADS]
+            for ppt in tiers or [0]:
+                threads = (fps.STREAM_THREADS if ppt == 0
+                           else max(32, (-(-slice_ // ppt) + 31) // 32 * 32))
+                key = f"cl={cl},ppt={ppt},threads={threads}"
+
+                def run():
+                    return fps._launch(xyz, npoint, mask, cl, ppt, threads, per_cloud=name == "P")
+                try:
+                    _check(torch.equal(run(), ref), f"{name} {key}: indices differ")
+                except RuntimeError as exc:  # a shape the card refuses to launch
+                    errors[key] = str(exc)[:200]
+                    continue
+                times[key] = cuda_ms(run, 5)
+        chosen = ((1, *fps.block_shape(N)) if name == "F" else fps.cluster_shape(N))
+        emit({"phase": "fps_shapes", "kernel": name,
+              "shape": f"[{B},{N}]->{npoint}" + (" masked" if masked else ""),
+              "ms_by_shape": times, "refused": errors,
+              "chosen": "cl={},ppt={},threads={}".format(*chosen),
+              "fastest": min(times, key=times.get), "seconds": time.perf_counter() - t0})
 
 
 def _full_config(data_root: str):
@@ -983,7 +1054,7 @@ def phase_profile_denoiser(data_root: str) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,engine,merge,profile,train,"
+    ap.add_argument("--phases", default="build,kernels,fps_shapes,engine,merge,profile,train,"
                                         "train_parity,profile_train,encoder_modes,"
                                         "train_denoiser,denoiser_parity,profile_denoiser")
     phases = ap.parse_args().phases.split(",")
@@ -1005,6 +1076,8 @@ def main() -> int:
         phase_build()
     if "kernels" in phases:
         phase_kernels(results)
+    if "fps_shapes" in phases:
+        phase_fps_shapes()
     launches = {}  # per path: the counts of its own run
     data_root = os.path.join(REPO, ".smoke", "chip_smoke_data")
     if {"engine", "merge", "profile", "encoder_modes"} & set(phases):

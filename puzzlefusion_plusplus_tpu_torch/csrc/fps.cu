@@ -1,265 +1,328 @@
-// Kernel F: masked farthest-point sampling, xyz [B, N, 3] (+ mask [B, N]) -> idx [B, npoint].
+// Kernels F and P: masked farthest-point sampling, xyz [B, N, 3] (+ mask [B, N]) -> idx [B, npoint].
 //
-// Replaces puzzlefusion_plusplus_tpu/ops/fps.py::_fps_pallas_batched (_fps_batched_kernel).
-// Semantics: start at the first valid point (0 if none), then npoint greedy max-min
-// selections; ties go to the lowest index; invalid points never win (their running distance
-// is pinned at -1e10, and min(-1e10, d >= 0) keeps it there, so the mask is read once).
+// F replaces puzzlefusion_plusplus_tpu/ops/fps.py::_fps_pallas_batched (_fps_batched_kernel):
+// one block per cloud, for many clouds of up to a few thousand points (the encoder's stages).
+// P replaces ops/fps.py::farthest_point_sample_pallas (_fps_kernel), which keeps a whole cloud
+// in VMEM across all selections: a thread block cluster of CL <= 8 blocks per cloud (the
+// portable size), block r holding the contiguous slice [r * slice, (r + 1) * slice), for few
+// clouds of many points (the engine's merge resample). P with CL = 1 is F's design. Both
+// compute one function: start at the first valid point (0 if none), then npoint greedy
+// max-min selections; ties go to the lowest index; invalid points never win (their running
+// distance is pinned at -1e10, and min(-1e10, d >= 0) keeps it there, so the mask is read
+// once). Distances go through sq_dist3 (no FMA), so indices equal the plain version's exactly.
 //
-// Bound: latency. The npoint selections are sequential and each ends in a block-wide
-// (value, index) argmax, so the design is one block per cloud with the running
-// min-distance in shared memory (N floats: 80 KB at the merge resample's 20000 points,
-// which is why xyz is not staged too — 240 KB more would not fit one SM's 227 KB) and
-// the coordinates read from global memory, where they stay L2-resident across selections.
-// Distances go through sq_dist3 (no FMA), so indices equal the plain version's exactly.
+// Bound: latency. The selections are sequential and each is an argmax over the cloud, so the
+// time is npoint times the latency of one selection; the bytes (the cloud, read once) and
+// the operations (9 a point a selection) are far below it. The design keeps what a selection
+// needs on chip and cuts its critical path to one barrier:
+// * Points in registers. Thread t owns the points base + t + k * T, k < PPT (a template
+//   parameter, 1 to 16), and keeps their coordinates and running distance in registers from
+//   the one read of device memory to the end. No global or distributed-shared load is left in
+//   the selection loop. PPT = 0 is the streaming variant for slices of more than 8192 points
+//   (512 threads x 16), which no engine or training path gives F: the running distance lives
+//   in shared memory and the coordinates are read from L2 on every selection.
+// * One key per candidate: (orderable(dist), index), where orderable is the total-order map of
+//   a float onto an unsigned int, compared as max of the first word, then min of the index,
+//   as the 64-bit orderable(dist) << 32 | (0xFFFFFFFF - index) would be. A valid point at
+//   distance 0 stays above an invalid one at -1e10, a slot without a point has first word 0,
+//   below both, and an all-invalid cloud ties at -1e10 and returns index 0 throughout. A warp
+//   reduces it with two redux.sync: max of the first word, then min of the index among the
+//   lanes that hold it.
+// * One barrier per selection. The winning lane of each warp writes a record (key, x, y, z)
+//   into slot [parity][warp] of its block (P: of every block of the cluster, a push of two
+//   16-byte stores into distributed shared memory). After one barrier (bar.sync in F;
+//   barrier.cluster.arrive.release / wait.acquire in P) every warp reduces all records itself
+//   and takes the winner's coordinates from the winning record, so no block-wide broadcast or
+//   second barrier follows. The two parity slots make this safe: a slot is rewritten two
+//   selections later, after every warp of the cluster has passed the barrier that follows
+//   its last read of it.
 #include "common.cuh"
 
 #include <cooperative_groups.h>
 
-#include <climits>
-
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr float kBig = 1e10f;
-constexpr int kSliceTarget = 2560;  // P: points per block the cluster size aims for (40 KB)
-constexpr int kSliceMax = 12288;    // P: points per block at most (192 KB of shared memory)
+constexpr unsigned kNone = 0xFFFFFFFFu;  // the index of a slot that holds no point
+constexpr int kRegMaxThreads = 512;     // register tiers: at most 128 registers a thread
+constexpr int kStreamMaxThreads = 1024;
 
-__device__ __forceinline__ void argmax_merge(float& v, int& i, float ov, int oi) {
-  if (ov > v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
-  }
+// A warp's candidate: key.x the orderable running distance, key.y the point's index; xyz its
+// coordinates. Two 16-byte halves, each one vector store.
+struct __align__(16) Rec {
+  uint4 key;
+  float4 xyz;
+};
+
+__device__ __forceinline__ unsigned orderable(float v) {
+  const unsigned u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-__global__ void fps_kernel(const float* __restrict__ xyz, const uint8_t* __restrict__ mask,
-                           int N, int npoint, int* __restrict__ out) {
-  extern __shared__ float dist[];  // [N] running min distance
-  __shared__ float red_v[32];
-  __shared__ int red_i[32];
-  __shared__ int sel;
-
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const float* p = xyz + (size_t)b * N * 3;
-  const uint8_t* mk = mask ? mask + (size_t)b * N : nullptr;
-
-  int first = INT_MAX;  // first valid point of the cloud
-  for (int n = tid; n < N; n += blockDim.x) {
-    const bool valid = mk == nullptr || mk[n] != 0;
-    dist[n] = valid ? kBig : -kBig;
-    if (valid && n < first) first = n;
-  }
-  for (int off = 16; off > 0; off >>= 1) first = min(first, __shfl_down_sync(~0u, first, off));
-  if (lane == 0) red_i[warp] = first;
-  __syncthreads();
-  if (warp == 0) {
-    int v = lane < nwarps ? red_i[lane] : INT_MAX;
-    for (int off = 16; off > 0; off >>= 1) v = min(v, __shfl_down_sync(~0u, v, off));
-    if (lane == 0) sel = v == INT_MAX ? 0 : v;
-  }
-  __syncthreads();
-  int farthest = sel;
-
-  for (int i = 0; i < npoint; ++i) {
-    if (tid == 0) out[(size_t)b * npoint + i] = farthest;
-    const float cx = p[farthest * 3 + 0], cy = p[farthest * 3 + 1], cz = p[farthest * 3 + 2];
-    float best = -INFINITY;
-    int bi = INT_MAX;
-    for (int n = tid; n < N; n += blockDim.x) {  // ascending n: strict > keeps the lowest
-      const float d = sq_dist3(p[n * 3 + 0], p[n * 3 + 1], p[n * 3 + 2], cx, cy, cz);
-      const float nd = fminf(dist[n], d);
-      dist[n] = nd;
-      if (nd > best) {
-        best = nd;
-        bi = n;
-      }
-    }
-    for (int off = 16; off > 0; off >>= 1)
-      argmax_merge(best, bi, __shfl_down_sync(~0u, best, off), __shfl_down_sync(~0u, bi, off));
-    if (lane == 0) {
-      red_v[warp] = best;
-      red_i[warp] = bi;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      float v = lane < nwarps ? red_v[lane] : -INFINITY;
-      int vi = lane < nwarps ? red_i[lane] : INT_MAX;
-      for (int off = 16; off > 0; off >>= 1)
-        argmax_merge(v, vi, __shfl_down_sync(~0u, v, off), __shfl_down_sync(~0u, vi, off));
-      if (lane == 0) sel = vi;
-    }
-    __syncthreads();
-    farthest = sel;
-  }
+// Warp argmax of the key (hi, idx): returns the lane holding it; hi and idx become the
+// warp's winner, the same in every lane.
+__device__ __forceinline__ int warp_argmax(unsigned& hi, unsigned& idx) {
+  const unsigned m = __reduce_max_sync(~0u, hi);
+  const unsigned w = __reduce_min_sync(~0u, hi == m ? idx : kNone);
+  const int lane = __ffs(__ballot_sync(~0u, hi == m && idx == w)) - 1;
+  hi = m;
+  idx = w;
+  return lane;
 }
 
-// Kernel P: the same function with each cloud resident on chip, for few clouds of many
-// points (the merge resample: B*K clouds of up to P*1000 = 20000 points -> 1000).
-//
-// Replaces puzzlefusion_plusplus_tpu/ops/fps.py::farthest_point_sample_pallas (_fps_kernel),
-// which keeps a whole cloud and its running distance in VMEM across all selections. One
-// Hopper block cannot: 20000 points x 16 B is 320 KB. So a thread block cluster of CL <= 8
-// blocks (the portable size) takes one cloud, each block holding a contiguous slice of its
-// coordinates and running distance in its own shared memory (2500 points x 16 B = 40 KB at
-// N = 20000), and nothing is read from device memory after the first load. Each selection
-// is a block argmax, one cluster barrier, and a cluster argmax in which warp 0 of every
-// block reads the CL block winners through distributed shared memory; the winner's
-// coordinates are read from its owner block the same way. The winners sit in a buffer of
-// two slots that alternate with the selection, so one cluster barrier per selection keeps a
-// slot from being rewritten while another block still reads it. Bound: latency of npoint
-// dependent cluster-wide reductions. Semantics and arithmetic are F's, so the indices are.
-__global__ void fps_cluster_kernel(const float* __restrict__ xyz,
-                                   const uint8_t* __restrict__ mask, int N, int slice,
-                                   int npoint, int* __restrict__ out) {
-  namespace cg = cooperative_groups;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int CL = (int)cluster.num_blocks();
-  const int rank = (int)cluster.block_rank();
+// Every thread of the cluster; the warp is converged first, as the .aligned form requires.
+__device__ __forceinline__ void cluster_barrier() {
+  __syncwarp();
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+template <int PPT, bool CLUSTER>
+__device__ __forceinline__ void fps_body(const float* __restrict__ xyz,
+                                         const uint8_t* __restrict__ mask, int N, int slice,
+                                         int npoint, int* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int CL = 1, rank = 0;
+  if constexpr (CLUSTER) {
+    CL = (int)cg::this_cluster().num_blocks();
+    rank = (int)cg::this_cluster().block_rank();
+  }
+  const int T = blockDim.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = T >> 5, nrec = CL * nwarps;
+  Rec* const rec = reinterpret_cast<Rec*>(smem);                   // [2][nrec]
+  float* const dist_s = reinterpret_cast<float*>(rec + 2 * nrec);  // PPT = 0: [slice]
   const int b = blockIdx.x / CL;
-  extern __shared__ float sm[];
-  float* xs = sm;  // [slice] each: this block's coordinates and running distance
-  float* ys = xs + slice;
-  float* zs = ys + slice;
-  float* dist = zs + slice;
-  __shared__ float red_v[32];
-  __shared__ int red_i[32];
-  __shared__ float win_v[2];  // this block's winner, by selection parity
-  __shared__ int win_i[2];
-  __shared__ int first_i;     // this block's first valid point
-  __shared__ float sel_xyz[3];
-  __shared__ int sel;
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
   const int base = rank * slice;
   const int cnt = max(0, min(slice, N - base));
-  const float* p = xyz + (size_t)b * N * 3;
-  const uint8_t* mk = mask ? mask + (size_t)b * N : nullptr;
+  const float* __restrict__ p = xyz + (size_t)b * N * 3;
+  const uint8_t* __restrict__ mk = mask ? mask + (size_t)b * N : nullptr;
 
-  int first = INT_MAX;
-  for (int j = tid; j < cnt; j += blockDim.x) {
-    const int n = base + j;
-    xs[j] = p[n * 3 + 0];
-    ys[j] = p[n * 3 + 1];
-    zs[j] = p[n * 3 + 2];
-    const bool valid = mk == nullptr || mk[n] != 0;
-    dist[j] = valid ? kBig : -kBig;
-    if (valid && n < first) first = n;
-  }
-  for (int off = 16; off > 0; off >>= 1) first = min(first, __shfl_down_sync(~0u, first, off));
-  if (lane == 0) red_i[warp] = first;
-  __syncthreads();
-  if (warp == 0) {
-    int v = lane < nwarps ? red_i[lane] : INT_MAX;
-    for (int off = 16; off > 0; off >>= 1) v = min(v, __shfl_down_sync(~0u, v, off));
-    if (lane == 0) first_i = v;
-  }
-  cluster.sync();  // every block's first valid point and coordinates are in place
-
-  // warp 0: the cluster-wide choice -> sel and its coordinates, from the owner block
-  auto choose = [&](int chosen) {
-    if (lane == 0) {
-      const int owner = chosen / slice, j = chosen - owner * slice;
-      sel = chosen;
-      sel_xyz[0] = *cluster.map_shared_rank(xs + j, owner);
-      sel_xyz[1] = *cluster.map_shared_rank(ys + j, owner);
-      sel_xyz[2] = *cluster.map_shared_rank(zs + j, owner);
+  // One selection: this thread's candidate (hi, idx) at (x, y, z) -> the cloud's winner,
+  // its coordinates in (cx, cy, cz); every thread of the cluster gets the same.
+  float cx, cy, cz;
+  auto select = [&](unsigned hi, unsigned idx, float x, float y, float z,
+                    int parity) -> unsigned {
+    const int wl = warp_argmax(hi, idx);
+    Rec* const slot = rec + parity * nrec;
+    if (lane == wl) {
+      const uint4 key = make_uint4(hi, idx, 0u, 0u);
+      const float4 c = make_float4(x, y, z, 0.f);
+      if constexpr (CLUSTER) {
+        cg::cluster_group cluster = cg::this_cluster();
+        for (int q = 0; q < CL; ++q) {
+          Rec* dst = cluster.map_shared_rank(slot + rank * nwarps + warp, q);
+          dst->key = key;
+          dst->xyz = c;
+        }
+      } else {
+        slot[warp].key = key;
+        slot[warp].xyz = c;
+      }
     }
+    if constexpr (CLUSTER) {
+      cluster_barrier();
+    } else {
+      __syncthreads();
+    }
+    unsigned bh = 0, bi = kNone;
+    int bs = 0;
+    for (int s = lane; s < nrec; s += 32) {
+      const uint2 k = *reinterpret_cast<const uint2*>(&slot[s].key);
+      if (k.x > bh || (k.x == bh && k.y < bi)) {
+        bh = k.x;
+        bi = k.y;
+        bs = s;
+      }
+    }
+    const int wl2 = warp_argmax(bh, bi);
+    const float4 c = slot[nrec <= 32 ? wl2 : __shfl_sync(~0u, bs, wl2)].xyz;
+    cx = c.x;
+    cy = c.y;
+    cz = c.z;
+    return bi;
   };
-  if (warp == 0) {
-    int v = lane < CL ? *cluster.map_shared_rank(&first_i, lane) : INT_MAX;
-    for (int off = 16; off > 0; off >>= 1) v = min(v, __shfl_down_sync(~0u, v, off));
-    const int f = __shfl_sync(~0u, v, 0);
-    choose(f == INT_MAX ? 0 : f);
-  }
-  __syncthreads();
 
-  for (int i = 0; i < npoint; ++i) {
-    const int farthest = sel;
-    const float cx = sel_xyz[0], cy = sel_xyz[1], cz = sel_xyz[2];
-    if (rank == 0 && tid == 0) out[(size_t)b * npoint + i] = farthest;
-    float best = -INFINITY;
-    int bi = INT_MAX;
-    for (int j = tid; j < cnt; j += blockDim.x) {  // ascending n: strict > keeps the lowest
-      const float d = sq_dist3(xs[j], ys[j], zs[j], cx, cy, cz);
-      const float nd = fminf(dist[j], d);
-      dist[j] = nd;
-      if (nd > best) {
-        best = nd;
-        bi = base + j;
+  // The first selection's key: 2 for a valid point, 1 for an invalid one, 0 for no point, so
+  // the lowest valid index wins, or index 0 when the cloud has no valid point.
+  constexpr int R = PPT > 0 ? PPT : 1;
+  float px[R], py[R], pz[R], pd[R];
+  unsigned hi = 0, idx = kNone;
+  float wx = 0.f, wy = 0.f, wz = 0.f;
+  if constexpr (PPT > 0) {
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      const int j = tid + k * T, n = base + j;
+      const bool real = j < cnt;
+      const bool valid = real && (mk == nullptr || mk[n] != 0);
+      px[k] = real ? p[n * 3 + 0] : 0.f;
+      py[k] = real ? p[n * 3 + 1] : 0.f;
+      pz[k] = real ? p[n * 3 + 2] : 0.f;
+      pd[k] = real ? (valid ? kBig : -kBig) : -INFINITY;  // -inf: never beats a point
+      const unsigned h = real ? (valid ? 2u : 1u) : 0u;
+      if (h > hi) {
+        hi = h;
+        idx = n;
+        wx = px[k];
+        wy = py[k];
+        wz = pz[k];
       }
     }
-    for (int off = 16; off > 0; off >>= 1)
-      argmax_merge(best, bi, __shfl_down_sync(~0u, best, off), __shfl_down_sync(~0u, bi, off));
-    if (lane == 0) {
-      red_v[warp] = best;
-      red_i[warp] = bi;
-    }
-    __syncthreads();
-    const int slot = i & 1;
-    if (warp == 0) {
-      float v = lane < nwarps ? red_v[lane] : -INFINITY;
-      int vi = lane < nwarps ? red_i[lane] : INT_MAX;
-      for (int off = 16; off > 0; off >>= 1)
-        argmax_merge(v, vi, __shfl_down_sync(~0u, v, off), __shfl_down_sync(~0u, vi, off));
-      if (lane == 0) {
-        win_v[slot] = v;
-        win_i[slot] = vi;
+  } else {
+    for (int j = tid; j < cnt; j += T) {
+      const int n = base + j;
+      const bool valid = mk == nullptr || mk[n] != 0;
+      dist_s[j] = valid ? kBig : -kBig;
+      const unsigned h = valid ? 2u : 1u;
+      if (h > hi) {
+        hi = h;
+        idx = n;
+        wx = p[n * 3 + 0];
+        wy = p[n * 3 + 1];
+        wz = p[n * 3 + 2];
       }
     }
-    cluster.sync();  // every block's winner of selection i is in place
-    if (warp == 0) {
-      float v = lane < CL ? *cluster.map_shared_rank(&win_v[slot], lane) : -INFINITY;
-      int vi = lane < CL ? *cluster.map_shared_rank(&win_i[slot], lane) : INT_MAX;
-      for (int off = 16; off > 0; off >>= 1)
-        argmax_merge(v, vi, __shfl_down_sync(~0u, v, off), __shfl_down_sync(~0u, vi, off));
-      choose(__shfl_sync(~0u, vi, 0));
-    }
-    __syncthreads();
   }
-  cluster.sync();  // no block leaves while another may still read its shared memory
+  if constexpr (CLUSTER) cluster_barrier();  // every block runs before the first push
+
+  unsigned farthest = select(hi, idx, wx, wy, wz, 0);
+  for (int i = 0;; ++i) {
+    if (rank == 0 && tid == 0) out[(size_t)b * npoint + i] = (int)farthest;
+    if (i + 1 == npoint) break;
+    float best = -INFINITY;  // ascending index within a thread: strict > keeps the lowest
+    if constexpr (PPT > 0) {
+      int bk = -1;
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        const float nd = fminf(pd[k], sq_dist3(px[k], py[k], pz[k], cx, cy, cz));
+        pd[k] = nd;
+        if (nd > best) {
+          best = nd;
+          bk = k;
+        }
+      }
+      wx = px[0];
+      wy = py[0];
+      wz = pz[0];
+#pragma unroll
+      for (int k = 1; k < PPT; ++k) {
+        if (bk == k) {
+          wx = px[k];
+          wy = py[k];
+          wz = pz[k];
+        }
+      }
+      hi = bk >= 0 ? orderable(best) : 0u;
+      idx = bk >= 0 ? (unsigned)(base + tid + bk * T) : kNone;
+    } else {
+      idx = kNone;
+      for (int j = tid; j < cnt; j += T) {
+        const int n = base + j;
+        const float x = p[n * 3 + 0], y = p[n * 3 + 1], z = p[n * 3 + 2];
+        const float nd = fminf(dist_s[j], sq_dist3(x, y, z, cx, cy, cz));
+        dist_s[j] = nd;
+        if (nd > best) {
+          best = nd;
+          idx = n;
+          wx = x;
+          wy = y;
+          wz = z;
+        }
+      }
+      hi = idx != kNone ? orderable(best) : 0u;
+    }
+    farthest = select(hi, idx, wx, wy, wz, (i + 1) & 1);
+  }
+  if constexpr (CLUSTER) cluster_barrier();  // no block leaves while a peer may write into it
 }
 
-}  // namespace
-
-PFPP_EXPORT int pfpp_fps(const float* xyz, const uint8_t* mask, int B, int N, int npoint,
-                         int* out, void* stream) {
-  if (B == 0 || npoint == 0) return 0;
-  const int threads = N <= 2048 ? 256 : 1024;
-  const size_t smem = (size_t)N * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(fps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  fps_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(xyz, mask, N, npoint, out);
-  return (int)cudaGetLastError();
+// F: one block per cloud. A kernel of its own name, so that profiles tell F from P.
+template <int PPT>
+__global__ void __launch_bounds__(PPT > 0 ? kRegMaxThreads : kStreamMaxThreads)
+fps_kernel(const float* __restrict__ xyz, const uint8_t* __restrict__ mask, int N, int npoint,
+           int* __restrict__ out) {
+  fps_body<PPT, false>(xyz, mask, N, N, npoint, out);
 }
 
-// Kernel P: clusters of 1, 2, 4 or 8 blocks, the fewest whose slices hold kSliceTarget
-// points; returns cudaErrorInvalidValue when N > 8 * kSliceMax (the wrapper checks first).
-PFPP_EXPORT int pfpp_fps_cluster(const float* xyz, const uint8_t* mask, int B, int N,
-                                 int npoint, int* out, void* stream) {
-  if (B == 0 || npoint == 0) return 0;
-  int cl = 1;
-  while (cl < 8 && (N + cl - 1) / cl > kSliceTarget) cl *= 2;
+// P: one cluster of CL blocks per cloud (CLUSTER = false: CL = 1, F's design under P's name).
+template <int PPT, bool CLUSTER>
+__global__ void __launch_bounds__(PPT > 0 ? kRegMaxThreads : kStreamMaxThreads)
+fps_cluster_kernel(const float* __restrict__ xyz, const uint8_t* __restrict__ mask, int N,
+                   int slice, int npoint, int* __restrict__ out) {
+  fps_body<PPT, CLUSTER>(xyz, mask, N, slice, npoint, out);
+}
+
+template <int PPT>
+int launch(const float* xyz, const uint8_t* mask, int B, int N, int npoint, int* out, int cl,
+           int threads, bool as_p, cudaStream_t stream) {
   const int slice = (N + cl - 1) / cl;
-  if (slice > kSliceMax) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)4 * slice * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fps_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  const size_t smem =
+      sizeof(Rec) * 2 * cl * (threads / 32) + (PPT == 0 ? sizeof(float) * slice : 0);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(B * cl);
-  cfg.blockDim = dim3(slice > 4096 ? 512 : 256);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
+  cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cl;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, fps_cluster_kernel, xyz, mask, N, slice, npoint, out);
+  cfg.numAttrs = cl > 1 ? 1 : 0;
+  cudaError_t err;
+  if (!as_p) {
+    err = cudaFuncSetAttribute(fps_kernel<PPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, fps_kernel<PPT>, xyz, mask, N,
+                                                     npoint, out);
+  } else {
+    auto kernel = cl > 1 ? &fps_cluster_kernel<PPT, true> : &fps_cluster_kernel<PPT, false>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, kernel, xyz, mask, N, slice, npoint,
+                                                     out);
+  }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+int dispatch(const float* xyz, const uint8_t* mask, int B, int N, int npoint, int* out, int cl,
+             int ppt, int threads, bool as_p, void* stream) {
+  if (B == 0 || npoint == 0) return 0;
+  const int slice = N > 0 && cl > 0 ? (N + cl - 1) / cl : 0;
+  const bool shape_ok =
+      N > 0 && (cl == 1 || cl == 2 || cl == 4 || cl == 8) && threads >= 32 &&
+      threads % 32 == 0 && threads <= (ppt > 0 ? kRegMaxThreads : kStreamMaxThreads) &&
+      (ppt == 0 || (long long)threads * ppt >= slice);
+  if (!shape_ok) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (ppt) {
+    case 0: return launch<0>(xyz, mask, B, N, npoint, out, cl, threads, as_p, s);
+    case 1: return launch<1>(xyz, mask, B, N, npoint, out, cl, threads, as_p, s);
+    case 2: return launch<2>(xyz, mask, B, N, npoint, out, cl, threads, as_p, s);
+    case 4: return launch<4>(xyz, mask, B, N, npoint, out, cl, threads, as_p, s);
+    case 8: return launch<8>(xyz, mask, B, N, npoint, out, cl, threads, as_p, s);
+    case 16: return launch<16>(xyz, mask, B, N, npoint, out, cl, threads, as_p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// Kernel F: one block of `threads` threads per cloud, `ppt` points a thread in registers (1, 2,
+// 4, 8 or 16, threads * ppt >= N, threads <= 512) or 0 for the streaming variant (threads <=
+// 1024). ops/fps.py::block_shape picks them; a shape outside these returns
+// cudaErrorInvalidValue.
+PFPP_EXPORT int pfpp_fps(const float* xyz, const uint8_t* mask, int B, int N, int npoint,
+                         int ppt, int threads, int* out, void* stream) {
+  return dispatch(xyz, mask, B, N, npoint, out, 1, ppt, threads, false, stream);
+}
+
+// Kernel P: clusters of cl = 1, 2, 4 or 8 blocks per cloud, each block's slice of
+// ceil(N / cl) points held as F holds its cloud (ops/fps.py::cluster_shape picks the shape).
+PFPP_EXPORT int pfpp_fps_cluster(const float* xyz, const uint8_t* mask, int B, int N,
+                                 int npoint, int cl, int ppt, int threads, int* out,
+                                 void* stream) {
+  return dispatch(xyz, mask, B, N, npoint, out, cl, ppt, threads, true, stream);
 }

@@ -3,7 +3,8 @@
 ``python -m puzzlefusion_plusplus_tpu_torch.inference.run data.data_val_dir=...
 data.matching_data_path=...`` runs the engine over a test set on the GPU (``--cpu`` for the
 CPU), prints the mean metrics and writes the renderer artifacts in the JAX package's format
-(per sample ``predict_{acc}.npy``, ``gt.npy``, ``init_pose.npy``, ``mesh_file_path.txt``).
+(per sample ``predict_{acc}.npy``, ``gt.npy``, ``init_pose.npy``, ``mesh_file_path.txt``) and,
+with ``inference.save_breakdown``, one ``breakdown.jsonl`` record per shape.
 
 Loading the orbax checkpoints that ``*.ckpt_path`` name waits for a later slice; without
 them the port initialises its weights from ``trainer.seed``. Callers holding flax weights
@@ -12,6 +13,7 @@ pass them converted (``convert/from_jax.py``) as ``state_dicts``.
 
 from __future__ import annotations
 
+import json
 import os
 import sys
 
@@ -134,6 +136,31 @@ def save_inference_artifacts(out_dir: str, batch: dict, results: dict) -> None:
             f.write(str(batch["mesh_file_path"][i]))
 
 
+def save_breakdown_records(out_dir: str, batch: dict, results: dict, n_real: int) -> None:
+    """Append one JSONL record per shape to ``<out_dir>/breakdown.jsonl``: per-part
+    correctness, the ref mask and part scales over the valid parts, the merged pairs and the
+    iterations (the JAX package's format; scripts/engine_breakdown.py aggregates it)."""
+    os.makedirs(out_dir, exist_ok=True)
+    valids = np.asarray(batch["part_valids"])[:n_real]
+    ref = np.asarray(batch["ref_part"])[:n_real].astype(bool)
+    per_part = np.asarray(results["acc_per_part"]).astype(bool)
+    scales = np.asarray(batch["part_scale"])[:n_real].reshape(n_real, -1)
+    with open(os.path.join(out_dir, "breakdown.jsonl"), "a") as fh:
+        for i in range(n_real):
+            m = valids[i] == 1
+            fh.write(json.dumps({
+                "data_id": int(np.asarray(batch["data_id"])[i]),
+                "num_parts": int(m.sum()),
+                "part_acc": float(results["part_acc"][i]),
+                "part_acc_nonref": float(results["part_acc_nonref"][i]),
+                "acc_per_part": per_part[i][m].astype(int).tolist(),
+                "ref_part": ref[i][m].astype(int).tolist(),
+                "part_scale": [round(float(s), 5) for s in scales[i][m]],
+                "n_merged_pairs": int(np.asarray(results["n_merged_pairs"])[i]),
+                "n_iters": int(np.asarray(results["n_iters"])[i]),
+            }) + "\n")
+
+
 def run_inference(cfg: Config, device=None, max_batches: int | None = None,
                   engine=None) -> dict:
     """Serve the test set in part-count-sorted, bucketed batches -> mean metrics."""
@@ -164,6 +191,8 @@ def run_inference(cfg: Config, device=None, max_batches: int | None = None,
             metrics[name].extend(np.asarray(results[name]).tolist())
         if cfg.inference.save_trajectories:
             save_inference_artifacts(out_dir, batch, results)
+        if cfg.inference.save_breakdown:
+            save_breakdown_records(out_dir, batch, results, len(results["part_acc"]))
     agg = {f"eval/{k}": float(np.mean(metrics[k])) for k in METRIC_KEYS if metrics[k]}
     agg["num_samples"] = len(metrics["part_acc"])
     agg["n_merged_pairs"] = int(np.sum(metrics["n_merged_pairs"]))

@@ -30,8 +30,8 @@ SIGNATURES = {
         "pfpp_error_string": [_I],
     },
     "fps": {
-        "pfpp_fps": [_P, _P, _I, _I, _I, _P, _P],
-        "pfpp_fps_cluster": [_P, _P, _I, _I, _I, _P, _P],
+        "pfpp_fps": [_P, _P] + [_I] * 5 + [_P, _P],
+        "pfpp_fps_cluster": [_P, _P] + [_I] * 6 + [_P, _P],
     },
     "nn": {
         "pfpp_nn_distance": [_P, _P, _I, _I, _I, _P, _P, _P],

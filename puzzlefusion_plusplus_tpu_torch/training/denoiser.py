@@ -149,10 +149,19 @@ def eval_metrics(final: torch.Tensor, batch: dict) -> dict:
     return {k: m[k] for k in EVAL_KEYS}
 
 
+def require_fp32(cfg: Config) -> None:
+    """The port trains in fp32 only: refuse ``trainer.precision`` rather than ignore it."""
+    if cfg.trainer.precision != "fp32":
+        raise NotImplementedError(
+            f"trainer.precision={cfg.trainer.precision!r} is not supported by the port yet; "
+            "only trainer.precision=fp32 trains")
+
+
 def load_frozen_encoder(cfg: Config, device) -> FrozenEncoder:
     """The stage-1 VQ-VAE from ``denoiser.encoder_ckpt_path`` (a ``training.vqvae``
     checkpoint: a ``step_N`` dir, a ckpt dir for its best, or ``.../best`` / ``.../latest``),
-    or untrained from seed 0 when no path is given."""
+    or untrained from seed 0 when no path is given. fp32 only (``require_fp32``)."""
+    require_fp32(cfg)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         ae = make_ae_model(cfg)
@@ -164,7 +173,8 @@ def load_frozen_encoder(cfg: Config, device) -> FrozenEncoder:
 def train(cfg: Config, max_steps: int | None = None, device=None) -> TrainState:
     """Train from a seeded init (or resume), validating every ``denoiser.val_every`` epochs
     and keeping the top-k checkpoints by eval part accuracy; ``max_steps`` stops early with
-    a checkpoint. Runs on ``cuda`` unless ``device="cpu"``."""
+    a checkpoint. Runs on ``cuda`` unless ``device="cpu"``; fp32 only (``require_fp32``)."""
+    require_fp32(cfg)
     device = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.trainer.seed)

@@ -286,8 +286,13 @@ def test_sa_raw_kernel_matches_plain_on_card(dev, N, Cin, S, K, widths):
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 * ref.abs().max().item())
 
 
-@pytest.mark.parametrize("B,N,npoint,masked", [(12, 12000, 1000, True), (2, 20000, 1000, True),
-                                               (96, 1000, 256, False), (3, 700, 64, True)])
+@pytest.mark.parametrize("B,N,npoint,masked", [
+    (12, 12000, 1000, True), (2, 20000, 1000, True), (96, 1000, 256, False), (3, 700, 64, True),
+    (48, 12000, 1000, True),  # the b8 engine's merge resample
+    (160, 1000, 256, False),  # more clouds than the card's 132 SMs
+    (3, 1000, 1000, True),  # npoint above the count of valid points
+    (3, 8193, 64, True),  # F's streaming variant
+])
 def test_fps_per_cloud_kernel_matches_f_and_plain_on_card(dev, B, N, npoint, masked):
     g = torch.Generator(device=dev).manual_seed(4)
     xyz = torch.randn((B, N, 3), generator=g, device=dev)
@@ -300,6 +305,78 @@ def test_fps_per_cloud_kernel_matches_f_and_plain_on_card(dev, B, N, npoint, mas
     assert ops.launch_counts()["P"] == 1 and ops.launch_counts()["F"] == 0
     assert torch.equal(out, tfps.farthest_point_sample(xyz, npoint, mask))
     assert torch.equal(out, tfps.farthest_point_sample_per_cloud_plain(xyz, npoint, mask))
+    assert torch.equal(out, tfps.farthest_point_sample_per_cloud(xyz, npoint, mask))
+
+
+def _fps_variants(N, cls):
+    """Every (blocks a cloud, points a thread, threads) kernel F (cl = 1) or P can take at N
+    points: each register tier that fits, and the streaming variant at two widths."""
+    out = []
+    for cl in cls:
+        slice_ = -(-N // cl)
+        for ppt in tfps.REG_TIERS:
+            threads = max(32, (-(-slice_ // ppt) + 31) // 32 * 32)
+            if threads <= tfps.REG_MAX_THREADS:
+                out.append((cl, ppt, threads))
+        out += [(cl, 0, 128), (cl, 0, tfps.STREAM_THREADS)]
+    return out
+
+
+@pytest.mark.parametrize("case", ["duplicates", "few_valid", "all_invalid", "unmasked"])
+def test_fps_kernels_at_every_block_shape_on_card(dev, case):
+    """F and P at every shape they can take, P at each cluster size, against the plain
+    version: valid points at distance 0 (duplicates of chosen ones) must beat invalid ones at
+    -1e10, npoint may exceed the valid points, and a cloud without one returns 0 throughout."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, N, npoint = 3, 1500, 200
+    xyz = torch.randn((B, N, 3), generator=g, device=dev)
+    mask = torch.rand((B, N), generator=g, device=dev) < 0.5
+    if case == "duplicates":  # every point twice, and 40 distinct valid points in cloud 1
+        xyz[:, N // 2:] = xyz[:, : N - N // 2]
+        mask[1] = False
+        mask[1, 100:120] = True
+        mask[1, N // 2 + 100: N // 2 + 120] = True
+    elif case == "few_valid":
+        mask[:] = False
+        mask[:, 7:12] = True
+    elif case == "all_invalid":
+        mask[:] = False
+    else:
+        mask = None
+    ref = tfps.farthest_point_sample_plain(xyz, npoint, mask)
+    if case == "all_invalid":
+        assert not ref.any()
+    for cl, ppt, threads in _fps_variants(N, (1,)):
+        out = tfps._launch(xyz, npoint, mask, cl, ppt, threads, per_cloud=False)
+        assert torch.equal(out, ref), ("F", ppt, threads)
+    for cl, ppt, threads in _fps_variants(N, (1, 2, 4, 8)):
+        out = tfps._launch(xyz, npoint, mask, cl, ppt, threads, per_cloud=True)
+        assert torch.equal(out, ref), ("P", cl, ppt, threads)
+
+
+@pytest.mark.parametrize("N", [1, 31, 33, 256, 257, 513, 1024, 1025, 2049, 4096, 4097, 8192,
+                               8193, 16385])
+def test_fps_kernels_at_tier_boundaries_on_card(dev, N):
+    """N at each edge of the register tiers and of P's cluster sizes, rarely a multiple of the
+    block; F and P equal the plain version and their own second launch."""
+    g = torch.Generator(device=dev).manual_seed(N)
+    xyz = torch.randn((4, N, 3), generator=g, device=dev)
+    mask = torch.rand((4, N), generator=g, device=dev) < 0.7
+    npoint = min(N + 3, 96)
+    ref = tfps.farthest_point_sample_plain(xyz, npoint, mask)
+    for fn in (tfps.farthest_point_sample, tfps.farthest_point_sample_per_cloud):
+        out = fn(xyz, npoint, mask)
+        assert torch.equal(out, ref), fn.__name__
+        assert torch.equal(out, fn(xyz, npoint, mask)), fn.__name__
+
+
+def test_fps_launch_refuses_a_shape_it_cannot_run(dev):
+    xyz = torch.randn((2, 1000, 3), device=dev)
+    for cl, ppt, threads in ((1, 4, 128), (3, 4, 256), (1, 3, 512), (1, 16, 1024), (1, 4, 100)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            tfps._launch(xyz, 8, None, cl, ppt, threads, per_cloud=True)
+    with pytest.raises(ValueError):
+        tfps.farthest_point_sample(torch.randn((2, 0, 3), device=dev), 4)
 
 
 def test_kernel_wrappers_reject_bad_input(dev):

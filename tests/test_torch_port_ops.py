@@ -105,6 +105,80 @@ def test_fps_per_cloud_matches_pallas_interpret(pallas_interpret, masked):
         ref)
 
 
+def _fps_edge_inputs(case, B=3, N=260):
+    rng = np.random.default_rng(21)
+    xyz = rng.normal(size=(B, N, 3)).astype(np.float32)
+    mask = rng.random((B, N)) < 0.5
+    if case == "duplicates":  # valid points at distance 0 of a chosen one against invalid ones
+        xyz[:, N // 2:] = xyz[:, : N - N // 2]
+        mask[1] = False
+        mask[1, 10:20] = mask[1, N // 2 + 10: N // 2 + 20] = True
+    elif case == "few_valid":  # fewer valid points than selections
+        mask[:] = False
+        mask[:, 7:12] = True
+    else:  # no valid point: index 0 throughout
+        mask[:] = False
+    return xyz, mask
+
+
+@pytest.mark.parametrize("case", ["duplicates", "few_valid", "all_invalid"])
+def test_fps_edge_cases_match_jax(pallas_interpret, case):
+    """The cases kernels F and P must get right, through both wrappers on the CPU, against
+    the JAX package's FPS (and its Pallas kernel where the two agree: with no valid point
+    the Pallas kernel starts at the padded length, see ROADMAP's 'not faults')."""
+    xyz, mask = _fps_edge_inputs(case)
+    npoint = 40
+    ref = np.asarray(jfps.farthest_point_sample_xla(jnp.asarray(xyz), npoint, jnp.asarray(mask)))
+    if case != "all_invalid":
+        np.testing.assert_array_equal(ref, np.asarray(jfps.farthest_point_sample_pallas(
+            jnp.asarray(xyz), npoint, jnp.asarray(mask))))
+    else:
+        assert not ref.any()
+    for fn in (tfps.farthest_point_sample, tfps.farthest_point_sample_per_cloud):
+        np.testing.assert_array_equal(fn(T(xyz), npoint, T(mask)).numpy(), ref)
+
+
+def _orderable(v):
+    """csrc/fps.cu's orderable: the total-order map of float32 onto uint32."""
+    u = np.asarray(v, np.float32).view(np.uint32).astype(np.uint64)
+    return np.where(u >> 31, ~u & 0xFFFFFFFF, u | 0x80000000)
+
+
+def test_fps_key_is_argmax_with_lowest_index_ties():
+    """The kernels' key orderable(dist) << 32 | (0xFFFFFFFF - index): its unsigned max is the
+    plain version's argmax, a valid point at distance 0 beats an invalid one at -1e10, and a
+    slot without a point (key 0) loses to both."""
+    rng = np.random.default_rng(3)
+    for _ in range(50):
+        d = rng.choice(np.float32([-1e10, 0.0, 0.5, 1e10, 2.0, 1e-30]), size=37)
+        d[rng.random(37) < 0.3] = rng.random() * 4
+        key = (_orderable(d) << np.uint64(32)) | (np.uint64(0xFFFFFFFF) - np.arange(37,
+                                                                                    dtype=np.uint64))
+        assert int(np.argmax(key)) == int(np.argmax(d))
+    assert _orderable(np.float32(0.0)) > _orderable(np.float32(-1e10)) > 0
+    assert _orderable(np.float32(-np.inf)) > 0
+
+
+@pytest.mark.parametrize("kernel", ["F", "P"])
+def test_fps_block_shapes_fit_the_kernels(kernel):
+    """The shapes the wrappers hand the launch are ones it runs: whole warps, at most 512
+    threads a register tier (1024 streaming), every point of a slice owned, clusters of 1, 2,
+    4 or 8, and registers for every slice of up to 8192 points."""
+    for n in list(range(1, 600)) + [1000, 1024, 2047, 2048, 2049, 4096, 4097, 8000, 8192, 8193,
+                                    12000, 16384, 16385, 20000, tfps.P_MAX_POINTS]:
+        cl, ppt, threads = (1, *tfps.block_shape(n)) if kernel == "F" else tfps.cluster_shape(n)
+        slice_ = -(-n // cl)
+        assert cl in (1, 2, 4, 8)
+        assert threads % 32 == 0 and threads >= 32
+        if ppt:
+            assert ppt in tfps.REG_TIERS and threads <= tfps.REG_MAX_THREADS
+            assert threads * ppt >= slice_ > threads * ppt - 32 * ppt  # no idle warp
+        else:
+            assert threads <= tfps.STREAM_THREADS and slice_ > tfps.REG_MAX_POINTS
+        if kernel == "P" and n <= 8 * tfps.REG_MAX_POINTS:
+            assert ppt > 0
+
+
 def _raw_sa_inputs(rng, M, N, Cin, S, K, widths):
     pts = rng.standard_normal((M, N, Cin)).astype(np.float32)
     fidx = rng.integers(0, N, size=(M, S)).astype(np.int32)
