@@ -14,28 +14,34 @@
 // Bound: latency. The selections are sequential and each is an argmax over the cloud, so the
 // time is npoint times the latency of one selection; the bytes (the cloud, read once) and
 // the operations (9 a point a selection) are far below it. The design keeps what a selection
-// needs on chip and cuts its critical path to one barrier:
+// needs on chip and cuts its critical path to one exchange:
 // * Points in registers. Thread t owns the points base + t + k * T, k < PPT (a template
 //   parameter, 1 to 16), and keeps their coordinates and running distance in registers from
 //   the one read of device memory to the end. No global or distributed-shared load is left in
-//   the selection loop. PPT = 0 is the streaming variant for slices of more than 8192 points
-//   (512 threads x 16), which no engine or training path gives F: the running distance lives
-//   in shared memory and the coordinates are read from L2 on every selection.
-// * One key per candidate: (orderable(dist), index), where orderable is the total-order map of
-//   a float onto an unsigned int, compared as max of the first word, then min of the index,
-//   as the 64-bit orderable(dist) << 32 | (0xFFFFFFFF - index) would be. A valid point at
-//   distance 0 stays above an invalid one at -1e10, a slot without a point has first word 0,
-//   below both, and an all-invalid cloud ties at -1e10 and returns index 0 throughout. A warp
-//   reduces it with two redux.sync: max of the first word, then min of the index among the
-//   lanes that hold it.
-// * One barrier per selection. The winning lane of each warp writes a record (key, x, y, z)
-//   into slot [parity][warp] of its block (P: of every block of the cluster, a push of two
-//   16-byte stores into distributed shared memory). After one barrier (bar.sync in F;
-//   barrier.cluster.arrive.release / wait.acquire in P) every warp reduces all records itself
-//   and takes the winner's coordinates from the winning record, so no block-wide broadcast or
-//   second barrier follows. The two parity slots make this safe: a slot is rewritten two
-//   selections later, after every warp of the cluster has passed the barrier that follows
-//   its last read of it.
+//   the selection loop. A thread's argmax over its points is a pairwise tree (adjacent pairs,
+//   so the lower index wins ties), not a serial chain. PPT = 0 is the streaming variant for
+//   slices of more than 8192 points (512 threads x 16), which no engine or training path
+//   gives F: the running distance lives in shared memory and the coordinates are read from L2
+//   on every selection.
+// * One 64-bit key per candidate: orderable(dist) << 32 | (0xFFFFFFFF - index), where
+//   orderable is the total-order map of a float onto an unsigned int, so an unsigned max is
+//   the argmax with ties to the lowest index. A valid point at distance 0 stays above an
+//   invalid one at -1e10, a slot without a point (distance -inf) below both, and an
+//   all-invalid cloud ties at -1e10 and returns index 0 throughout. Candidates of one warp
+//   have distinct indices, so keys are distinct. A warp reduces them with two redux.sync:
+//   max of the high word, then max of the low word among the lanes that hold it.
+// * One exchange per selection. The lane holding its warp's winning key writes a record (key,
+//   x, y, z) into slot [parity][warp]. In F one bar.sync follows; in P the lane pushes the
+//   record into that slot of every block of the cluster with st.async, whose bytes complete
+//   the receiving block's mbarrier of that parity, and every thread waits on its own block's
+//   mbarrier: no cluster-wide barrier and no load of a peer's memory is left in the loop. Then
+//   every warp reduces all records itself (each lane reads them all when there are at most
+//   four, else one each and two redux.sync) and takes the winner's coordinates from the
+//   winning record, so no broadcast or second barrier follows. The two parity slots make this
+//   safe: a slot is rewritten two selections later, after its writer has seen every record
+//   of the selection between, which every warp of the cluster sends only after its last read
+//   of the slot.
+// Distances go through sq_dist3 (no FMA), so indices equal the plain version's exactly.
 #include "common.cuh"
 
 #include <cooperative_groups.h>
@@ -43,33 +49,30 @@
 namespace {
 
 namespace cg = cooperative_groups;
+typedef unsigned long long u64;
 
 constexpr float kBig = 1e10f;
-constexpr unsigned kNone = 0xFFFFFFFFu;  // the index of a slot that holds no point
-constexpr int kRegMaxThreads = 512;     // register tiers: at most 128 registers a thread
+constexpr int kRegMaxThreads = 512;  // register tiers: at most 128 registers a thread
 constexpr int kStreamMaxThreads = 1024;
-
-// A warp's candidate: key.x the orderable running distance, key.y the point's index; xyz its
-// coordinates. Two 16-byte halves, each one vector store.
-struct __align__(16) Rec {
-  uint4 key;
-  float4 xyz;
-};
+constexpr int kAllLanesRecords = 4;  // records each lane reads whole; above, one a lane
+constexpr int kRecordBytes = 24;     // a record's bytes pushed into a peer: key + x, y, z, 0
 
 __device__ __forceinline__ unsigned orderable(float v) {
   const unsigned u = __float_as_uint(v);
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-// Warp argmax of the key (hi, idx): returns the lane holding it; hi and idx become the
-// warp's winner, the same in every lane.
-__device__ __forceinline__ int warp_argmax(unsigned& hi, unsigned& idx) {
-  const unsigned m = __reduce_max_sync(~0u, hi);
-  const unsigned w = __reduce_min_sync(~0u, hi == m ? idx : kNone);
-  const int lane = __ffs(__ballot_sync(~0u, hi == m && idx == w)) - 1;
-  hi = m;
-  idx = w;
-  return lane;
+__device__ __forceinline__ u64 make_key(float dist, unsigned idx) {
+  return (u64)orderable(dist) << 32 | (u64)~idx;
+}
+
+// The warp's largest key, in every lane: max of the high word, then of the low word among the
+// lanes holding that high word.
+__device__ __forceinline__ u64 warp_max(u64 key) {
+  const unsigned hi = (unsigned)(key >> 32);
+  const unsigned mh = __reduce_max_sync(~0u, hi);
+  const unsigned ml = __reduce_max_sync(~0u, hi == mh ? (unsigned)key : 0u);
+  return (u64)mh << 32 | ml;
 }
 
 // Every thread of the cluster; the warp is converged first, as the .aligned form requires.
@@ -77,6 +80,31 @@ __device__ __forceinline__ void cluster_barrier() {
   __syncwarp();
   asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// The address of the same shared variable in block `rank` of the cluster.
+__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// Wait for the phase of the mbarrier at `bar` with parity `phase` to complete. A phase that
+// does not complete within about a second of tries traps: a launch error, not a hung card.
+__device__ __forceinline__ void mbarrier_wait(uint32_t bar, uint32_t phase) {
+  uint32_t done = 0;
+  for (int tries = 0; !done; ++tries) {
+    if (tries == (1 << 20)) __trap();
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(phase) : "memory");
+  }
 }
 
 template <int PPT, bool CLUSTER>
@@ -91,64 +119,87 @@ __device__ __forceinline__ void fps_body(const float* __restrict__ xyz,
   }
   const int T = blockDim.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = T >> 5, nrec = CL * nwarps;
-  Rec* const rec = reinterpret_cast<Rec*>(smem);                   // [2][nrec]
-  float* const dist_s = reinterpret_cast<float*>(rec + 2 * nrec);  // PPT = 0: [slice]
+  u64* const keys = reinterpret_cast<u64*>(smem);                         // [2][nrec]
+  float4* const coords = reinterpret_cast<float4*>(keys + 2 * nrec);       // [2][nrec]
+  u64* const bars = reinterpret_cast<u64*>(coords + 2 * nrec);             // [2], P only
+  float* const dist_s = reinterpret_cast<float*>(bars + (CLUSTER ? 2 : 0));  // PPT = 0: [slice]
   const int b = blockIdx.x / CL;
   const int base = rank * slice;
   const int cnt = max(0, min(slice, N - base));
   const float* __restrict__ p = xyz + (size_t)b * N * 3;
   const uint8_t* __restrict__ mk = mask ? mask + (size_t)b * N : nullptr;
 
-  // One selection: this thread's candidate (hi, idx) at (x, y, z) -> the cloud's winner,
-  // its coordinates in (cx, cy, cz); every thread of the cluster gets the same.
+  // Selection s: this thread's candidate `key` at (x, y, z) -> the cloud's largest key, its
+  // point's coordinates in (cx, cy, cz); every thread of the cluster gets the same.
   float cx, cy, cz;
-  auto select = [&](unsigned hi, unsigned idx, float x, float y, float z,
-                    int parity) -> unsigned {
-    const int wl = warp_argmax(hi, idx);
-    Rec* const slot = rec + parity * nrec;
-    if (lane == wl) {
-      const uint4 key = make_uint4(hi, idx, 0u, 0u);
-      const float4 c = make_float4(x, y, z, 0.f);
-      if constexpr (CLUSTER) {
-        cg::cluster_group cluster = cg::this_cluster();
-        for (int q = 0; q < CL; ++q) {
-          Rec* dst = cluster.map_shared_rank(slot + rank * nwarps + warp, q);
-          dst->key = key;
-          dst->xyz = c;
-        }
-      } else {
-        slot[warp].key = key;
-        slot[warp].xyz = c;
-      }
-    }
+  auto select = [&](u64 key, float x, float y, float z, int s) -> u64 {
+    const int par = s & 1;
+    u64* const kp = keys + par * nrec;
+    float4* const cp = coords + par * nrec;
+    const u64 wk = warp_max(key);
     if constexpr (CLUSTER) {
-      cluster_barrier();
+      const uint32_t bar = smem_addr(bars + par);
+      if (tid == 0) {  // this phase completes once every record of the cluster has landed
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                     ::"r"(bar), "r"(nrec * kRecordBytes) : "memory");
+      }
+      if (key == wk) {  // exactly one lane: the keys of a warp are distinct
+        const int slot = rank * nwarps + warp;
+        const uint32_t ka = smem_addr(kp + slot), ca = smem_addr(cp + slot);
+        for (int q = 0; q < CL; ++q) {
+          const uint32_t pb = peer_addr(bar, q);
+          asm volatile(
+              "st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 [%0], %1, [%2];\n"
+              ::"r"(peer_addr(ka, q)), "l"(wk), "r"(pb) : "memory");
+          asm volatile(
+              "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
+              "{%1, %2, %3, %4}, [%5];\n"
+              ::"r"(peer_addr(ca, q)), "r"(__float_as_uint(x)), "r"(__float_as_uint(y)),
+              "r"(__float_as_uint(z)), "r"(0u), "r"(pb) : "memory");
+        }
+      }
+      mbarrier_wait(bar, (uint32_t)(s >> 1) & 1u);
     } else {
+      if (key == wk) {
+        kp[warp] = wk;
+        cp[warp] = make_float4(x, y, z, 0.f);
+      }
       __syncthreads();
     }
-    unsigned bh = 0, bi = kNone;
-    int bs = 0;
-    for (int s = lane; s < nrec; s += 32) {
-      const uint2 k = *reinterpret_cast<const uint2*>(&slot[s].key);
-      if (k.x > bh || (k.x == bh && k.y < bi)) {
-        bh = k.x;
-        bi = k.y;
-        bs = s;
+    u64 best = 0;
+    int bw = 0;
+    if (nrec <= kAllLanesRecords) {
+      for (int w = 0; w < nrec; ++w) {
+        const u64 v = kp[w];
+        if (v > best) {
+          best = v;
+          bw = w;
+        }
       }
+    } else {
+      for (int w = lane; w < nrec; w += 32) {
+        const u64 v = kp[w];
+        if (v > best) {
+          best = v;
+          bw = w;
+        }
+      }
+      const u64 m = warp_max(best);
+      bw = __shfl_sync(~0u, bw, __ffs(__ballot_sync(~0u, best == m)) - 1);
+      best = m;
     }
-    const int wl2 = warp_argmax(bh, bi);
-    const float4 c = slot[nrec <= 32 ? wl2 : __shfl_sync(~0u, bs, wl2)].xyz;
+    const float4 c = cp[bw];
     cx = c.x;
     cy = c.y;
     cz = c.z;
-    return bi;
+    return best;
   };
 
-  // The first selection's key: 2 for a valid point, 1 for an invalid one, 0 for no point, so
-  // the lowest valid index wins, or index 0 when the cloud has no valid point.
+  // The first selection's key: high word 2 for a valid point, 1 for an invalid one, 0 for no
+  // point, so the lowest valid index wins, or index 0 when the cloud has no valid point.
   constexpr int R = PPT > 0 ? PPT : 1;
   float px[R], py[R], pz[R], pd[R];
-  unsigned hi = 0, idx = kNone;
+  u64 key = 0;
   float wx = 0.f, wy = 0.f, wz = 0.f;
   if constexpr (PPT > 0) {
 #pragma unroll
@@ -160,63 +211,73 @@ __device__ __forceinline__ void fps_body(const float* __restrict__ xyz,
       py[k] = real ? p[n * 3 + 1] : 0.f;
       pz[k] = real ? p[n * 3 + 2] : 0.f;
       pd[k] = real ? (valid ? kBig : -kBig) : -INFINITY;  // -inf: never beats a point
-      const unsigned h = real ? (valid ? 2u : 1u) : 0u;
-      if (h > hi) {
-        hi = h;
-        idx = n;
+      const u64 kk = (u64)(real ? (valid ? 2u : 1u) : 0u) << 32 | (u64)~(unsigned)n;
+      if (kk > key) {
+        key = kk;
         wx = px[k];
         wy = py[k];
         wz = pz[k];
       }
     }
   } else {
+    key = (u64)~(unsigned)(base + tid);  // no point: distinct from the other lanes' keys
     for (int j = tid; j < cnt; j += T) {
       const int n = base + j;
       const bool valid = mk == nullptr || mk[n] != 0;
       dist_s[j] = valid ? kBig : -kBig;
-      const unsigned h = valid ? 2u : 1u;
-      if (h > hi) {
-        hi = h;
-        idx = n;
+      const u64 kk = (u64)(valid ? 2u : 1u) << 32 | (u64)~(unsigned)n;
+      if (kk > key) {
+        key = kk;
         wx = p[n * 3 + 0];
         wy = p[n * 3 + 1];
         wz = p[n * 3 + 2];
       }
     }
   }
-  if constexpr (CLUSTER) cluster_barrier();  // every block runs before the first push
+  if constexpr (CLUSTER) {
+    if (tid == 0) {
+      for (int q = 0; q < 2; ++q)  // one arrival a phase: thread 0's expect_tx
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bars + q)),
+                     "r"(1));
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    cluster_barrier();  // every block runs, its mbarriers ready, before the first push
+  }
 
-  unsigned farthest = select(hi, idx, wx, wy, wz, 0);
+  u64 win = select(key, wx, wy, wz, 0);
   for (int i = 0;; ++i) {
-    if (rank == 0 && tid == 0) out[(size_t)b * npoint + i] = (int)farthest;
+    if (rank == 0 && tid == 0) out[(size_t)b * npoint + i] = (int)~(unsigned)win;
     if (i + 1 == npoint) break;
-    float best = -INFINITY;  // ascending index within a thread: strict > keeps the lowest
     if constexpr (PPT > 0) {
-      int bk = -1;
+      float v[PPT], X[PPT], Y[PPT], Z[PPT];
+      int kk[PPT];
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
-        const float nd = fminf(pd[k], sq_dist3(px[k], py[k], pz[k], cx, cy, cz));
-        pd[k] = nd;
-        if (nd > best) {
-          best = nd;
-          bk = k;
-        }
+        pd[k] = fminf(pd[k], sq_dist3(px[k], py[k], pz[k], cx, cy, cz));
+        v[k] = pd[k];
+        X[k] = px[k];
+        Y[k] = py[k];
+        Z[k] = pz[k];
+        kk[k] = k;
       }
-      wx = px[0];
-      wy = py[0];
-      wz = pz[0];
 #pragma unroll
-      for (int k = 1; k < PPT; ++k) {
-        if (bk == k) {
-          wx = px[k];
-          wy = py[k];
-          wz = pz[k];
+      for (int w = 1; w < PPT; w *= 2) {  // adjacent pairs: the left one has the lower index
+#pragma unroll
+        for (int k = 0; k + w < PPT; k += 2 * w) {
+          if (v[k + w] > v[k]) {
+            v[k] = v[k + w];
+            kk[k] = kk[k + w];
+            X[k] = X[k + w];
+            Y[k] = Y[k + w];
+            Z[k] = Z[k + w];
+          }
         }
       }
-      hi = bk >= 0 ? orderable(best) : 0u;
-      idx = bk >= 0 ? (unsigned)(base + tid + bk * T) : kNone;
+      key = make_key(v[0], (unsigned)(base + tid + kk[0] * T));
+      win = select(key, X[0], Y[0], Z[0], i + 1);
     } else {
-      idx = kNone;
+      float best = -INFINITY;  // ascending index: strict > keeps the lowest
+      unsigned bi = (unsigned)(base + tid);
       for (int j = tid; j < cnt; j += T) {
         const int n = base + j;
         const float x = p[n * 3 + 0], y = p[n * 3 + 1], z = p[n * 3 + 2];
@@ -224,15 +285,14 @@ __device__ __forceinline__ void fps_body(const float* __restrict__ xyz,
         dist_s[j] = nd;
         if (nd > best) {
           best = nd;
-          idx = n;
+          bi = (unsigned)n;
           wx = x;
           wy = y;
           wz = z;
         }
       }
-      hi = idx != kNone ? orderable(best) : 0u;
+      win = select(make_key(best, bi), wx, wy, wz, i + 1);
     }
-    farthest = select(hi, idx, wx, wy, wz, (i + 1) & 1);
   }
   if constexpr (CLUSTER) cluster_barrier();  // no block leaves while a peer may write into it
 }
@@ -257,8 +317,8 @@ template <int PPT>
 int launch(const float* xyz, const uint8_t* mask, int B, int N, int npoint, int* out, int cl,
            int threads, bool as_p, cudaStream_t stream) {
   const int slice = (N + cl - 1) / cl;
-  const size_t smem =
-      sizeof(Rec) * 2 * cl * (threads / 32) + (PPT == 0 ? sizeof(float) * slice : 0);
+  const size_t smem = (sizeof(u64) + sizeof(float4)) * 2 * cl * (threads / 32) +
+                      (cl > 1 ? 2 * sizeof(u64) : 0) + (PPT == 0 ? sizeof(float) * slice : 0);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(B * cl);
   cfg.blockDim = dim3(threads);

@@ -28,7 +28,7 @@ REG_TIERS = (1, 2, 4, 8, 16)  # points a thread keeps in registers
 REG_MAX_THREADS = 512  # a register tier's block: at most 128 registers a thread
 REG_MAX_POINTS = REG_TIERS[-1] * REG_MAX_THREADS  # beyond: the streaming variant
 STREAM_THREADS = 1024
-BLOCK_TARGET_THREADS = 256  # the fewest points a thread that keep a block at most this wide
+BLOCK_TARGET_THREADS = 128  # the fewest points a thread that keep a block at most this wide
 P_SLICE_TARGET = 2048  # kernel P: the fewest blocks a cloud whose slices hold at most this
 
 
