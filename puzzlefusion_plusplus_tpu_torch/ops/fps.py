@@ -28,17 +28,24 @@ REG_TIERS = (1, 2, 4, 8, 16)  # points a thread keeps in registers
 REG_MAX_THREADS = 512  # a register tier's block: at most 128 registers a thread
 REG_MAX_POINTS = REG_TIERS[-1] * REG_MAX_THREADS  # beyond: the streaming variant
 STREAM_THREADS = 1024
-BLOCK_TARGET_THREADS = 128  # the fewest points a thread that keep a block at most this wide
-P_SLICE_TARGET = 2048  # kernel P: the fewest blocks a cloud whose slices hold at most this
+# Block shapes, from chip_smoke.py's fps_shapes timings: F is fastest with blocks of about 64
+# threads and at most 8 points a thread; P, whose exchange costs more, with 16 points a thread
+# and clusters whose slices hold at most 3072 points.
+BLOCK_TARGET_THREADS = 64
+F_MAX_POINTS_A_THREAD, P_MAX_POINTS_A_THREAD = 8, 16
+P_SLICE_TARGET = 3072
 
 
-def block_shape(points: int) -> tuple[int, int]:
+def block_shape(points: int, max_ppt: int = F_MAX_POINTS_A_THREAD) -> tuple[int, int]:
     """(points a thread, threads) of the block that holds ``points`` points: the smallest
-    register tier whose block is at most ``BLOCK_TARGET_THREADS`` wide (else the largest
-    tier), or (0, ``STREAM_THREADS``), the streaming variant, above ``REG_MAX_POINTS``."""
+    register tier whose block is at most ``BLOCK_TARGET_THREADS`` wide, but at most
+    ``max_ppt`` unless the block would be wider than ``REG_MAX_THREADS``; (0,
+    ``STREAM_THREADS``), the streaming variant, above ``REG_MAX_POINTS``."""
     if points > REG_MAX_POINTS:
         return 0, STREAM_THREADS
-    ppt = next((t for t in REG_TIERS if -(-points // t) <= BLOCK_TARGET_THREADS), REG_TIERS[-1])
+    ppt = next(t for t in REG_TIERS if -(-points // t) <= BLOCK_TARGET_THREADS or t == max_ppt)
+    if -(-points // ppt) > REG_MAX_THREADS:
+        ppt = REG_TIERS[-1]
     return ppt, max(32, (-(-points // ppt) + 31) // 32 * 32)
 
 
@@ -46,7 +53,7 @@ def cluster_shape(points: int) -> tuple[int, int, int]:
     """Kernel P's (blocks a cloud, points a thread, threads) for clouds of ``points`` points:
     the fewest blocks (1, 2, 4 or 8) whose slices hold at most ``P_SLICE_TARGET`` points."""
     cl = next((c for c in (1, 2, 4) if -(-points // c) <= P_SLICE_TARGET), 8)
-    return (cl, *block_shape(-(-points // cl)))
+    return (cl, *block_shape(-(-points // cl), P_MAX_POINTS_A_THREAD))
 
 
 def farthest_point_sample_plain(
