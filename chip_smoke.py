@@ -544,22 +544,17 @@ def phase_fps_shapes() -> None:
         mask = (torch.rand((B, N), generator=gen, device=dev) < 0.6) if masked else None
         ref = fps.farthest_point_sample_plain(xyz, npoint, mask)
         times, errors = {}, {}
-        for cl in ((1,) if name == "F" else (1, 2, 4, 8)):
-            slice_ = -(-N // cl)
-            tiers = [t for t in fps.REG_TIERS if -(-slice_ // t) <= fps.REG_MAX_THREADS]
-            for ppt in tiers or [0]:
-                threads = (fps.STREAM_THREADS if ppt == 0
-                           else max(32, (-(-slice_ // ppt) + 31) // 32 * 32))
-                key = f"cl={cl},ppt={ppt},threads={threads}"
+        for cl, ppt, threads in fps.launch_shapes(N, (1,) if name == "F" else (1, 2, 4, 8)):
+            key = f"cl={cl},ppt={ppt},threads={threads}"
 
-                def run():
-                    return fps._launch(xyz, npoint, mask, cl, ppt, threads, per_cloud=name == "P")
-                try:
-                    _check(torch.equal(run(), ref), f"{name} {key}: indices differ")
-                except RuntimeError as exc:  # a shape the card refuses to launch
-                    errors[key] = str(exc)[:200]
-                    continue
-                times[key] = cuda_ms(run, 5)
+            def run():
+                return fps._launch(xyz, npoint, mask, cl, ppt, threads, per_cloud=name == "P")
+            try:
+                _check(torch.equal(run(), ref), f"{name} {key}: indices differ")
+            except RuntimeError as exc:  # a shape the card refuses to launch
+                errors[key] = str(exc)[:200]
+                continue
+            times[key] = cuda_ms(run, 5)
         chosen = ((1, *fps.block_shape(N)) if name == "F" else fps.cluster_shape(N))
         emit({"phase": "fps_shapes", "kernel": name,
               "shape": f"[{B},{N}]->{npoint}" + (" masked" if masked else ""),

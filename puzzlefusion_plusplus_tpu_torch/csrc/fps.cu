@@ -41,7 +41,6 @@
 //   safe: a slot is rewritten two selections later, after its writer has seen every record
 //   of the selection between, which every warp of the cluster sends only after its last read
 //   of the slot.
-// Distances go through sq_dist3 (no FMA), so indices equal the plain version's exactly.
 #include "common.cuh"
 
 #include <cooperative_groups.h>

@@ -3,7 +3,7 @@
 Greedy max-min selection from the first valid point of each cloud, ties to the lowest index,
 invalid points never chosen; the plain version follows ``farthest_point_sample_xla``.
 Bound: latency of the npoint sequential selections (see the source notes for the design:
-points in registers, one key per candidate, one barrier per selection).
+points in registers, one key per candidate, one exchange per selection).
 
 * F replaces ``puzzlefusion_plusplus_tpu/ops/fps.py::_fps_pallas_batched``
   (``_fps_batched_kernel``): one block per cloud. The encoder's stage FPS (many clouds of at
@@ -36,6 +36,23 @@ F_MAX_POINTS_A_THREAD, P_MAX_POINTS_A_THREAD = 8, 16
 P_SLICE_TARGET = 3072
 
 
+def _threads(points: int, ppt: int) -> int:
+    """The whole warps that hold ``points`` points at ``ppt`` a thread."""
+    return max(32, (-(-points // ppt) + 31) // 32 * 32)
+
+
+def launch_shapes(points: int, cluster_sizes=(1,)) -> list[tuple[int, int, int]]:
+    """Every (blocks a cloud, points a thread, threads) that the kernels run for clouds of
+    ``points`` points at the given cluster sizes: each register tier that fits, else the
+    streaming variant. ``chip_smoke.py`` times them all."""
+    out = []
+    for cl in cluster_sizes:
+        slice_ = -(-points // cl)
+        tiers = [t for t in REG_TIERS if _threads(slice_, t) <= REG_MAX_THREADS]
+        out += [(cl, t, _threads(slice_, t)) for t in tiers] or [(cl, 0, STREAM_THREADS)]
+    return out
+
+
 def block_shape(points: int, max_ppt: int = F_MAX_POINTS_A_THREAD) -> tuple[int, int]:
     """(points a thread, threads) of the block that holds ``points`` points: the smallest
     register tier whose block is at most ``BLOCK_TARGET_THREADS`` wide, but at most
@@ -44,9 +61,9 @@ def block_shape(points: int, max_ppt: int = F_MAX_POINTS_A_THREAD) -> tuple[int,
     if points > REG_MAX_POINTS:
         return 0, STREAM_THREADS
     ppt = next(t for t in REG_TIERS if -(-points // t) <= BLOCK_TARGET_THREADS or t == max_ppt)
-    if -(-points // ppt) > REG_MAX_THREADS:
+    if _threads(points, ppt) > REG_MAX_THREADS:
         ppt = REG_TIERS[-1]
-    return ppt, max(32, (-(-points // ppt) + 31) // 32 * 32)
+    return ppt, _threads(points, ppt)
 
 
 def cluster_shape(points: int) -> tuple[int, int, int]:

@@ -309,17 +309,9 @@ def test_fps_per_cloud_kernel_matches_f_and_plain_on_card(dev, B, N, npoint, mas
 
 
 def _fps_variants(N, cls):
-    """Every (blocks a cloud, points a thread, threads) kernel F (cl = 1) or P can take at N
-    points: each register tier that fits, and the streaming variant at two widths."""
-    out = []
-    for cl in cls:
-        slice_ = -(-N // cl)
-        for ppt in tfps.REG_TIERS:
-            threads = max(32, (-(-slice_ // ppt) + 31) // 32 * 32)
-            if threads <= tfps.REG_MAX_THREADS:
-                out.append((cl, ppt, threads))
-        out += [(cl, 0, 128), (cl, 0, tfps.STREAM_THREADS)]
-    return out
+    """Every shape kernel F (cl = 1) or P can take at N points, and the streaming variant at
+    two widths besides."""
+    return tfps.launch_shapes(N, cls) + [(cl, 0, w) for cl in cls for w in (128, 1024)]
 
 
 @pytest.mark.parametrize("case", ["duplicates", "few_valid", "all_invalid", "unmasked"])

@@ -177,6 +177,7 @@ def test_fps_block_shapes_fit_the_kernels(kernel):
             assert threads <= tfps.STREAM_THREADS and slice_ > tfps.REG_MAX_POINTS
         if kernel == "P" and n <= 8 * tfps.REG_MAX_POINTS:
             assert ppt > 0
+        assert (cl, ppt, threads) in tfps.launch_shapes(n, (cl,))  # one that chip_smoke times
 
 
 def _raw_sa_inputs(rng, M, N, Cin, S, K, widths):
