@@ -9,11 +9,17 @@ Phases, each printing one JSON object per line (with its seconds):
                M = 160 clouds), on seeded inputs, against its plain PyTorch version on the card
                (P also against F):
                error, exact-index agreement, and CUDA-event times of the kernel, the plain
-               version and (where one exists) a single PyTorch library call. G, A and B
-               also time the bare launch on int32 indices into buffers made beforehand
-               (``kernel_ms``, beside ``ms``, the call as callers make it), and the bare
-               launch and the library call replayed from a CUDA graph (``kernel_graph_ms``,
-               ``library_graph_ms``: the card's time without host gaps); A and S also run at
+               version and (where one exists) a single PyTorch library call. G, A, B, N
+               and M also time the bare launch into buffers made beforehand (``kernel_ms``,
+               beside ``ms``, the call as callers make it) and the bare launch replayed from
+               a CUDA graph (``kernel_graph_ms``: the card's time without host gaps), G, A
+               and B also their library call so (``library_graph_ms``). N and M are held
+               bit-equal to their plain versions and across two launches, N also at the b8
+               engine's shape_cd input ([8,12000], built by ``utils/metrics.py::
+               shape_cd_clouds``) and M also at the b8 merge's pad (B = 8, P = 12); their
+               records add under ``computed`` the issue-slot bound (8 unfused FP32
+               operations a pair, one slot each on 128 lanes an SM at the max SM clock that
+               nvidia-smi reports), the measured slots a pair and the launch shape; A and S also run at
                the denoiser's frozen-encode shapes (M = 1280) and B with every row to one
                index, all listed under ``per_shape`` and left out of the step's sum. S and
                R compute in 3xTF32 on the tensor cores: their ``bound_ms`` counts three TF32
@@ -28,6 +34,10 @@ Phases, each printing one JSON object per line (with its seconds):
  2b. fps_shapes — F and P at every block shape they can take (blocks a cloud, points a
                thread in registers, threads), each bit-equal to the plain version: the ms of
                each beside the shape the wrapper picks (``ops/fps.py::cluster_shape``).
+ 2c. nn_shapes — N and M at every (queries a thread, target groups a block) shape that
+               ``csrc/nn.cu`` holds, at phase 2's inputs, each bit-equal to the plain
+               version: the bare launch's ms of each beside the shape the wrapper picks
+               (``ops/chamfer.py::nn_shape``, ``masked_shape``).
   3. engine  — the full-width engine (``Config()`` defaults: VQ-VAE 1000 pts / 25x64 tokens /
                1024x16 codebook, denoiser 512/6/8, verifier 256/6/8, 6 iterations x 20 steps,
                fp32, batch 8) on 8 synthetic shapes of 3-12 parts (seed 7) through
@@ -128,6 +138,33 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_mhz() -> float:
+    """The card's max SM clock (nvidia-smi), the clock of the issue-slot bounds."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def nn_engine_clouds(gen, B: int, P: int, N: int = 1000):
+    """Kernel N's input at the engine's shape_cd call, built by ``utils/metrics.py::
+    shape_cd_clouds`` as the engine builds it: B shapes of 3 to P valid parts of N points
+    (each part a blob around its own centre), the padded parts at 1e3, two random poses."""
+    import torch
+
+    from puzzlefusion_plusplus_tpu_torch.utils.metrics import shape_cd_clouds
+    from puzzlefusion_plusplus_tpu_torch.utils.transforms import quat_normalize
+
+    dev = gen.device
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    pts = 0.4 * r(B, P, 1, 3) + 0.1 * r(B, P, N, 3)
+    valids = (torch.arange(P, device=dev) < torch.linspace(3, P, B, device=dev).round()[:, None])
+    poses = [(0.2 * r(B, P, 3), quat_normalize(r(B, P, 4))) for _ in range(2)]
+    return shape_cd_clouds(pts, poses[0][0], poses[1][0], poses[0][1], poses[1][1],
+                           valids.float())
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -435,24 +472,46 @@ def phase_kernels(results: dict) -> None:
     for N, S, K in ((1000, 256, 32), (256, 128, 64), (128, 25, 64)):
         gather_row("G", gather.gather_points, 160, N, 3, (S, K), "train", 50)
 
-    # N: part_acc clouds and the shape_cd clouds, then a training step's chamfer loss
-    for B, N, path in ((96, 1000, "inference"), (8, 20000, "inference"), (160, 1000, "train")):
+    # N: part_acc clouds, the b8 engine's shape_cd clouds (engine-shaped: 12 parts of 1000
+    # points, padded parts at 1e3, two poses), the widest pad's shape_cd clouds (random), then
+    # a training step's chamfer loss
+    sms, clock_mhz = torch.cuda.get_device_properties(0).multi_processor_count, sm_clock_mhz()
+
+    def issue(pairs, ms, q, g):
+        """Worked out, not measured: the 8 unfused FP32 operations of a pair, one issue slot
+        each on 128 lanes an SM at the card's max SM clock, and the measured ms in slots."""
+        lanes_per_ms = sms * 128 * clock_mhz * 1e3
+        return {"issue_bound_ms": 8.0 * pairs / lanes_per_ms, "clock_mhz": clock_mhz,
+                "slots_a_pair": ms * lanes_per_ms / pairs, "queries_a_thread": q,
+                "target_groups": g}
+
+    for B, N, path, engine_shaped in ((96, 1000, "inference", False),
+                                      (8, 12000, "inference", True),
+                                      (8, 20000, "inference", False),
+                                      (160, 1000, "train", False)):
         t0 = time.perf_counter()
-        x, y = randn(B, N, 3), randn(B, N, 3)
+        x, y = (nn_engine_clouds(gen, B, N // 1000) if engine_shaped
+                else (randn(B, N, 3), randn(B, N, 3)))
         d, i = chamfer.nn_distance(x, y)
         dr, ir = chamfer.nn_distance_plain(x, y)
-        torch.cuda.synchronize()
         err = (d - dr).abs().max().item()
-        rel = ((d - dr).abs() / dr.abs().clamp_min(1e-30)).max().item()
-        match = bool(torch.equal(i, ir))
-        _check(rel <= 1e-5 and match, f"N [{B},{N}]: rel err {rel}, indices equal {match}")
-        record("N", f"[{B},{N}]^2", err,
-               cuda_ms(lambda: chamfer.nn_distance(x, y), 5),
+        match = bool(torch.equal(i, ir)) and bool(torch.equal(d, dr))
+        again = chamfer.nn_distance(x, y)
+        _check(match, f"N [{B},{N}]: distances or indices differ from the plain version")
+        _check(torch.equal(d, again[0]) and torch.equal(i, again[1]),
+               f"N [{B},{N}]: two launches differ")
+        dist, idx = torch.empty_like(d), torch.empty_like(i)
+        bare = lambda: chamfer._launch_nn(x, y, dist, idx)  # noqa: E731
+        ms = cuda_ms(lambda: chamfer.nn_distance(x, y), 5)
+        kernel_ms = cuda_ms(bare, 5)
+        record("N", f"[{B},{N}]^2" + (" engine-shaped" if engine_shaped else ""), err, ms,
                cuda_ms(lambda: chamfer.nn_distance_plain(x, y), 1),
                4 * (2 * B * N * 3 + 2 * B * N), 8.0 * B * N * N,
                library_ms=cuda_ms(lambda: torch.cdist(x, y).min(-1), 3), path=path,
-               max_rel_err=rel, indices_equal=match, seconds=time.perf_counter() - t0)
-
+               kernel_ms=kernel_ms, kernel_graph_ms=graph_ms(bare, 5), bit_equal=match,
+               computed={**issue(B * N * N, kernel_ms, *chamfer.nn_shape(B, N)),
+                         "cull": chamfer.CULL},
+               seconds=time.perf_counter() - t0)
     # A: the feature gathers of one training step's SA2 and SA3 at M = 160 clouds, then of
     # the denoiser step's frozen encode at M = 1280 (listed apart from the step's sum)
     for N, C, S, K in ((256, 128, 128, 64), (128, 256, 25, 64)):
@@ -498,30 +557,38 @@ def phase_kernels(results: dict) -> None:
                launches_a_call=1 if ints == 0 else 2,
                seconds=time.perf_counter() - t0)
 
-    # M: one merge step's pairs at P = 20, N = 1000, 3 active pairs
-    t0 = time.perf_counter()
-    P, N = 20, 1000
-    pts = randn(1, P, N, 3, scale=0.3)
-    mask = torch.zeros((1, P, P), dtype=torch.bool, device=dev)
-    pairs = ((0, 1), (1, 0), (2, 5))
-    for a, b in pairs:
-        mask[0, a, b] = True
-    out = chamfer.masked_pairwise_nn(pts, mask)
-    ref = chamfer.masked_pairwise_nn_plain(pts, mask)
-    torch.cuda.synchronize()
-    err = (out - ref).abs().max().item()
-    act = mask[..., None].expand_as(out)
-    rel = ((out - ref).abs()[act] / ref[act].clamp_min(1e-30)).max().item()
-    _check(rel <= 1e-5 and bool((out[~act] == chamfer.INACTIVE).all()),
-           f"M: rel err {rel} or bad sentinel")
-    xa = torch.stack([pts[0, a] for a, _ in pairs])
-    xb = torch.stack([pts[0, b] for _, b in pairs])
-    record("M", "P=20 N=1000, 3 active pairs", err,
-           cuda_ms(lambda: chamfer.masked_pairwise_nn(pts, mask), 20),
-           cuda_ms(lambda: chamfer.masked_pairwise_nn_plain(pts, mask), 3),
-           4 * (P * N * 3 + P * P * N) + P * P, 8.0 * len(pairs) * N * N,
-           library_ms=cuda_ms(lambda: torch.cdist(xa, xb).min(-1), 20),
-           max_rel_err=rel, seconds=time.perf_counter() - t0)
+    # M: one merge step's pairs at P = 20, N = 1000, 3 active pairs, then at the b8 engine's
+    # pad (B = 8, P = 12) with two symmetric active pairs a sample
+    for B, P, pairs in ((1, 20, ((0, 0, 1), (0, 1, 0), (0, 2, 5))),
+                        (8, 12, tuple((b, i, j) for b in range(8)
+                                      for i, j in ((b % 3, 7), (7, b % 3), (4, 9), (9, 4))))):
+        t0 = time.perf_counter()
+        N = 1000
+        pts = randn(B, P, N, 3, scale=0.3)
+        mask = torch.zeros((B, P, P), dtype=torch.bool, device=dev)
+        for b, i, j in pairs:
+            mask[b, i, j] = True
+        with torch.no_grad():
+            out = chamfer.masked_pairwise_nn(pts, mask)
+            ref = chamfer.masked_pairwise_nn_plain(pts, mask)
+            match = bool(torch.equal(out, ref))
+            _check(match, f"M B={B} P={P}: differs from the plain version")
+            _check(torch.equal(out, chamfer.masked_pairwise_nn(pts, mask)),
+                   f"M B={B} P={P}: two launches differ")
+        err = (out - ref).abs().max().item()
+        xa = torch.stack([pts[b, i] for b, i, _ in pairs])
+        xb = torch.stack([pts[b, j] for b, _, j in pairs])
+        dst = torch.empty_like(out)
+        bare = lambda: chamfer._launch_masked(pts, mask, dst)  # noqa: E731
+        kernel_ms = cuda_ms(bare, 20)
+        record("M", f"B={B} P={P} N={N}, {len(pairs)} active pairs", err,
+               cuda_ms(lambda: chamfer.masked_pairwise_nn(pts, mask), 20),
+               cuda_ms(lambda: chamfer.masked_pairwise_nn_plain(pts, mask), 3),
+               4 * (B * P * N * 3 + B * P * P * N) + B * P * P, 8.0 * len(pairs) * N * N,
+               library_ms=cuda_ms(lambda: torch.cdist(xa, xb).min(-1), 20),
+               kernel_ms=kernel_ms, kernel_graph_ms=graph_ms(bare, 20), bit_equal=match,
+               computed=issue(len(pairs) * N * N, kernel_ms, *chamfer.masked_shape()),
+               seconds=time.perf_counter() - t0)
     torch.cuda.empty_cache()  # the plain versions at M = 1280 held tens of GB
 
 
@@ -561,6 +628,69 @@ def phase_fps_shapes() -> None:
               "ms_by_shape": times, "refused": errors,
               "chosen": "cl={},ppt={},threads={}".format(*chosen),
               "fastest": min(times, key=times.get), "seconds": time.perf_counter() - t0})
+
+
+def phase_nn_shapes() -> None:
+    """Kernels N and M at every (queries a thread, target groups) shape ``csrc/nn.cu`` holds,
+    at the shapes of phase 2: one line per input with the bare launch's CUDA-event ms at each
+    shape, each bit-equal to the plain version, beside the shape the wrapper picks."""
+    import torch
+
+    from puzzlefusion_plusplus_tpu_torch.ops import chamfer
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def time_shapes(name, label, launch, out, ref, chosen, culls=(False,)):
+        t0 = time.perf_counter()
+        times = {}
+        for shape in chamfer.SHAPES:
+            for cull in culls:
+                for o in out:
+                    o.fill_(-1)
+                launch(shape, cull)
+                _check(all(torch.equal(o, r) for o, r in zip(out, ref)),
+                       f"{name} {label} at {shape}, cull {cull}: differs from the plain "
+                       "version")
+                key = f"q={shape[0]},g={shape[1]}" + (",cull" if cull else "")
+                times[key] = cuda_ms(lambda: launch(shape, cull), 5)
+        emit({"phase": "nn_shapes", "kernel": name, "shape": label, "ms_by_shape": times,
+              "chosen": "q={},g={}".format(*chosen) + (",cull" if chamfer.CULL and
+                                                        len(culls) > 1 else ""),
+              "fastest": min(times, key=times.get), "seconds": time.perf_counter() - t0})
+
+    for B, N, engine_shaped in ((96, 1000, False), (8, 12000, True), (8, 20000, False),
+                                (160, 1000, False)):
+        x, y = (nn_engine_clouds(gen, B, N // 1000) if engine_shaped else
+                (torch.randn((B, N, 3), generator=gen, device=dev),
+                 torch.randn((B, N, 3), generator=gen, device=dev)))
+        ref = chamfer.nn_distance_plain(x, y)
+        out = tuple(torch.empty_like(r) for r in ref)
+        time_shapes("N", f"[{B},{N}]^2" + (" engine-shaped" if engine_shaped else ""),
+                    lambda shape, cull: chamfer._launch_nn(x, y, *out, shape, cull), out, ref,
+                    chamfer.nn_shape(B, N), (False, True))
+        if N == 20000:  # the SM clock and power while N runs about a second at this shape
+            smi = subprocess.Popen(
+                ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                 "--format=csv,noheader,nounits", "-lms", "100"],
+                stdout=subprocess.PIPE, text=True)
+            cuda_ms(lambda: chamfer._launch_nn(x, y, *out), 1000)
+            smi.terminate()
+            samples = [tuple(map(float, line.split(","))) for line in
+                       smi.communicate(timeout=60)[0].split("\n") if line.strip()]
+            emit({"phase": "nn_shapes", "kernel": "N", "shape": f"[{B},{N}]^2",
+                  "under_load_clock_mhz": [c for c, _ in samples],
+                  "under_load_power_w": [w for _, w in samples]})
+    for B, P, active in ((1, 20, 3), (8, 12, 32)):
+        pts = 0.3 * torch.randn((B, P, 1000, 3), generator=gen, device=dev)
+        mask = torch.zeros((B * P * P,), dtype=torch.bool, device=dev)
+        mask[torch.randperm(B * P * P, generator=gen, device=dev)[:active]] = True
+        mask = mask.reshape(B, P, P)
+        ref = (chamfer.masked_pairwise_nn_plain(pts, mask),)
+        out = (torch.empty_like(ref[0]),)
+        time_shapes("M", f"B={B} P={P} N=1000, {active} active pairs",
+                    lambda shape, _: chamfer._launch_masked(pts, mask, out[0], shape), out,
+                    ref, chamfer.masked_shape())
 
 
 def _full_config(data_root: str):
@@ -1049,7 +1179,8 @@ def phase_profile_denoiser(data_root: str) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,fps_shapes,engine,merge,profile,train,"
+    ap.add_argument("--phases", default="build,kernels,fps_shapes,nn_shapes,engine,merge,"
+                                        "profile,train,"
                                         "train_parity,profile_train,encoder_modes,"
                                         "train_denoiser,denoiser_parity,profile_denoiser")
     phases = ap.parse_args().phases.split(",")
@@ -1073,6 +1204,8 @@ def main() -> int:
         phase_kernels(results)
     if "fps_shapes" in phases:
         phase_fps_shapes()
+    if "nn_shapes" in phases:
+        phase_nn_shapes()
     launches = {}  # per path: the counts of its own run
     data_root = os.path.join(REPO, ".smoke", "chip_smoke_data")
     if {"engine", "merge", "profile", "encoder_modes"} & set(phases):
@@ -1132,8 +1265,8 @@ def main() -> int:
             main_rec = step[-1]
             agg = (lambda key: sum(r[key] for r in step)) if name in "SRAB" else (
                 lambda key: main_rec[key])
-            timed = (("ms", "kernel_ms", "kernel_graph_ms", "library_graph_ms")
-                     if "kernel_ms" in main_rec else ("ms",))
+            timed = tuple(k for k in ("ms", "kernel_ms", "kernel_graph_ms",
+                                      "library_graph_ms") if k in main_rec)
             source, replaces = REPLACES[name]
             per_path = {path: counts[name] for path, counts in launches.items()
                         if name in PATH_KERNELS[path]}

@@ -8,93 +8,349 @@
 //
 // The TPU kernels use the expanded |x|^2 + |y|^2 - 2 x.y form on the matrix unit and, for M,
 // a hi/lo split of the coordinates, both only because that unit rounds f32 operands to bf16.
-// Here the distance is three differences on the CUDA cores (sq_dist3), bit-identical to the
-// plain PyTorch version. Bound: FP32 operations (8 per pair). One thread per query point;
-// target points are staged through shared memory in tiles and scanned in ascending order
-// with a strict <, so ties resolve to the lowest index. The ragged edge is masked, which
-// replaces the TPU wrapper's 1e6 padding. Blocks of inactive pairs write the sentinel and
-// return before touching the clouds; compacting the active pairs is later work.
+// Here the distance is three differences on the CUDA cores (sq_dist3: 8 separately rounded
+// operations in the plain version's order), so distances are bit-identical to the plain
+// PyTorch version and indices equal its first-minimum argmin.
+//
+// Bound: instruction issue. Each (query, target) pair costs the 8 unfused operations of
+// sq_dist3 and its share of loads and bookkeeping, and nothing else on the card is close to
+// saturated: the clouds are read once per block from L2, and a tile of targets feeds
+// thousands of pairs. The design cuts the issue slots a pair takes from about 14 to about 9:
+// * Q queries a thread (a template parameter, 2 to 8), in registers. Targets are staged in
+//   shared memory as float4 (x, y, z, pad), so one broadcast 128-bit load feeds Q pairs.
+// * Only a min in the inner loop: best = fminf(best, d), one FMNMX. The index is recovered
+//   from chunks of kChunk targets: after each chunk a query records the chunk's first index
+//   when its best fell strictly inside it. The recorded chunk is the last one in which best
+//   fell, so no earlier target reaches the final value and the chunk's first target at that
+//   value is the lowest index overall, which a rescan of kChunk targets finds after the scan
+//   (from shared memory when the targets fit one tile, else from L2). A query whose best
+//   never falls (every distance +inf or NaN) keeps index 0. fminf ignores NaN as the strict <
+//   of an ascending scan did.
+// * G target groups a block (a template parameter, 1 to 8), of 64 threads each: every group
+//   holds the block's 64 * Q queries and scans its own contiguous share of every tile, in
+//   ascending order. At the end the groups' (distance, index) pairs are merged
+//   lexicographically in shared memory, which is exact because "min, then lowest index" is
+//   associative. Groups multiply the warps of small batches ([96, 1000] has 96 * 4 blocks).
+// The ragged edge of a tile is padded with +inf points, which never lower a best and never
+// equal one that fell. M runs the same scan without the index (a min is exact in any order)
+// over the active (pair, query block) items of a persistent grid, which finds the active
+// pairs on the device and writes the sentinel of inactive pairs with float4 stores.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kQ = 256;  // queries (threads) per block
-constexpr int kT = 512;  // target points per shared-memory tile
+constexpr int kGroupThreads = 64;  // threads of one target group
+constexpr int kTile = 1024;        // target points a shared-memory tile (float4: 16 KB)
+constexpr int kChunk = 16;         // targets between two records of where a best fell
+constexpr int kCull = 64;          // targets under one bounding box of the culling test
+constexpr int kBoxes = 32;         // boxes a tile: at most G * ceil(span / kCull) <= 16 + G
 constexpr float kInactive = 3.9e12f;
 
-template <bool kIndex>
-__device__ __forceinline__ void nn_rows(const float* __restrict__ q, int nq,
-                                        const float* __restrict__ t, int nt,
-                                        float* __restrict__ dout, int* __restrict__ iout) {
-  __shared__ float sx[kT], sy[kT], sz[kT];
-  const int n = blockIdx.x * kQ + threadIdx.x;
-  const bool active = n < nq;
-  const float qx = active ? q[n * 3 + 0] : 0.f;
-  const float qy = active ? q[n * 3 + 1] : 0.f;
-  const float qz = active ? q[n * 3 + 2] : 0.f;
-  float best = INFINITY;
-  int bi = 0;
-  for (int t0 = 0; t0 < nt; t0 += kT) {
-    const int cnt = min(kT, nt - t0);
-    __syncthreads();
-    for (int j = threadIdx.x; j < cnt; j += kQ) {
-      sx[j] = t[(size_t)(t0 + j) * 3 + 0];
-      sy[j] = t[(size_t)(t0 + j) * 3 + 1];
-      sz[j] = t[(size_t)(t0 + j) * 3 + 2];
+__host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// Shared memory of a block: the target tile, then (aliased) the groups' (best, index) records.
+template <int Q, int G>
+struct Smem {
+  static constexpr int kQueries = kGroupThreads * Q;  // queries a block
+  static constexpr int kRecordFloat4s = G * kQueries / 2;  // a float and an int each
+  static constexpr int kFloat4s = kTile > kRecordFloat4s ? kTile : kRecordFloat4s;
+};
+
+// The first index in [c0, c0 + kChunk) whose target lies at `best` from (x, y, z); targets
+// come through at(j). Iterating downwards without a branch leaves the lowest hit.
+template <class At>
+__device__ __forceinline__ int first_hit(At at, int c0, float x, float y, float z,
+                                         float best) {
+  int hit = c0;
+#pragma unroll
+  for (int j = kChunk - 1; j >= 0; --j) {
+    const float4 t = at(c0 + j);
+    if (sq_dist3(x, y, z, t.x, t.y, t.z) == best) hit = c0 + j;
+  }
+  return hit;
+}
+
+// A lower bound of sq_dist3 over every pair of points in two boxes: the per-axis gaps go
+// through the same rounded operations, and rounding is monotone, so it never exceeds a pair's
+// rounded distance (NaN gaps count as 0; an empty box, lo > hi, is at +inf).
+__device__ __forceinline__ float box_bound(float4 alo, float4 ahi, float4 blo, float4 bhi) {
+  const float gx = fmaxf(fmaxf(__fsub_rn(blo.x, ahi.x), __fsub_rn(alo.x, bhi.x)), 0.f);
+  const float gy = fmaxf(fmaxf(__fsub_rn(blo.y, ahi.y), __fsub_rn(alo.y, bhi.y)), 0.f);
+  const float gz = fmaxf(fmaxf(__fsub_rn(blo.z, ahi.z), __fsub_rn(alo.z, bhi.z)), 0.f);
+  return __fadd_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)), __fmul_rn(gz, gz));
+}
+
+__device__ __forceinline__ float4 min4(float4 a, float4 b) {
+  return make_float4(fminf(a.x, b.x), fminf(a.y, b.y), fminf(a.z, b.z), 0.f);
+}
+
+__device__ __forceinline__ float4 max4(float4 a, float4 b) {
+  return make_float4(fmaxf(a.x, b.x), fmaxf(a.y, b.y), fmaxf(a.z, b.z), 0.f);
+}
+
+// One block's 64 * Q queries [n0, n0 + 64 * Q) of q (nq points) against all nt targets of t:
+// writes the min squared distance to dout[n] and, with kIndex, the lowest index reaching it
+// to iout[n]. Every thread of the block calls it (it holds barriers). With cull, a warp skips
+// kCull targets of its share when the box bound from each lane's queries to those targets is
+// at least the lane's largest best, in every lane: no target there can lower a best, and one
+// at an equal distance has a higher index than the one that set it, so the result is exact.
+template <int Q, int G, bool kIndex>
+__device__ __forceinline__ void nn_block(const float* __restrict__ q, int nq,
+                                         const float* __restrict__ t, int nt, int n0,
+                                         float* __restrict__ dout, int* __restrict__ iout,
+                                         float4* smem, float4* boxes, bool cull) {
+  constexpr int kThreads = kGroupThreads * G, kQueries = Smem<Q, G>::kQueries;
+  const int g = threadIdx.x / kGroupThreads, l = threadIdx.x % kGroupThreads;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float qx[Q], qy[Q], qz[Q], best[Q];
+  int chunk[Q];
+  bool in[Q];
+  float4 qlo = make_float4(INFINITY, INFINITY, INFINITY, 0.f);  // the lane's queries' box
+  float4 qhi = make_float4(-INFINITY, -INFINITY, -INFINITY, 0.f);
+#pragma unroll
+  for (int k = 0; k < Q; ++k) {
+    const int n = n0 + l + k * kGroupThreads;
+    in[k] = n < nq;
+    qx[k] = in[k] ? q[(size_t)n * 3 + 0] : 0.f;
+    qy[k] = in[k] ? q[(size_t)n * 3 + 1] : 0.f;
+    qz[k] = in[k] ? q[(size_t)n * 3 + 2] : 0.f;
+    best[k] = INFINITY;
+    chunk[k] = -1;
+    if (in[k]) {
+      qlo = min4(qlo, make_float4(qx[k], qy[k], qz[k], 0.f));
+      qhi = max4(qhi, make_float4(qx[k], qy[k], qz[k], 0.f));
+    }
+  }
+  for (int t0 = 0; t0 < nt; t0 += kTile) {
+    const int cnt = min(kTile, nt - t0);
+    const int span = ceil_div(ceil_div(cnt, G), kChunk) * kChunk;  // a group's targets
+    const int per = ceil_div(span, kCull);                          // boxes a group
+    __syncthreads();  // the previous tile (or item's records) is no longer read
+    for (int j = threadIdx.x; j < G * span; j += kThreads) {
+      float4 p = make_float4(INFINITY, INFINITY, INFINITY, 0.f);
+      if (j < cnt) {
+        const float* s = t + (size_t)(t0 + j) * 3;
+        p = make_float4(s[0], s[1], s[2], 0.f);
+      }
+      smem[j] = p;
     }
     __syncthreads();
-    for (int j = 0; j < cnt; ++j) {
-      const float d = sq_dist3(qx, qy, qz, sx[j], sy[j], sz[j]);
-      if (d < best) {
-        best = d;
-        bi = t0 + j;
+    if (cull) {  // a box of the real targets of each kCull-run of a group's share, a warp each
+      for (int b = warp; b < G * per; b += kThreads / 32) {
+        const int a = (b / per) * span + (b % per) * kCull;
+        const int e = min(min(a + kCull, (b / per + 1) * span), cnt);
+        float4 lo = make_float4(INFINITY, INFINITY, INFINITY, 0.f);
+        float4 hi = make_float4(-INFINITY, -INFINITY, -INFINITY, 0.f);
+        for (int j = a + lane; j < e; j += 32) {
+          lo = min4(lo, smem[j]);
+          hi = max4(hi, smem[j]);
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+          lo = min4(lo, make_float4(__shfl_xor_sync(~0u, lo.x, o), __shfl_xor_sync(~0u, lo.y, o),
+                                    __shfl_xor_sync(~0u, lo.z, o), 0.f));
+          hi = max4(hi, make_float4(__shfl_xor_sync(~0u, hi.x, o), __shfl_xor_sync(~0u, hi.y, o),
+                                    __shfl_xor_sync(~0u, hi.z, o), 0.f));
+        }
+        if (lane == 0) {
+          boxes[2 * b] = lo;
+          boxes[2 * b + 1] = hi;
+        }
+      }
+      __syncthreads();
+    }
+    for (int m = 0; m < span; m += kCull) {
+      if (cull) {
+        float mb = -INFINITY;  // the lane's largest best (no query: every target is skipped)
+#pragma unroll
+        for (int k = 0; k < Q; ++k) mb = in[k] ? fmaxf(mb, best[k]) : mb;
+        const int b = 2 * (g * per + m / kCull);
+        if (__all_sync(~0u, box_bound(qlo, qhi, boxes[b], boxes[b + 1]) >= mb)) continue;
+      }
+      const float4* p = smem + g * span + m;
+      for (int c = m; c < min(m + kCull, span); c += kChunk, p += kChunk) {
+        float prev[Q];
+#pragma unroll
+        for (int k = 0; k < Q; ++k) prev[k] = best[k];
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j) {
+          const float4 s = p[j];  // one broadcast load for Q pairs
+#pragma unroll
+          for (int k = 0; k < Q; ++k)
+            best[k] = fminf(best[k], sq_dist3(qx[k], qy[k], qz[k], s.x, s.y, s.z));
+        }
+        if (kIndex) {
+#pragma unroll
+          for (int k = 0; k < Q; ++k)
+            if (best[k] < prev[k]) chunk[k] = t0 + g * span + c;
+        }
       }
     }
   }
-  if (active) {
-    dout[n] = best;
-    if (kIndex) iout[n] = bi;
+  int bi[Q];
+#pragma unroll
+  for (int k = 0; k < Q; ++k) {
+    bi[k] = 0;
+    if (kIndex && chunk[k] >= 0) {
+      if (nt <= kTile) {  // the one tile is still staged; its padding ends at G * span
+        bi[k] = first_hit([&](int j) { return smem[j]; }, chunk[k], qx[k], qy[k], qz[k],
+                          best[k]);
+      } else {  // from L2; indices past the end repeat the last point, which comes first
+        bi[k] = first_hit(
+            [&](int j) {
+              const float* s = t + (size_t)min(j, nt - 1) * 3;
+              return make_float4(__ldg(s), __ldg(s + 1), __ldg(s + 2), 0.f);
+            },
+            chunk[k], qx[k], qy[k], qz[k], best[k]);
+      }
+    }
   }
-}
-
-__global__ void __launch_bounds__(kQ) nn_kernel(const float* __restrict__ x,
-                                                const float* __restrict__ y, int N, int M,
-                                                float* __restrict__ dist,
-                                                int* __restrict__ idx) {
-  const size_t b = blockIdx.y;
-  nn_rows<true>(x + b * N * 3, N, y + b * M * 3, M, dist + b * N, idx + b * N);
-}
-
-__global__ void __launch_bounds__(kQ) masked_pair_kernel(const float* __restrict__ pts,
-                                                         const uint8_t* __restrict__ mask,
-                                                         int P, int N,
-                                                         float* __restrict__ out) {
-  const size_t b = blockIdx.z;
-  const int i = blockIdx.y / P, j = blockIdx.y % P;
-  float* o = out + ((b * P + i) * P + j) * N;
-  if (mask[(b * P + i) * P + j] == 0) {  // uniform per block: no barrier is skipped unevenly
-    const int n = blockIdx.x * kQ + threadIdx.x;
-    if (n < N) o[n] = kInactive;
+  // merge the groups: the least distance, then the lowest index
+  if (G == 1) {  // the next item's first barrier guards the tile
+#pragma unroll
+    for (int k = 0; k < Q; ++k) {
+      const int n = n0 + l + k * kGroupThreads;
+      if (n < nq) {
+        dout[n] = best[k];
+        if (kIndex) iout[n] = bi[k];
+      }
+    }
     return;
   }
-  const float* cloud = pts + b * P * N * 3;
-  nn_rows<false>(cloud + (size_t)i * N * 3, N, cloud + (size_t)j * N * 3, N, o, nullptr);
+  float* rd = reinterpret_cast<float*>(smem);
+  int* ri = reinterpret_cast<int*>(rd + G * kQueries);
+  __syncthreads();  // the tile is no longer read
+#pragma unroll
+  for (int k = 0; k < Q; ++k) {
+    rd[g * kQueries + l + k * kGroupThreads] = best[k];
+    if (kIndex) ri[g * kQueries + l + k * kGroupThreads] = bi[k];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kQueries && n0 + i < nq; i += kThreads) {
+    float d = rd[i];
+    int j = kIndex ? ri[i] : 0;
+#pragma unroll
+    for (int h = 1; h < G; ++h) {
+      const float e = rd[h * kQueries + i];
+      if (kIndex) {
+        const int f = ri[h * kQueries + i];
+        if (e < d || (e == d && f < j)) {
+          d = e;
+          j = f;
+        }
+      } else {
+        d = fminf(d, e);
+      }
+    }
+    dout[n0 + i] = d;
+    if (kIndex) iout[n0 + i] = j;
+  }
+}
+
+template <int Q, int G>
+__global__ void __launch_bounds__(kGroupThreads * G) nn_kernel(const float* __restrict__ x,
+                                                               const float* __restrict__ y,
+                                                               int N, int M, bool cull,
+                                                               float* __restrict__ dist,
+                                                               int* __restrict__ idx) {
+  __shared__ float4 smem[Smem<Q, G>::kFloat4s];
+  __shared__ float4 boxes[2 * kBoxes];
+  const size_t b = blockIdx.y;
+  nn_block<Q, G, true>(x + b * N * 3, N, y + b * M * 3, M, blockIdx.x * Smem<Q, G>::kQueries,
+                       dist + b * N, idx + b * N, smem, boxes, cull);
+}
+
+// A persistent grid: block r writes the sentinel rows of inactive pairs r, r + grid, ...,
+// then takes the (pair, query block) items r, r + grid, ... and skips those of inactive pairs
+// (a uniform branch on one byte of the mask: no host sync, no pre-pass).
+template <int Q, int G>
+__global__ void __launch_bounds__(kGroupThreads * G) masked_pair_kernel(
+    const float* __restrict__ pts, const bool* __restrict__ mask, int B, int P, int N,
+    float* __restrict__ out) {
+  __shared__ float4 smem[Smem<Q, G>::kFloat4s];
+  constexpr int kThreads = kGroupThreads * G, kQueries = Smem<Q, G>::kQueries;
+  const int pairs = B * P * P;
+  const bool wide = (N & 3) == 0;  // rows start 16-byte aligned (out comes from the allocator)
+  for (int p = blockIdx.x; p < pairs; p += gridDim.x) {
+    if (mask[p]) continue;
+    float* o = out + (size_t)p * N;
+    if (wide) {
+      const float4 v = make_float4(kInactive, kInactive, kInactive, kInactive);
+      for (int i = threadIdx.x; i < N / 4; i += kThreads) reinterpret_cast<float4*>(o)[i] = v;
+    } else {
+      for (int i = threadIdx.x; i < N; i += kThreads) o[i] = kInactive;
+    }
+  }
+  const int blocks = ceil_div(N, kQueries);
+  for (long long w = blockIdx.x; w < (long long)pairs * blocks; w += gridDim.x) {
+    const int p = (int)(w / blocks);
+    if (!mask[p]) continue;
+    const int i = (p / P) % P, j = p % P;
+    const float* cloud = pts + (size_t)(p / (P * P)) * P * N * 3;
+    nn_block<Q, G, false>(cloud + (size_t)i * N * 3, N, cloud + (size_t)j * N * 3, N,
+                          (int)(w % blocks) * kQueries, out + (size_t)p * N, nullptr, smem,
+                          nullptr, false);
+  }
+}
+
+int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return count;
+}
+
+template <int Q, int G>
+void launch_nn(const float* x, const float* y, int B, int N, int M, bool cull, float* dist,
+               int* idx, cudaStream_t stream) {
+  const dim3 grid(ceil_div(N, Smem<Q, G>::kQueries), B);
+  nn_kernel<Q, G><<<grid, kGroupThreads * G, 0, stream>>>(x, y, N, M, cull, dist, idx);
+}
+
+template <int Q, int G>
+void launch_masked(const float* pts, const bool* mask, int B, int P, int N, float* out,
+                   cudaStream_t stream) {
+  const long long items = (long long)B * P * P * ceil_div(N, Smem<Q, G>::kQueries);
+  const int grid = (int)(items < 2LL * sm_count() ? items : 2LL * sm_count());
+  masked_pair_kernel<Q, G><<<grid, kGroupThreads * G, 0, stream>>>(pts, mask, B, P, N, out);
 }
 
 }  // namespace
 
-PFPP_EXPORT int pfpp_nn_distance(const float* x, const float* y, int B, int N, int M,
-                                 float* dist, int* idx, void* stream) {
+// The (queries a thread, target groups a block) shapes the library holds.
+#define PFPP_NN_SHAPES(X) \
+  X(2, 1) X(2, 2) X(2, 4) X(2, 8) X(4, 1) X(4, 2) X(4, 4) X(4, 8) X(8, 1) X(8, 2) X(8, 4)
+
+// Kernel N with q queries a thread and g target groups a block (ops/chamfer.py::nn_shape
+// picks them), culling by boxes when cull != 0; cudaErrorInvalidValue for a shape the library
+// does not hold.
+PFPP_EXPORT int pfpp_nn_distance(const float* x, const float* y, int B, int N, int M, int q,
+                                 int g, int cull, float* dist, int* idx, void* stream) {
   if (B == 0 || N == 0) return 0;
-  const dim3 grid((N + kQ - 1) / kQ, B);
-  nn_kernel<<<grid, kQ, 0, (cudaStream_t)stream>>>(x, y, N, M, dist, idx);
-  return (int)cudaGetLastError();
+#define PFPP_NN_LAUNCH(QQ, GG)                                                   \
+  if (q == QQ && g == GG) {                                                     \
+    launch_nn<QQ, GG>(x, y, B, N, M, cull != 0, dist, idx, (cudaStream_t)stream); \
+    return (int)cudaGetLastError();                                             \
+  }
+  PFPP_NN_SHAPES(PFPP_NN_LAUNCH)
+#undef PFPP_NN_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }
 
-PFPP_EXPORT int pfpp_masked_pairwise_nn(const float* pts, const uint8_t* mask, int B, int P,
-                                        int N, float* out, void* stream) {
+// Kernel M with q queries a thread and g target groups a block; a grid of at most two blocks
+// an SM, fewer when there are fewer (pair, query block) items.
+PFPP_EXPORT int pfpp_masked_pairwise_nn(const float* pts, const bool* mask, int B, int P,
+                                        int N, int q, int g, float* out, void* stream) {
   if (B == 0 || P == 0 || N == 0) return 0;
-  const dim3 grid((N + kQ - 1) / kQ, P * P, B);
-  masked_pair_kernel<<<grid, kQ, 0, (cudaStream_t)stream>>>(pts, mask, P, N, out);
-  return (int)cudaGetLastError();
+#define PFPP_NN_LAUNCH(QQ, GG)                                                   \
+  if (q == QQ && g == GG) {                                                     \
+    launch_masked<QQ, GG>(pts, mask, B, P, N, out, (cudaStream_t)stream);       \
+    return (int)cudaGetLastError();                                             \
+  }
+  PFPP_NN_SHAPES(PFPP_NN_LAUNCH)
+#undef PFPP_NN_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }

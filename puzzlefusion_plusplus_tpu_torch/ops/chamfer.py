@@ -4,8 +4,9 @@ versions.
 N replaces ``puzzlefusion_plusplus_tpu/ops/chamfer_pallas.py::nn_distance_pallas``
 (``_nn_kernel``) and feeds the metrics; M replaces ``chamfer_pallas.py::masked_pairwise_nn``
 (``_masked_pair_nn_kernel``) and feeds the merge step's interpenetration filter. Both compute
-squared distances from direct FP32 differences; they are bound by FP32 operations (see the
-source note). ``nn_distance`` is differentiable through ``_NNDistanceFn``, the port of the
+squared distances from direct FP32 differences, bit-equal to the plain versions; they are
+bound by instruction issue (see the source note). ``nn_shape`` and ``masked_shape`` pick the
+kernels' (queries a thread, target groups a block). ``nn_distance`` is differentiable through ``_NNDistanceFn``, the port of the
 custom VJP of ``puzzlefusion_plusplus_tpu/ops/chamfer.py::nn_distance``: the query side gets
 ``2 (x - y[idx]) g``, the target side the scatter-add of its negative (kernel B).
 """
@@ -19,6 +20,27 @@ from puzzlefusion_plusplus_tpu_torch.ops.gather import gather_points, scatter_ad
 
 INACTIVE = 3.9e12  # masked_pairwise_nn's value for pairs outside the mask
 _CHUNK_ELEMS = 1 << 25  # query chunk size of the plain version, in distance-matrix entries
+GROUP_THREADS = 64  # threads of a target group (csrc/nn.cu kGroupThreads)
+# (queries a thread, target groups a block) that csrc/nn.cu holds; chip_smoke.py times them
+SHAPES = ((2, 1), (2, 2), (2, 4), (2, 8), (4, 1), (4, 2), (4, 4), (4, 8), (8, 1), (8, 2),
+          (8, 4))
+TARGET_WARPS = 2048  # about four warps a scheduler on 132 SMs
+CULL = True  # kernel N skips 64-target runs whose bounding box cannot hold a nearer point
+
+
+def nn_shape(B: int, N: int) -> tuple[int, int]:
+    """Kernel N's (queries a thread, target groups a block) for B clouds of N queries: 4
+    queries a thread, and the fewest groups (1, 2, 4, 8) whose blocks hold TARGET_WARPS
+    warps."""
+    q = 4
+    blocks = B * -(-N // (GROUP_THREADS * q))
+    warps = GROUP_THREADS // 32 * blocks
+    return q, next((g for g in (1, 2, 4) if warps * g >= TARGET_WARPS), 8)
+
+
+def masked_shape() -> tuple[int, int]:
+    """Kernel M's shape: 8 groups, so a pair's scan of N targets is spread over 16 warps."""
+    return 4, 8
 
 
 def _sq_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -42,6 +64,17 @@ def nn_distance_plain(x: torch.Tensor, y: torch.Tensor):
     return torch.cat(dists, 1), torch.cat(idxs, 1)
 
 
+def _launch_nn(x: torch.Tensor, y: torch.Tensor, dist: torch.Tensor, idx: torch.Tensor,
+               shape: tuple[int, int] | None = None, cull: bool = CULL) -> None:
+    """Launch kernel N into ``dist``/``idx`` at ``shape`` (default ``nn_shape``), uncounted."""
+    B, N, _ = x.shape
+    q, g = shape or nn_shape(B, N)
+    code = cuda_build.function("nn", "pfpp_nn_distance")(
+        x.data_ptr(), y.data_ptr(), B, N, y.shape[1], q, g, int(cull), dist.data_ptr(),
+        idx.data_ptr(), cuda_build.stream_ptr(x))
+    cuda_build.check(code, f"nn_distance (queries a thread {q}, target groups {g})")
+
+
 def _nn_distance_forward(x: torch.Tensor, y: torch.Tensor):
     if x.device.type == "cpu":
         return nn_distance_plain(x, y)
@@ -52,12 +85,7 @@ def _nn_distance_forward(x: torch.Tensor, y: torch.Tensor):
         raise ValueError(f"bad shapes {tuple(x.shape)} / {tuple(y.shape)}")
     dist = torch.empty((B, N), dtype=torch.float32, device=x.device)
     idx = torch.empty((B, N), dtype=torch.int32, device=x.device)
-    lib = cuda_build.library("nn")
-    cuda_build.check(
-        lib.pfpp_nn_distance(x.data_ptr(), y.data_ptr(), B, N, y.shape[1], dist.data_ptr(),
-                             idx.data_ptr(), cuda_build.stream_ptr(x)),
-        "nn_distance",
-    )
+    _launch_nn(x, y, dist, idx)
     nn_distance.launches += 1
     return dist, idx
 
@@ -83,9 +111,12 @@ class _NNDistanceFn(torch.autograd.Function):
 
 def nn_distance(x: torch.Tensor, y: torch.Tensor):
     """Squared distance to, and index of, each x-point's nearest neighbour in y; kernel N on
-    CUDA tensors, differentiable in x and y. x [B, N, 3] f32, y [B, M, 3] f32 ->
-    ([B, N] f32, [B, N] int32)."""
-    return _NNDistanceFn.apply(x, y)
+    CUDA tensors, differentiable in x and y (through autograd only where a gradient is
+    needed: the Function's bookkeeping is host time the card may wait on). x [B, N, 3] f32,
+    y [B, M, 3] f32 -> ([B, N] f32, [B, N] int32)."""
+    if torch.is_grad_enabled() and (x.requires_grad or y.requires_grad):
+        return _NNDistanceFn.apply(x, y)
+    return _nn_distance_forward(x, y)
 
 
 nn_distance.launches = 0
@@ -112,16 +143,24 @@ def masked_pairwise_nn(pts: torch.Tensor, pair_mask: torch.Tensor) -> torch.Tens
     B, P, N, _ = pts.shape
     if pair_mask.shape != (B, P, P) or pair_mask.device != pts.device:
         raise ValueError("pair_mask must be [B, P, P] on pts' device")
-    mask = pair_mask.to(torch.uint8).contiguous()
+    if pair_mask.dtype != torch.bool:
+        pair_mask = pair_mask != 0
     out = torch.empty((B, P, P, N), dtype=torch.float32, device=pts.device)
-    lib = cuda_build.library("nn")
-    cuda_build.check(
-        lib.pfpp_masked_pairwise_nn(pts.data_ptr(), mask.data_ptr(), B, P, N, out.data_ptr(),
-                                    cuda_build.stream_ptr(pts)),
-        "masked_pairwise_nn",
-    )
+    _launch_masked(pts, pair_mask.contiguous(), out)
     masked_pairwise_nn.launches += 1
     return out
+
+
+def _launch_masked(pts: torch.Tensor, mask: torch.Tensor, out: torch.Tensor,
+                   shape: tuple[int, int] | None = None) -> None:
+    """Launch kernel M into ``out`` at ``shape`` (default ``masked_shape``), uncounted; the
+    kernel reads the contiguous bool mask's own bytes (0 or 1)."""
+    B, P, N, _ = pts.shape
+    q, g = shape or masked_shape()
+    code = cuda_build.function("nn", "pfpp_masked_pairwise_nn")(
+        pts.data_ptr(), mask.data_ptr(), B, P, N, q, g, out.data_ptr(),
+        cuda_build.stream_ptr(pts))
+    cuda_build.check(code, f"masked_pairwise_nn (queries a thread {q}, target groups {g})")
 
 
 masked_pairwise_nn.launches = 0

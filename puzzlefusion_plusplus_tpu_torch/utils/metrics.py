@@ -54,13 +54,20 @@ def calc_part_acc(pts, trans1, trans2, rot1, rot2, valids):
     return acc, acc_per_part, cd
 
 
+def shape_cd_clouds(pts, trans1, trans2, rot1, rot2, valids):
+    """The two whole-shape clouds of ``calc_shape_cd``: padded parts pushed to 1e3, each pose
+    applied, parts concatenated. pts [B, P, N, 3] -> ([B, P * N, 3], [B, P * N, 3])."""
+    B, P, N, _ = pts.shape
+    pts = torch.where(valids[..., None, None] == 0, torch.full_like(pts, 1e3), pts)
+    return (transform_pc(trans1, rot1, pts).reshape(B, P * N, 3),
+            transform_pc(trans2, rot2, pts).reshape(B, P * N, 3))
+
+
 def calc_shape_cd(pts, trans1, trans2, rot1, rot2, valids) -> torch.Tensor:
     """Whole-shape chamfer with padded parts pushed to 1e3: pts [B, P, N, 3] -> [B]."""
     B, P, N, _ = pts.shape
-    pts = torch.where(valids[..., None, None] == 0, torch.full_like(pts, 1e3), pts)
-    pts1 = transform_pc(trans1, rot1, pts).reshape(B, P * N, 3)
-    pts2 = transform_pc(trans2, rot2, pts).reshape(B, P * N, 3)
-    fwd, bwd = chamfer_distance_per_point(pts1, pts2)
+    fwd, bwd = chamfer_distance_per_point(
+        *shape_cd_clouds(pts, trans1, trans2, rot1, rot2, valids))
     return valid_mean((fwd + bwd).reshape(B, P, N).mean(-1), valids)
 
 

@@ -5,8 +5,9 @@ Marked ``cuda``; they skip without a card. This file imports neither JAX nor the
 so on a machine without JAX it runs with the conftest left out:
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py``.
 
-Tolerances: FPS (F and P) / gather (G and A) / NN indices and values exact (the kernels
-compute distances with the plain version's rounding, no FMA; P equals F too); S and R 1e-4
+Tolerances: FPS (F and P) / gather (G and A) / NN (N and M) indices and values exact (the
+kernels compute distances with the plain version's rounding, no FMA; P equals F too; N and M
+at every launch shape and across two launches); S and R 1e-4
 of the largest output (3xTF32 products on the tensor cores, FP32 sums in another order),
 and bit-equal across two launches (no float atomics);
 B 1e-5 of the largest sum against the plain index_add_, which adds with atomics in no fixed
@@ -37,6 +38,8 @@ from puzzlefusion_plusplus_tpu_torch.ops import fps as tfps
 from puzzlefusion_plusplus_tpu_torch.ops import gather as tga
 from puzzlefusion_plusplus_tpu_torch.ops import sa_fused as tsa
 from puzzlefusion_plusplus_tpu_torch.training import parity
+from puzzlefusion_plusplus_tpu_torch.utils.metrics import shape_cd_clouds
+from puzzlefusion_plusplus_tpu_torch.utils.transforms import quat_normalize
 
 pytestmark = pytest.mark.cuda
 
@@ -227,6 +230,95 @@ def test_nn_distance_gradient_on_card_matches_cpu(dev):
         grads.append((xd.grad.cpu(), yd.grad.cpu()))
     for a, b in zip(*grads):
         torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-6)
+
+
+def _nn_check(x, y):
+    """Kernel N at every shape csrc/nn.cu holds, with and without culling, and through its
+    wrapper twice: distances and indices bit-equal to the plain version."""
+    ref = tch.nn_distance_plain(x, y)
+    for shape in tch.SHAPES:
+        for cull in (False, True):
+            out = tuple(torch.full_like(r, -1) for r in ref)
+            tch._launch_nn(x, y, *out, shape, cull)
+            assert all(torch.equal(o, r) for o, r in zip(out, ref)), (shape, cull)
+    for _ in range(2):
+        assert all(torch.equal(o, r) for o, r in zip(tch.nn_distance(x, y), ref))
+
+
+@pytest.mark.parametrize("B", [1, 160])
+@pytest.mark.parametrize("N", [1, 31, 33, 257, 513, 1025, 4097])
+def test_nn_kernel_at_ragged_sizes_on_card(dev, B, N):
+    """N queries against M targets for every M of the same list: sizes around the queries a
+    block (64 Q), the chunk (16), the tile (1024) and a group's share of it."""
+    g = torch.Generator(device=dev).manual_seed(N)
+    x = torch.randn((B, N, 3), generator=g, device=dev)
+    for M in (1, 31, 33, 257, 513, 1025, 4097):
+        _nn_check(x, torch.randn((B, M, 3), generator=g, device=dev))
+
+
+@pytest.mark.parametrize("M", [700, 2500])  # one tile, then three with a ragged last one
+@pytest.mark.parametrize("case", ["duplicates", "query_on_targets", "identical", "grid",
+                                  "shape_cd_parts"])
+def test_nn_kernel_ties_go_to_the_lowest_index_on_card(dev, case, M):
+    g = torch.Generator(device=dev).manual_seed(M)
+    y = torch.randn((3, M, 3), generator=g, device=dev)
+    x = torch.randn((3, 300, 3), generator=g, device=dev)
+    if case == "shape_cd_parts":  # the metric's clouds: blobs of 100 points, padding at 1e3
+        P = M // 100
+        pts = 0.4 * torch.randn((3, P, 1, 3), generator=g, device=dev) + 0.05 * torch.randn(
+            (3, P, 100, 3), generator=g, device=dev)
+        valids = (torch.arange(P, device=dev) < torch.tensor([[2], [P // 2], [P]], device=dev))
+        poses = [(0.1 * torch.randn((3, P, 3), generator=g, device=dev),
+                  quat_normalize(torch.randn((3, P, 4), generator=g, device=dev)))
+                 for _ in range(2)]
+        x, y = shape_cd_clouds(pts, poses[0][0], poses[1][0], poses[0][1], poses[1][1],
+                               valids.float())
+    if case == "duplicates":  # a third of the targets copied over others, across chunks
+        src = torch.randint(0, M, (M // 3,), generator=g, device=dev)
+        dst = torch.randint(0, M, (M // 3,), generator=g, device=dev)
+        y[:, dst] = y[:, src]
+    elif case == "query_on_targets":  # each query equal to four targets in four tiles/chunks
+        for k in range(4):
+            y[:, k * (M // 4) + 5 : k * (M // 4) + 5 + 100] = x[:, :100]
+    elif case == "identical":  # every distance ties
+        x, y = torch.ones_like(x), torch.ones_like(y)
+    else:  # integer points: many exact distance ties
+        x, y = (2 * x).round(), (2 * y).round()
+    _nn_check(x, y)
+
+
+@pytest.mark.parametrize("case", ["none_active", "all_active", "asymmetric", "odd_n"])
+def test_masked_pairwise_kernel_matches_plain_on_card(dev, case):
+    """Kernel M at every shape, bit-equal to the plain version and across two launches; the
+    mask passes as the bool tensor's own bytes, also from a non-contiguous view."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    B, P, N = (2, 5, 303) if case == "odd_n" else (3, 6, 1000)
+    pts = 0.3 * torch.randn((B, P, N, 3), generator=g, device=dev)
+    if case == "none_active":
+        pm = torch.zeros((B, P, P), dtype=torch.bool, device=dev)
+    elif case == "all_active":
+        pm = torch.ones((B, P, P), dtype=torch.bool, device=dev)
+    else:
+        pm = (torch.rand((B, P, P), generator=g, device=dev) < 0.3).transpose(1, 2)
+    ref = tch.masked_pairwise_nn_plain(pts, pm)
+    for shape in tch.SHAPES:
+        out = torch.full_like(ref, -1)
+        tch._launch_masked(pts, pm.contiguous(), out, shape)
+        assert torch.equal(out, ref), shape
+    for _ in range(2):
+        assert torch.equal(tch.masked_pairwise_nn(pts, pm), ref)
+    assert torch.equal(tch.masked_pairwise_nn(pts, pm.to(torch.uint8)), ref)
+
+
+def test_nn_launches_refuse_a_shape_they_do_not_hold(dev):
+    x = torch.randn((1, 10, 3), device=dev)
+    d, i = torch.empty((1, 10), device=dev), torch.empty((1, 10), dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tch._launch_nn(x, x, d, i, (3, 1))
+    pts = torch.randn((1, 2, 10, 3), device=dev)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tch._launch_masked(pts, torch.ones((1, 2, 2), dtype=torch.bool, device=dev),
+                           torch.empty((1, 2, 2, 10), device=dev), (8, 8))
 
 
 def test_training_step_on_card_matches_cpu(dev, tmp_path):

@@ -296,6 +296,46 @@ def test_nn_distance_plain_chunks_queries(monkeypatch):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("M", [100, 1500])  # one 1024-point tile of the kernel, then two
+def test_nn_distance_plain_ties_go_to_the_lowest_index(M):
+    """The tie rule kernel N's chunk rescan keeps: with exact duplicates, some 32 and some
+    512 points apart (other chunks and tiles), and queries on duplicated targets, the plain
+    version's distances equal numpy's in the kernels' order and its indices numpy's
+    first-index argmin."""
+    rng = np.random.default_rng(M)
+    y = rng.normal(size=(2, M, 3)).astype(np.float32)
+    for gap in (g for g in (1, 32, 512, M // 2) if g < M):
+        src = rng.integers(0, M - gap, size=M // 8)
+        y[:, src + gap] = y[:, src]
+    x = np.concatenate([rng.normal(size=(2, 50, 3)).astype(np.float32), y[:, ::7]], 1)
+    diff = x[:, :, None] - y[:, None]
+    d = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1] + diff[..., 2] * diff[..., 2]
+    td, ti = tch.nn_distance_plain(T(x), T(y))
+    np.testing.assert_array_equal(td.numpy(), d.min(-1))
+    np.testing.assert_array_equal(ti.numpy(), d.argmin(-1))
+    ties = (d == d.min(-1, keepdims=True)).sum(-1) > 1
+    assert ties.sum() > 10  # the rule is exercised
+
+
+def test_nn_kernel_shapes_match_the_source_and_the_rule():
+    """ops/chamfer.py's SHAPES is the list csrc/nn.cu instantiates; nn_shape picks from it the
+    fewest groups that give TARGET_WARPS warps (8 when none does), masked_shape is in it."""
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(tch.__file__), "..", "csrc", "nn.cu")).read()
+    macro = re.search(r"#define PFPP_NN_SHAPES\(X\)(.*?)\n\n", src, re.S).group(1)
+    shapes = tuple((int(a), int(b)) for a, b in re.findall(r"X\((\d+), (\d+)\)", macro))
+    assert shapes == tch.SHAPES
+    assert tch.masked_shape() in shapes
+    for B, N, want in ((96, 1000, 4), (160, 1000, 2), (8, 20000, 2), (8, 12000, 4),
+                       (1, 10, 8), (1000, 5000, 1)):
+        q, g = tch.nn_shape(B, N)
+        assert (q, g) in shapes and g == want, (B, N, q, g)
+        warps = 2 * g * B * -(-N // (64 * q))
+        assert warps >= tch.TARGET_WARPS or g == 8
+
+
 def test_masked_pairwise_nn_matches_pallas_interpret():
     rng = np.random.default_rng(6)
     P, N = 4, 300  # N not a tile multiple
