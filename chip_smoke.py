@@ -19,11 +19,11 @@ Phases, each printing one JSON object per line (with its seconds):
                shape_cd_clouds``) and M also at the b8 merge's pad (B = 8, P = 12); their
                records add under ``computed`` the issue-slot bound (8 unfused FP32
                operations a pair, one slot each on 128 lanes an SM at the max SM clock that
-               nvidia-smi reports), the measured slots a pair and the launch shape; A and S also run at
-               the denoiser's frozen-encode shapes (M = 1280) and B with every row to one
-               index, all listed under ``per_shape`` and left out of the step's sum. S and
-               R compute in 3xTF32 on the tensor cores: their ``bound_ms`` counts three TF32
-               MMAs per product at 495 TFLOP/s. Their per-shape records add, under
+               nvidia-smi reports), the measured slots a pair and the launch shape. A and S
+               also run at the denoiser's frozen-encode shapes (M = 1280) and B with every
+               row to one index, all listed under ``per_shape`` and left out of the step's
+               sum. S and R compute in 3xTF32 on the tensor cores: their ``bound_ms`` counts
+               three TF32 MMAs per product at 495 TFLOP/s. Their per-shape records add, under
                ``computed`` (worked out, not measured), the same work's bound on the CUDA
                cores (``bound_fp32_ms``), the kernel's rows per block and the weight bytes its
                blocks read from L2 (``l2_weight_bytes``, and with 64-row blocks). Both must
@@ -36,8 +36,9 @@ Phases, each printing one JSON object per line (with its seconds):
                each beside the shape the wrapper picks (``ops/fps.py::cluster_shape``).
  2c. nn_shapes — N and M at every (queries a thread, target groups a block) shape that
                ``csrc/nn.cu`` holds, at phase 2's inputs, each bit-equal to the plain
-               version: the bare launch's ms of each beside the shape the wrapper picks
-               (``ops/chamfer.py::nn_shape``, ``masked_shape``).
+               version: the bare launch's ms of each beside the shape the wrapper launches
+               (``ops/chamfer.py::nn_shape``, ``MASKED_SHAPE``), and the SM clock and power
+               while N runs about a second at [8,20000].
   3. engine  — the full-width engine (``Config()`` defaults: VQ-VAE 1000 pts / 25x64 tokens /
                1024x16 codebook, denoiser 512/6/8, verifier 256/6/8, 6 iterations x 20 steps,
                fp32, batch 8) on 8 synthetic shapes of 3-12 parts (seed 7) through
@@ -219,6 +220,44 @@ def bound_3xtf32(nbytes: float, flops: float) -> tuple[float, str]:
 # ------------------------------------------------------------------------------- phases
 
 
+def sass_inner_loops(lib_path: str) -> dict:
+    """Per kernel of N and M in a built library: the instructions of its innermost loop that
+    computes distances (the smallest backward branch whose body holds FMULs) per pair, a pair
+    being 3 FMULs (``cuobjdump -sass``); {} without cuobjdump."""
+    import re
+    from collections import Counter
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    out = {}
+    for body in sass.split("Function : ")[1:]:
+        name = re.search(r"(nn_kernel|masked_pair_kernel)(?:ILi(\d)ELi(\d)E)?", body)
+        if name is None:
+            continue
+        ins = []  # (address, opcode, branch target or None)
+        for a, text in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body):
+            op = re.sub(r"^@!?U?P\w+\s+", "", text).split(" ")[0].split(".")[0]
+            target = re.search(r"0x([0-9a-f]+)", text) if op == "BRA" else None
+            ins.append((int(a, 16), op, int(target.group(1), 16) if target else None))
+        at = {a: k for k, (a, _, _) in enumerate(ins)}
+        loops = []
+        for k, (a, op, target) in enumerate(ins):
+            if target is not None and target < a and target in at:
+                ops = Counter(o for _, o, _ in ins[at[target]:k + 1])
+                if ops["FMUL"] >= 3:
+                    loops.append((k + 1 - at[target], ops))
+        if loops:
+            n, ops = min(loops, key=lambda lo: lo[0])
+            key = name.group(1) + ("<{},{}>".format(*name.group(2, 3)) if name.group(2) else "")
+            out[key] = {"loop_instructions": n, "pairs": ops["FMUL"] // 3,
+                        "instructions_a_pair": 3 * n / ops["FMUL"],
+                        "by_op": dict(ops.most_common(8))}
+    return out
+
+
 def phase_build() -> None:
     from puzzlefusion_plusplus_tpu_torch.ops import cuda_build
 
@@ -235,7 +274,8 @@ def phase_build() -> None:
     card = card_line()
     print(card, flush=True)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "per_source_seconds": cuda_build.build_seconds, "card": card, "ptxas": ptxas})
+          "per_source_seconds": cuda_build.build_seconds, "card": card, "ptxas": ptxas,
+          "nn_sass": sass_inner_loops(os.path.join(cuda_build.BUILD_DIR, "libnn.so"))})
 
 
 def _check(ok: bool, what: str) -> None:
@@ -509,8 +549,7 @@ def phase_kernels(results: dict) -> None:
                4 * (2 * B * N * 3 + 2 * B * N), 8.0 * B * N * N,
                library_ms=cuda_ms(lambda: torch.cdist(x, y).min(-1), 3), path=path,
                kernel_ms=kernel_ms, kernel_graph_ms=graph_ms(bare, 5), bit_equal=match,
-               computed={**issue(B * N * N, kernel_ms, *chamfer.nn_shape(B, N)),
-                         "cull": chamfer.CULL},
+               computed=issue(B * N * N, kernel_ms, *chamfer.nn_shape(N)),
                seconds=time.perf_counter() - t0)
     # A: the feature gathers of one training step's SA2 and SA3 at M = 160 clouds, then of
     # the denoiser step's frozen encode at M = 1280 (listed apart from the step's sum)
@@ -587,7 +626,7 @@ def phase_kernels(results: dict) -> None:
                4 * (B * P * N * 3 + B * P * P * N) + B * P * P, 8.0 * len(pairs) * N * N,
                library_ms=cuda_ms(lambda: torch.cdist(xa, xb).min(-1), 20),
                kernel_ms=kernel_ms, kernel_graph_ms=graph_ms(bare, 20), bit_equal=match,
-               computed=issue(len(pairs) * N * N, kernel_ms, *chamfer.masked_shape()),
+               computed=issue(len(pairs) * N * N, kernel_ms, *chamfer.MASKED_SHAPE),
                seconds=time.perf_counter() - t0)
     torch.cuda.empty_cache()  # the plain versions at M = 1280 held tens of GB
 
@@ -641,23 +680,19 @@ def phase_nn_shapes() -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
 
-    def time_shapes(name, label, launch, out, ref, chosen, culls=(False,)):
+    def time_shapes(name, label, launch, out, ref, chosen):
         t0 = time.perf_counter()
         times = {}
         for shape in chamfer.SHAPES:
-            for cull in culls:
-                for o in out:
-                    o.fill_(-1)
-                launch(shape, cull)
-                _check(all(torch.equal(o, r) for o, r in zip(out, ref)),
-                       f"{name} {label} at {shape}, cull {cull}: differs from the plain "
-                       "version")
-                key = f"q={shape[0]},g={shape[1]}" + (",cull" if cull else "")
-                times[key] = cuda_ms(lambda: launch(shape, cull), 5)
+            for o in out:
+                o.fill_(-1)
+            launch(shape)
+            _check(all(torch.equal(o, r) for o, r in zip(out, ref)),
+                   f"{name} {label} at {shape}: differs from the plain version")
+            times[f"q={shape[0]},g={shape[1]}"] = cuda_ms(lambda: launch(shape), 5)
         emit({"phase": "nn_shapes", "kernel": name, "shape": label, "ms_by_shape": times,
-              "chosen": "q={},g={}".format(*chosen) + (",cull" if chamfer.CULL and
-                                                        len(culls) > 1 else ""),
-              "fastest": min(times, key=times.get), "seconds": time.perf_counter() - t0})
+              "chosen": "q={},g={}".format(*chosen), "fastest": min(times, key=times.get),
+              "seconds": time.perf_counter() - t0})
 
     for B, N, engine_shaped in ((96, 1000, False), (8, 12000, True), (8, 20000, False),
                                 (160, 1000, False)):
@@ -667,8 +702,8 @@ def phase_nn_shapes() -> None:
         ref = chamfer.nn_distance_plain(x, y)
         out = tuple(torch.empty_like(r) for r in ref)
         time_shapes("N", f"[{B},{N}]^2" + (" engine-shaped" if engine_shaped else ""),
-                    lambda shape, cull: chamfer._launch_nn(x, y, *out, shape, cull), out, ref,
-                    chamfer.nn_shape(B, N), (False, True))
+                    lambda shape: chamfer._launch_nn(x, y, *out, shape), out, ref,
+                    chamfer.nn_shape(N))
         if N == 20000:  # the SM clock and power while N runs about a second at this shape
             smi = subprocess.Popen(
                 ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
@@ -689,8 +724,8 @@ def phase_nn_shapes() -> None:
         ref = (chamfer.masked_pairwise_nn_plain(pts, mask),)
         out = (torch.empty_like(ref[0]),)
         time_shapes("M", f"B={B} P={P} N=1000, {active} active pairs",
-                    lambda shape, _: chamfer._launch_masked(pts, mask, out[0], shape), out,
-                    ref, chamfer.masked_shape())
+                    lambda shape: chamfer._launch_masked(pts, mask, out[0], shape), out, ref,
+                    chamfer.MASKED_SHAPE)
 
 
 def _full_config(data_root: str):

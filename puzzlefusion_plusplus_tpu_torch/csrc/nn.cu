@@ -16,7 +16,7 @@
 // sq_dist3 and its share of loads and bookkeeping, and nothing else on the card is close to
 // saturated: the clouds are read once per block from L2, and a tile of targets feeds
 // thousands of pairs. The design cuts the issue slots a pair takes from about 14 to about 9:
-// * Q queries a thread (a template parameter, 2 to 8), in registers. Targets are staged in
+// * Q queries a thread (a template parameter, 2 or 4), in registers. Targets are staged in
 //   shared memory as float4 (x, y, z, pad), so one broadcast 128-bit load feeds Q pairs.
 // * Only a min in the inner loop: best = fminf(best, d), one FMNMX. The index is recovered
 //   from chunks of kChunk targets: after each chunk a query records the chunk's first index
@@ -30,7 +30,10 @@
 //   holds the block's 64 * Q queries and scans its own contiguous share of every tile, in
 //   ascending order. At the end the groups' (distance, index) pairs are merged
 //   lexicographically in shared memory, which is exact because "min, then lowest index" is
-//   associative. Groups multiply the warps of small batches ([96, 1000] has 96 * 4 blocks).
+//   associative. Groups multiply the warps of small batches. N launches Q = 2, G = 1 when the
+//   targets fit one tile, else Q = 4, G = 2 (4 warps a block of 256 queries); M launches
+//   Q = 2, G = 4 (8 warps a block of 128 queries, so one pair of 1000-point parts spreads
+//   over 64 warps, each scanning 256 targets).
 // The ragged edge of a tile is padded with +inf points, which never lower a best and never
 // equal one that fell. M runs the same scan without the index (a min is exact in any order)
 // over the active (pair, query block) items of a persistent grid, which finds the active
@@ -42,18 +45,16 @@ namespace {
 constexpr int kGroupThreads = 64;  // threads of one target group
 constexpr int kTile = 1024;        // target points a shared-memory tile (float4: 16 KB)
 constexpr int kChunk = 16;         // targets between two records of where a best fell
-constexpr int kCull = 64;          // targets under one bounding box of the culling test
-constexpr int kBoxes = 32;         // boxes a tile: at most G * ceil(span / kCull) <= 16 + G
 constexpr float kInactive = 3.9e12f;
 
 __host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
-// Shared memory of a block: the target tile, then (aliased) the groups' (best, index) records.
+// Queries a block; the block's shared memory is one target tile, which the groups' (best,
+// index) records reuse at the end (a float and an int each).
 template <int Q, int G>
-struct Smem {
-  static constexpr int kQueries = kGroupThreads * Q;  // queries a block
-  static constexpr int kRecordFloat4s = G * kQueries / 2;  // a float and an int each
-  static constexpr int kFloat4s = kTile > kRecordFloat4s ? kTile : kRecordFloat4s;
+struct Block {
+  static constexpr int kQueries = kGroupThreads * Q;
+  static_assert(G * kQueries * 8 <= kTile * 16, "the records must fit the tile");
 };
 
 // The first index in [c0, c0 + kChunk) whose target lies at `best` from (x, y, z); targets
@@ -70,61 +71,31 @@ __device__ __forceinline__ int first_hit(At at, int c0, float x, float y, float 
   return hit;
 }
 
-// A lower bound of sq_dist3 over every pair of points in two boxes: the per-axis gaps go
-// through the same rounded operations, and rounding is monotone, so it never exceeds a pair's
-// rounded distance (NaN gaps count as 0; an empty box, lo > hi, is at +inf).
-__device__ __forceinline__ float box_bound(float4 alo, float4 ahi, float4 blo, float4 bhi) {
-  const float gx = fmaxf(fmaxf(__fsub_rn(blo.x, ahi.x), __fsub_rn(alo.x, bhi.x)), 0.f);
-  const float gy = fmaxf(fmaxf(__fsub_rn(blo.y, ahi.y), __fsub_rn(alo.y, bhi.y)), 0.f);
-  const float gz = fmaxf(fmaxf(__fsub_rn(blo.z, ahi.z), __fsub_rn(alo.z, bhi.z)), 0.f);
-  return __fadd_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)), __fmul_rn(gz, gz));
-}
-
-__device__ __forceinline__ float4 min4(float4 a, float4 b) {
-  return make_float4(fminf(a.x, b.x), fminf(a.y, b.y), fminf(a.z, b.z), 0.f);
-}
-
-__device__ __forceinline__ float4 max4(float4 a, float4 b) {
-  return make_float4(fmaxf(a.x, b.x), fmaxf(a.y, b.y), fmaxf(a.z, b.z), 0.f);
-}
-
 // One block's 64 * Q queries [n0, n0 + 64 * Q) of q (nq points) against all nt targets of t:
 // writes the min squared distance to dout[n] and, with kIndex, the lowest index reaching it
-// to iout[n]. Every thread of the block calls it (it holds barriers). With cull, a warp skips
-// kCull targets of its share when the box bound from each lane's queries to those targets is
-// at least the lane's largest best, in every lane: no target there can lower a best, and one
-// at an equal distance has a higher index than the one that set it, so the result is exact.
+// to iout[n]. Every thread of the block calls it (it holds barriers).
 template <int Q, int G, bool kIndex>
 __device__ __forceinline__ void nn_block(const float* __restrict__ q, int nq,
                                          const float* __restrict__ t, int nt, int n0,
                                          float* __restrict__ dout, int* __restrict__ iout,
-                                         float4* smem, float4* boxes, bool cull) {
-  constexpr int kThreads = kGroupThreads * G, kQueries = Smem<Q, G>::kQueries;
+                                         float4* smem) {
+  constexpr int kThreads = kGroupThreads * G, kQueries = Block<Q, G>::kQueries;
   const int g = threadIdx.x / kGroupThreads, l = threadIdx.x % kGroupThreads;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float qx[Q], qy[Q], qz[Q], best[Q];
   int chunk[Q];
-  bool in[Q];
-  float4 qlo = make_float4(INFINITY, INFINITY, INFINITY, 0.f);  // the lane's queries' box
-  float4 qhi = make_float4(-INFINITY, -INFINITY, -INFINITY, 0.f);
 #pragma unroll
   for (int k = 0; k < Q; ++k) {
     const int n = n0 + l + k * kGroupThreads;
-    in[k] = n < nq;
-    qx[k] = in[k] ? q[(size_t)n * 3 + 0] : 0.f;
-    qy[k] = in[k] ? q[(size_t)n * 3 + 1] : 0.f;
-    qz[k] = in[k] ? q[(size_t)n * 3 + 2] : 0.f;
+    const bool in = n < nq;
+    qx[k] = in ? q[(size_t)n * 3 + 0] : 0.f;
+    qy[k] = in ? q[(size_t)n * 3 + 1] : 0.f;
+    qz[k] = in ? q[(size_t)n * 3 + 2] : 0.f;
     best[k] = INFINITY;
     chunk[k] = -1;
-    if (in[k]) {
-      qlo = min4(qlo, make_float4(qx[k], qy[k], qz[k], 0.f));
-      qhi = max4(qhi, make_float4(qx[k], qy[k], qz[k], 0.f));
-    }
   }
   for (int t0 = 0; t0 < nt; t0 += kTile) {
     const int cnt = min(kTile, nt - t0);
     const int span = ceil_div(ceil_div(cnt, G), kChunk) * kChunk;  // a group's targets
-    const int per = ceil_div(span, kCull);                          // boxes a group
     __syncthreads();  // the previous tile (or item's records) is no longer read
     for (int j = threadIdx.x; j < G * span; j += kThreads) {
       float4 p = make_float4(INFINITY, INFINITY, INFINITY, 0.f);
@@ -135,55 +106,22 @@ __device__ __forceinline__ void nn_block(const float* __restrict__ q, int nq,
       smem[j] = p;
     }
     __syncthreads();
-    if (cull) {  // a box of the real targets of each kCull-run of a group's share, a warp each
-      for (int b = warp; b < G * per; b += kThreads / 32) {
-        const int a = (b / per) * span + (b % per) * kCull;
-        const int e = min(min(a + kCull, (b / per + 1) * span), cnt);
-        float4 lo = make_float4(INFINITY, INFINITY, INFINITY, 0.f);
-        float4 hi = make_float4(-INFINITY, -INFINITY, -INFINITY, 0.f);
-        for (int j = a + lane; j < e; j += 32) {
-          lo = min4(lo, smem[j]);
-          hi = max4(hi, smem[j]);
-        }
+    const float4* p = smem + g * span;
+    for (int c = 0; c < span; c += kChunk, p += kChunk) {
+      float prev[Q];
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1) {
-          lo = min4(lo, make_float4(__shfl_xor_sync(~0u, lo.x, o), __shfl_xor_sync(~0u, lo.y, o),
-                                    __shfl_xor_sync(~0u, lo.z, o), 0.f));
-          hi = max4(hi, make_float4(__shfl_xor_sync(~0u, hi.x, o), __shfl_xor_sync(~0u, hi.y, o),
-                                    __shfl_xor_sync(~0u, hi.z, o), 0.f));
-        }
-        if (lane == 0) {
-          boxes[2 * b] = lo;
-          boxes[2 * b + 1] = hi;
-        }
+      for (int k = 0; k < Q; ++k) prev[k] = best[k];
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        const float4 s = p[j];  // one broadcast load for Q pairs
+#pragma unroll
+        for (int k = 0; k < Q; ++k)
+          best[k] = fminf(best[k], sq_dist3(qx[k], qy[k], qz[k], s.x, s.y, s.z));
       }
-      __syncthreads();
-    }
-    for (int m = 0; m < span; m += kCull) {
-      if (cull) {
-        float mb = -INFINITY;  // the lane's largest best (no query: every target is skipped)
+      if (kIndex) {
 #pragma unroll
-        for (int k = 0; k < Q; ++k) mb = in[k] ? fmaxf(mb, best[k]) : mb;
-        const int b = 2 * (g * per + m / kCull);
-        if (__all_sync(~0u, box_bound(qlo, qhi, boxes[b], boxes[b + 1]) >= mb)) continue;
-      }
-      const float4* p = smem + g * span + m;
-      for (int c = m; c < min(m + kCull, span); c += kChunk, p += kChunk) {
-        float prev[Q];
-#pragma unroll
-        for (int k = 0; k < Q; ++k) prev[k] = best[k];
-#pragma unroll
-        for (int j = 0; j < kChunk; ++j) {
-          const float4 s = p[j];  // one broadcast load for Q pairs
-#pragma unroll
-          for (int k = 0; k < Q; ++k)
-            best[k] = fminf(best[k], sq_dist3(qx[k], qy[k], qz[k], s.x, s.y, s.z));
-        }
-        if (kIndex) {
-#pragma unroll
-          for (int k = 0; k < Q; ++k)
-            if (best[k] < prev[k]) chunk[k] = t0 + g * span + c;
-        }
+        for (int k = 0; k < Q; ++k)
+          if (best[k] < prev[k]) chunk[k] = t0 + g * span + c;
       }
     }
   }
@@ -250,14 +188,13 @@ __device__ __forceinline__ void nn_block(const float* __restrict__ q, int nq,
 template <int Q, int G>
 __global__ void __launch_bounds__(kGroupThreads * G) nn_kernel(const float* __restrict__ x,
                                                                const float* __restrict__ y,
-                                                               int N, int M, bool cull,
+                                                               int N, int M,
                                                                float* __restrict__ dist,
                                                                int* __restrict__ idx) {
-  __shared__ float4 smem[Smem<Q, G>::kFloat4s];
-  __shared__ float4 boxes[2 * kBoxes];
+  __shared__ float4 smem[kTile];
   const size_t b = blockIdx.y;
-  nn_block<Q, G, true>(x + b * N * 3, N, y + b * M * 3, M, blockIdx.x * Smem<Q, G>::kQueries,
-                       dist + b * N, idx + b * N, smem, boxes, cull);
+  nn_block<Q, G, true>(x + b * N * 3, N, y + b * M * 3, M, blockIdx.x * Block<Q, G>::kQueries,
+                       dist + b * N, idx + b * N, smem);
 }
 
 // A persistent grid: block r writes the sentinel rows of inactive pairs r, r + grid, ...,
@@ -267,8 +204,8 @@ template <int Q, int G>
 __global__ void __launch_bounds__(kGroupThreads * G) masked_pair_kernel(
     const float* __restrict__ pts, const bool* __restrict__ mask, int B, int P, int N,
     float* __restrict__ out) {
-  __shared__ float4 smem[Smem<Q, G>::kFloat4s];
-  constexpr int kThreads = kGroupThreads * G, kQueries = Smem<Q, G>::kQueries;
+  __shared__ float4 smem[kTile];
+  constexpr int kThreads = kGroupThreads * G, kQueries = Block<Q, G>::kQueries;
   const int pairs = B * P * P;
   const bool wide = (N & 3) == 0;  // rows start 16-byte aligned (out comes from the allocator)
   for (int p = blockIdx.x; p < pairs; p += gridDim.x) {
@@ -288,8 +225,7 @@ __global__ void __launch_bounds__(kGroupThreads * G) masked_pair_kernel(
     const int i = (p / P) % P, j = p % P;
     const float* cloud = pts + (size_t)(p / (P * P)) * P * N * 3;
     nn_block<Q, G, false>(cloud + (size_t)i * N * 3, N, cloud + (size_t)j * N * 3, N,
-                          (int)(w % blocks) * kQueries, out + (size_t)p * N, nullptr, smem,
-                          nullptr, false);
+                          (int)(w % blocks) * kQueries, out + (size_t)p * N, nullptr, smem);
   }
 }
 
@@ -304,16 +240,16 @@ int sm_count() {
 }
 
 template <int Q, int G>
-void launch_nn(const float* x, const float* y, int B, int N, int M, bool cull, float* dist,
-               int* idx, cudaStream_t stream) {
-  const dim3 grid(ceil_div(N, Smem<Q, G>::kQueries), B);
-  nn_kernel<Q, G><<<grid, kGroupThreads * G, 0, stream>>>(x, y, N, M, cull, dist, idx);
+void launch_nn(const float* x, const float* y, int B, int N, int M, float* dist, int* idx,
+               cudaStream_t stream) {
+  const dim3 grid(ceil_div(N, Block<Q, G>::kQueries), B);
+  nn_kernel<Q, G><<<grid, kGroupThreads * G, 0, stream>>>(x, y, N, M, dist, idx);
 }
 
 template <int Q, int G>
 void launch_masked(const float* pts, const bool* mask, int B, int P, int N, float* out,
                    cudaStream_t stream) {
-  const long long items = (long long)B * P * P * ceil_div(N, Smem<Q, G>::kQueries);
+  const long long items = (long long)B * P * P * ceil_div(N, Block<Q, G>::kQueries);
   const int grid = (int)(items < 2LL * sm_count() ? items : 2LL * sm_count());
   masked_pair_kernel<Q, G><<<grid, kGroupThreads * G, 0, stream>>>(pts, mask, B, P, N, out);
 }
@@ -321,18 +257,16 @@ void launch_masked(const float* pts, const bool* mask, int B, int P, int N, floa
 }  // namespace
 
 // The (queries a thread, target groups a block) shapes the library holds.
-#define PFPP_NN_SHAPES(X) \
-  X(2, 1) X(2, 2) X(2, 4) X(2, 8) X(4, 1) X(4, 2) X(4, 4) X(4, 8) X(8, 1) X(8, 2) X(8, 4)
+#define PFPP_NN_SHAPES(X) X(2, 1) X(2, 2) X(2, 4) X(2, 8) X(4, 1) X(4, 2) X(4, 4) X(4, 8)
 
-// Kernel N with q queries a thread and g target groups a block (ops/chamfer.py::nn_shape
-// picks them), culling by boxes when cull != 0; cudaErrorInvalidValue for a shape the library
-// does not hold.
+// Kernel N with q queries a thread and g target groups a block (ops/chamfer.py::nn_shape);
+// cudaErrorInvalidValue for a shape the library does not hold.
 PFPP_EXPORT int pfpp_nn_distance(const float* x, const float* y, int B, int N, int M, int q,
-                                 int g, int cull, float* dist, int* idx, void* stream) {
+                                 int g, float* dist, int* idx, void* stream) {
   if (B == 0 || N == 0) return 0;
 #define PFPP_NN_LAUNCH(QQ, GG)                                                   \
   if (q == QQ && g == GG) {                                                     \
-    launch_nn<QQ, GG>(x, y, B, N, M, cull != 0, dist, idx, (cudaStream_t)stream); \
+    launch_nn<QQ, GG>(x, y, B, N, M, dist, idx, (cudaStream_t)stream);          \
     return (int)cudaGetLastError();                                             \
   }
   PFPP_NN_SHAPES(PFPP_NN_LAUNCH)
@@ -340,8 +274,8 @@ PFPP_EXPORT int pfpp_nn_distance(const float* x, const float* y, int B, int N, i
   return (int)cudaErrorInvalidValue;
 }
 
-// Kernel M with q queries a thread and g target groups a block; a grid of at most two blocks
-// an SM, fewer when there are fewer (pair, query block) items.
+// Kernel M with q queries a thread and g target groups a block (ops/chamfer.py::MASKED_SHAPE);
+// a grid of at most two blocks an SM, fewer when there are fewer (pair, query block) items.
 PFPP_EXPORT int pfpp_masked_pairwise_nn(const float* pts, const bool* mask, int B, int P,
                                         int N, int q, int g, float* out, void* stream) {
   if (B == 0 || P == 0 || N == 0) return 0;

@@ -5,9 +5,10 @@ N replaces ``puzzlefusion_plusplus_tpu/ops/chamfer_pallas.py::nn_distance_pallas
 (``_nn_kernel``) and feeds the metrics; M replaces ``chamfer_pallas.py::masked_pairwise_nn``
 (``_masked_pair_nn_kernel``) and feeds the merge step's interpenetration filter. Both compute
 squared distances from direct FP32 differences, bit-equal to the plain versions; they are
-bound by instruction issue (see the source note). ``nn_shape`` and ``masked_shape`` pick the
-kernels' (queries a thread, target groups a block). ``nn_distance`` is differentiable through ``_NNDistanceFn``, the port of the
-custom VJP of ``puzzlefusion_plusplus_tpu/ops/chamfer.py::nn_distance``: the query side gets
+bound by instruction issue (see the source note). ``nn_shape`` and ``MASKED_SHAPE`` give the
+kernels' (queries a thread, target groups a block). ``nn_distance`` is differentiable through
+``_NNDistanceFn``, the port of the custom VJP of
+``puzzlefusion_plusplus_tpu/ops/chamfer.py::nn_distance``: the query side gets
 ``2 (x - y[idx]) g``, the target side the scatter-add of its negative (kernel B).
 """
 
@@ -20,27 +21,18 @@ from puzzlefusion_plusplus_tpu_torch.ops.gather import gather_points, scatter_ad
 
 INACTIVE = 3.9e12  # masked_pairwise_nn's value for pairs outside the mask
 _CHUNK_ELEMS = 1 << 25  # query chunk size of the plain version, in distance-matrix entries
-GROUP_THREADS = 64  # threads of a target group (csrc/nn.cu kGroupThreads)
 # (queries a thread, target groups a block) that csrc/nn.cu holds; chip_smoke.py times them
-SHAPES = ((2, 1), (2, 2), (2, 4), (2, 8), (4, 1), (4, 2), (4, 4), (4, 8), (8, 1), (8, 2),
-          (8, 4))
-TARGET_WARPS = 2048  # about four warps a scheduler on 132 SMs
-CULL = True  # kernel N skips 64-target runs whose bounding box cannot hold a nearer point
+SHAPES = ((2, 1), (2, 2), (2, 4), (2, 8), (4, 1), (4, 2), (4, 4), (4, 8))
+TILE = 1024  # target points a shared-memory tile (csrc/nn.cu kTile)
+# Launch shapes from chip_smoke.py's nn_shapes phase on an H100 (PERF.md section 6): N's
+# fastest or within 1% of it at each kernels-phase shape, M's fastest at both of its shapes
+MASKED_SHAPE = (2, 4)
 
 
-def nn_shape(B: int, N: int) -> tuple[int, int]:
-    """Kernel N's (queries a thread, target groups a block) for B clouds of N queries: 4
-    queries a thread, and the fewest groups (1, 2, 4, 8) whose blocks hold TARGET_WARPS
-    warps."""
-    q = 4
-    blocks = B * -(-N // (GROUP_THREADS * q))
-    warps = GROUP_THREADS // 32 * blocks
-    return q, next((g for g in (1, 2, 4) if warps * g >= TARGET_WARPS), 8)
-
-
-def masked_shape() -> tuple[int, int]:
-    """Kernel M's shape: 8 groups, so a pair's scan of N targets is spread over 16 warps."""
-    return 4, 8
+def nn_shape(M: int) -> tuple[int, int]:
+    """Kernel N's (queries a thread, target groups) for M targets: (2, 1) when they fit one
+    tile, else (4, 2)."""
+    return (2, 1) if M <= TILE else (4, 2)
 
 
 def _sq_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -65,13 +57,13 @@ def nn_distance_plain(x: torch.Tensor, y: torch.Tensor):
 
 
 def _launch_nn(x: torch.Tensor, y: torch.Tensor, dist: torch.Tensor, idx: torch.Tensor,
-               shape: tuple[int, int] | None = None, cull: bool = CULL) -> None:
+               shape: tuple[int, int] | None = None) -> None:
     """Launch kernel N into ``dist``/``idx`` at ``shape`` (default ``nn_shape``), uncounted."""
     B, N, _ = x.shape
-    q, g = shape or nn_shape(B, N)
+    q, g = shape or nn_shape(y.shape[1])
     code = cuda_build.function("nn", "pfpp_nn_distance")(
-        x.data_ptr(), y.data_ptr(), B, N, y.shape[1], q, g, int(cull), dist.data_ptr(),
-        idx.data_ptr(), cuda_build.stream_ptr(x))
+        x.data_ptr(), y.data_ptr(), B, N, y.shape[1], q, g, dist.data_ptr(), idx.data_ptr(),
+        cuda_build.stream_ptr(x))
     cuda_build.check(code, f"nn_distance (queries a thread {q}, target groups {g})")
 
 
@@ -152,11 +144,11 @@ def masked_pairwise_nn(pts: torch.Tensor, pair_mask: torch.Tensor) -> torch.Tens
 
 
 def _launch_masked(pts: torch.Tensor, mask: torch.Tensor, out: torch.Tensor,
-                   shape: tuple[int, int] | None = None) -> None:
-    """Launch kernel M into ``out`` at ``shape`` (default ``masked_shape``), uncounted; the
-    kernel reads the contiguous bool mask's own bytes (0 or 1)."""
+                   shape: tuple[int, int] = MASKED_SHAPE) -> None:
+    """Launch kernel M into ``out`` at ``shape``, uncounted; the kernel reads the contiguous
+    bool mask's own bytes (0 or 1)."""
     B, P, N, _ = pts.shape
-    q, g = shape or masked_shape()
+    q, g = shape
     code = cuda_build.function("nn", "pfpp_masked_pairwise_nn")(
         pts.data_ptr(), mask.data_ptr(), B, P, N, q, g, out.data_ptr(),
         cuda_build.stream_ptr(pts))

@@ -233,14 +233,13 @@ def test_nn_distance_gradient_on_card_matches_cpu(dev):
 
 
 def _nn_check(x, y):
-    """Kernel N at every shape csrc/nn.cu holds, with and without culling, and through its
-    wrapper twice: distances and indices bit-equal to the plain version."""
+    """Kernel N at every shape csrc/nn.cu holds, and through its wrapper twice: distances and
+    indices bit-equal to the plain version."""
     ref = tch.nn_distance_plain(x, y)
     for shape in tch.SHAPES:
-        for cull in (False, True):
-            out = tuple(torch.full_like(r, -1) for r in ref)
-            tch._launch_nn(x, y, *out, shape, cull)
-            assert all(torch.equal(o, r) for o, r in zip(out, ref)), (shape, cull)
+        out = tuple(torch.full_like(r, -1) for r in ref)
+        tch._launch_nn(x, y, *out, shape)
+        assert all(torch.equal(o, r) for o, r in zip(out, ref)), shape
     for _ in range(2):
         assert all(torch.equal(o, r) for o, r in zip(tch.nn_distance(x, y), ref))
 
@@ -310,6 +309,19 @@ def test_masked_pairwise_kernel_matches_plain_on_card(dev, case):
     assert torch.equal(tch.masked_pairwise_nn(pts, pm.to(torch.uint8)), ref)
 
 
+def test_nn_distance_without_grad_skips_autograd_and_counts_its_launch(dev):
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn((2, 300, 3), generator=g, device=dev, requires_grad=True)
+    y = torch.randn((2, 200, 3), generator=g, device=dev)
+    ops.reset_launch_counts()
+    with_grad = tch.nn_distance(x, y)
+    assert with_grad[0].grad_fn is not None and ops.launch_counts()["N"] == 1
+    with torch.no_grad():
+        fast = tch.nn_distance(x, y)
+    assert fast[0].grad_fn is None and ops.launch_counts()["N"] == 2
+    assert torch.equal(fast[0], with_grad[0].detach()) and torch.equal(fast[1], with_grad[1])
+
+
 def test_nn_launches_refuse_a_shape_they_do_not_hold(dev):
     x = torch.randn((1, 10, 3), device=dev)
     d, i = torch.empty((1, 10), device=dev), torch.empty((1, 10), dtype=torch.int32, device=dev)
@@ -318,7 +330,7 @@ def test_nn_launches_refuse_a_shape_they_do_not_hold(dev):
     pts = torch.randn((1, 2, 10, 3), device=dev)
     with pytest.raises(RuntimeError, match="CUDA error"):
         tch._launch_masked(pts, torch.ones((1, 2, 2), dtype=torch.bool, device=dev),
-                           torch.empty((1, 2, 2, 10), device=dev), (8, 8))
+                           torch.empty((1, 2, 2, 10), device=dev), (8, 1))
 
 
 def test_training_step_on_card_matches_cpu(dev, tmp_path):

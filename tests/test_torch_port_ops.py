@@ -317,23 +317,20 @@ def test_nn_distance_plain_ties_go_to_the_lowest_index(M):
     assert ties.sum() > 10  # the rule is exercised
 
 
-def test_nn_kernel_shapes_match_the_source_and_the_rule():
-    """ops/chamfer.py's SHAPES is the list csrc/nn.cu instantiates; nn_shape picks from it the
-    fewest groups that give TARGET_WARPS warps (8 when none does), masked_shape is in it."""
+def test_nn_kernel_shapes_match_the_source():
+    """ops/chamfer.py's SHAPES is the list of (queries a thread, target groups) that
+    csrc/nn.cu instantiates, the launch shapes of N and M are in it, and N's rule switches
+    at the source's tile."""
     import os
     import re
 
     src = open(os.path.join(os.path.dirname(tch.__file__), "..", "csrc", "nn.cu")).read()
-    macro = re.search(r"#define PFPP_NN_SHAPES\(X\)(.*?)\n\n", src, re.S).group(1)
+    macro = re.search(r"#define PFPP_NN_SHAPES\(X\)(.*?)\n", src).group(1)
     shapes = tuple((int(a), int(b)) for a, b in re.findall(r"X\((\d+), (\d+)\)", macro))
     assert shapes == tch.SHAPES
-    assert tch.masked_shape() in shapes
-    for B, N, want in ((96, 1000, 4), (160, 1000, 2), (8, 20000, 2), (8, 12000, 4),
-                       (1, 10, 8), (1000, 5000, 1)):
-        q, g = tch.nn_shape(B, N)
-        assert (q, g) in shapes and g == want, (B, N, q, g)
-        warps = 2 * g * B * -(-N // (64 * q))
-        assert warps >= tch.TARGET_WARPS or g == 8
+    assert tch.MASKED_SHAPE in shapes and len(set(shapes)) == len(shapes)
+    assert tch.TILE == int(re.search(r"kTile = (\d+);", src).group(1))
+    assert [tch.nn_shape(m) for m in (1, 1000, 1024, 1025, 20000)] == [(2, 1)] * 3 + [(4, 2)] * 2
 
 
 def test_masked_pairwise_nn_matches_pallas_interpret():
