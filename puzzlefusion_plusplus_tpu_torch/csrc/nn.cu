@@ -36,7 +36,7 @@
 //   over 64 warps, each scanning 256 targets).
 // The ragged edge of a tile is padded with +inf points, which never lower a best and never
 // equal one that fell. M runs the same scan without the index (a min is exact in any order)
-// over the active (pair, query block) items of a persistent grid, which finds the active
+// over the active (pair, query block) items of a persistent grid, which ranks the active
 // pairs on the device and writes the sentinel of inactive pairs with float4 stores.
 #include "common.cuh"
 
@@ -197,35 +197,61 @@ __global__ void __launch_bounds__(kGroupThreads * G) nn_kernel(const float* __re
                        dist + b * N, idx + b * N, smem);
 }
 
-// A persistent grid: block r writes the sentinel rows of inactive pairs r, r + grid, ...,
-// then takes the (pair, query block) items r, r + grid, ... and skips those of inactive pairs
-// (a uniform branch on one byte of the mask: no host sync, no pre-pass).
+// Kernel M on a persistent grid. Its warps first write the sentinel rows of inactive pairs,
+// one pair a warp (float4 stores where N % 4 == 0). Then every block ranks the active pairs
+// itself, with no host sync and no pre-pass: each thread counts the active pairs of its
+// contiguous segment of the mask, a block-wide scan gives each segment's first rank, and the
+// block takes the active (pair, query block) items blockIdx.x, + gridDim.x, ..., finding an
+// item's pair by a binary search over the segments. So the active work spreads evenly over
+// the blocks, whichever pairs the mask selects, and no block walks the inactive ones.
 template <int Q, int G>
 __global__ void __launch_bounds__(kGroupThreads * G) masked_pair_kernel(
     const float* __restrict__ pts, const bool* __restrict__ mask, int B, int P, int N,
     float* __restrict__ out) {
+  constexpr int kThreads = kGroupThreads * G, kWarps = kThreads / 32;
+  constexpr int kQueries = Block<Q, G>::kQueries;
   __shared__ float4 smem[kTile];
-  constexpr int kThreads = kGroupThreads * G, kQueries = Block<Q, G>::kQueries;
-  const int pairs = B * P * P;
-  const bool wide = (N & 3) == 0;  // rows start 16-byte aligned (out comes from the allocator)
-  for (int p = blockIdx.x; p < pairs; p += gridDim.x) {
+  __shared__ int first[kThreads + 1];  // active pairs before each thread's segment
+  __shared__ int warp_total[kWarps];
+  const int pairs = B * P * P, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int p = blockIdx.x * kWarps + warp; p < pairs; p += gridDim.x * kWarps) {
     if (mask[p]) continue;
     float* o = out + (size_t)p * N;
-    if (wide) {
+    if ((N & 3) == 0) {  // rows start 16-byte aligned (out comes from the allocator)
       const float4 v = make_float4(kInactive, kInactive, kInactive, kInactive);
-      for (int i = threadIdx.x; i < N / 4; i += kThreads) reinterpret_cast<float4*>(o)[i] = v;
+      for (int i = lane; i < N / 4; i += 32) reinterpret_cast<float4*>(o)[i] = v;
     } else {
-      for (int i = threadIdx.x; i < N; i += kThreads) o[i] = kInactive;
+      for (int i = lane; i < N; i += 32) o[i] = kInactive;
     }
   }
+  const int seg = ceil_div(pairs, kThreads);
+  const int s0 = min((int)threadIdx.x * seg, pairs), s1 = min(s0 + seg, pairs);
+  int count = 0;
+  for (int p = s0; p < s1; ++p) count += mask[p];
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {  // inclusive scan over the warp
+    const int v = __shfl_up_sync(~0u, count, o);
+    if (lane >= o) count += v;
+  }
+  if (lane == 31) warp_total[warp] = count;
+  __syncthreads();
+  for (int w = 0; w < warp; ++w) count += warp_total[w];
+  first[threadIdx.x + 1] = count;
+  if (threadIdx.x == 0) first[0] = 0;
+  __syncthreads();
   const int blocks = ceil_div(N, kQueries);
-  for (long long w = blockIdx.x; w < (long long)pairs * blocks; w += gridDim.x) {
-    const int p = (int)(w / blocks);
-    if (!mask[p]) continue;
+  for (long long a = blockIdx.x; a < (long long)first[kThreads] * blocks; a += gridDim.x) {
+    const int r = (int)(a / blocks);
+    int t = 0;  // the last segment whose first rank is at most r: it holds the r-th pair
+    for (int step = kThreads / 2; step > 0; step /= 2)
+      if (first[t + step] <= r) t += step;
+    int p = t * seg;
+    for (int k = r - first[t];; ++p)
+      if (mask[p] && k-- == 0) break;
     const int i = (p / P) % P, j = p % P;
     const float* cloud = pts + (size_t)(p / (P * P)) * P * N * 3;
     nn_block<Q, G, false>(cloud + (size_t)i * N * 3, N, cloud + (size_t)j * N * 3, N,
-                          (int)(w % blocks) * kQueries, out + (size_t)p * N, nullptr, smem);
+                          (int)(a % blocks) * kQueries, out + (size_t)p * N, nullptr, smem);
   }
 }
 

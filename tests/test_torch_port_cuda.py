@@ -286,12 +286,14 @@ def test_nn_kernel_ties_go_to_the_lowest_index_on_card(dev, case, M):
     _nn_check(x, y)
 
 
-@pytest.mark.parametrize("case", ["none_active", "all_active", "asymmetric", "odd_n"])
+@pytest.mark.parametrize("case", ["none_active", "all_active", "asymmetric", "odd_n",
+                                  "many_pairs"])
 def test_masked_pairwise_kernel_matches_plain_on_card(dev, case):
     """Kernel M at every shape, bit-equal to the plain version and across two launches; the
-    mask passes as the bool tensor's own bytes, also from a non-contiguous view."""
+    mask passes as the bool tensor's own bytes, also from a non-contiguous view. many_pairs
+    has more pairs than a block has threads, so each thread ranks several."""
     g = torch.Generator(device=dev).manual_seed(7)
-    B, P, N = (2, 5, 303) if case == "odd_n" else (3, 6, 1000)
+    B, P, N = {"odd_n": (2, 5, 303), "many_pairs": (8, 20, 40)}.get(case, (3, 6, 1000))
     pts = 0.3 * torch.randn((B, P, N, 3), generator=g, device=dev)
     if case == "none_active":
         pm = torch.zeros((B, P, P), dtype=torch.bool, device=dev)
