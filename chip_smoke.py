@@ -19,11 +19,11 @@ Phases, each printing one JSON object per line (with its seconds):
                shape_cd_clouds``) and M also at the b8 merge's pad (B = 8, P = 12); their
                records add under ``computed`` the issue-slot bound (8 unfused FP32
                operations a pair, one slot each on 128 lanes an SM at the max SM clock that
-               nvidia-smi reports), the measured slots a pair and the launch shape. A and S
-               also run at the denoiser's frozen-encode shapes (M = 1280) and B with every
-               row to one index, all listed under ``per_shape`` and left out of the step's
-               sum. S and R compute in 3xTF32 on the tensor cores: their ``bound_ms`` counts
-               three TF32 MMAs per product at 495 TFLOP/s. Their per-shape records add, under
+               nvidia-smi reports) and the measured slots a pair. A and S also run at the
+               denoiser's frozen-encode shapes (M = 1280) and B with every row to one index,
+               all listed under ``per_shape`` and left out of the step's sum. S and R
+               compute in 3xTF32 on the tensor cores: their ``bound_ms`` counts three TF32
+               MMAs per product at 495 TFLOP/s. Their per-shape records add, under
                ``computed`` (worked out, not measured), the same work's bound on the CUDA
                cores (``bound_fp32_ms``), the kernel's rows per block and the weight bytes its
                blocks read from L2 (``l2_weight_bytes``, and with 64-row blocks). Both must
@@ -34,11 +34,6 @@ Phases, each printing one JSON object per line (with its seconds):
  2b. fps_shapes — F and P at every block shape they can take (blocks a cloud, points a
                thread in registers, threads), each bit-equal to the plain version: the ms of
                each beside the shape the wrapper picks (``ops/fps.py::cluster_shape``).
- 2c. nn_shapes — N and M at every (queries a thread, target groups a block) shape that
-               ``csrc/nn.cu`` holds, at phase 2's inputs, each bit-equal to the plain
-               version: the bare launch's ms of each beside the shape the wrapper launches
-               (``ops/chamfer.py::nn_shape``, ``MASKED_SHAPE``), and the SM clock and power
-               while N runs about a second at [8,20000].
   3. engine  — the full-width engine (``Config()`` defaults: VQ-VAE 1000 pts / 25x64 tokens /
                1024x16 codebook, denoiser 512/6/8, verifier 256/6/8, 6 iterations x 20 steps,
                fp32, batch 8) on 8 synthetic shapes of 3-12 parts (seed 7) through
@@ -517,13 +512,12 @@ def phase_kernels(results: dict) -> None:
     # a training step's chamfer loss
     sms, clock_mhz = torch.cuda.get_device_properties(0).multi_processor_count, sm_clock_mhz()
 
-    def issue(pairs, ms, q, g):
+    def issue(pairs, ms):
         """Worked out, not measured: the 8 unfused FP32 operations of a pair, one issue slot
         each on 128 lanes an SM at the card's max SM clock, and the measured ms in slots."""
         lanes_per_ms = sms * 128 * clock_mhz * 1e3
         return {"issue_bound_ms": 8.0 * pairs / lanes_per_ms, "clock_mhz": clock_mhz,
-                "slots_a_pair": ms * lanes_per_ms / pairs, "queries_a_thread": q,
-                "target_groups": g}
+                "slots_a_pair": ms * lanes_per_ms / pairs}
 
     for B, N, path, engine_shaped in ((96, 1000, "inference", False),
                                       (8, 12000, "inference", True),
@@ -549,7 +543,7 @@ def phase_kernels(results: dict) -> None:
                4 * (2 * B * N * 3 + 2 * B * N), 8.0 * B * N * N,
                library_ms=cuda_ms(lambda: torch.cdist(x, y).min(-1), 3), path=path,
                kernel_ms=kernel_ms, kernel_graph_ms=graph_ms(bare, 5), bit_equal=match,
-               computed=issue(B * N * N, kernel_ms, *chamfer.nn_shape(N)),
+               computed=issue(B * N * N, kernel_ms),
                seconds=time.perf_counter() - t0)
     # A: the feature gathers of one training step's SA2 and SA3 at M = 160 clouds, then of
     # the denoiser step's frozen encode at M = 1280 (listed apart from the step's sum)
@@ -596,11 +590,12 @@ def phase_kernels(results: dict) -> None:
                launches_a_call=1 if ints == 0 else 2,
                seconds=time.perf_counter() - t0)
 
-    # M: one merge step's pairs at P = 20, N = 1000, 3 active pairs, then at the b8 engine's
-    # pad (B = 8, P = 12) with two symmetric active pairs a sample
-    for B, P, pairs in ((1, 20, ((0, 0, 1), (0, 1, 0), (0, 2, 5))),
-                        (8, 12, tuple((b, i, j) for b in range(8)
-                                      for i, j in ((b % 3, 7), (7, b % 3), (4, 9), (9, 4))))):
+    # M: at the b8 engine's pad (B = 8, P = 12) with two symmetric active pairs a sample (a
+    # count assumed, not taken from a merge), then one merge step's pairs at P = 20, N = 1000,
+    # 3 active pairs (last: the kernels line's row)
+    for B, P, pairs in ((8, 12, tuple((b, i, j) for b in range(8)
+                                      for i, j in ((b % 3, 7), (7, b % 3), (4, 9), (9, 4)))),
+                        (1, 20, ((0, 0, 1), (0, 1, 0), (0, 2, 5)))):
         t0 = time.perf_counter()
         N = 1000
         pts = randn(B, P, N, 3, scale=0.3)
@@ -626,7 +621,7 @@ def phase_kernels(results: dict) -> None:
                4 * (B * P * N * 3 + B * P * P * N) + B * P * P, 8.0 * len(pairs) * N * N,
                library_ms=cuda_ms(lambda: torch.cdist(xa, xb).min(-1), 20),
                kernel_ms=kernel_ms, kernel_graph_ms=graph_ms(bare, 20), bit_equal=match,
-               computed=issue(len(pairs) * N * N, kernel_ms, *chamfer.MASKED_SHAPE),
+               computed=issue(len(pairs) * N * N, kernel_ms),
                seconds=time.perf_counter() - t0)
     torch.cuda.empty_cache()  # the plain versions at M = 1280 held tens of GB
 
@@ -667,65 +662,6 @@ def phase_fps_shapes() -> None:
               "ms_by_shape": times, "refused": errors,
               "chosen": "cl={},ppt={},threads={}".format(*chosen),
               "fastest": min(times, key=times.get), "seconds": time.perf_counter() - t0})
-
-
-def phase_nn_shapes() -> None:
-    """Kernels N and M at every (queries a thread, target groups) shape ``csrc/nn.cu`` holds,
-    at the shapes of phase 2: one line per input with the bare launch's CUDA-event ms at each
-    shape, each bit-equal to the plain version, beside the shape the wrapper picks."""
-    import torch
-
-    from puzzlefusion_plusplus_tpu_torch.ops import chamfer
-
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(2)
-
-    def time_shapes(name, label, launch, out, ref, chosen):
-        t0 = time.perf_counter()
-        times = {}
-        for shape in chamfer.SHAPES:
-            for o in out:
-                o.fill_(-1)
-            launch(shape)
-            _check(all(torch.equal(o, r) for o, r in zip(out, ref)),
-                   f"{name} {label} at {shape}: differs from the plain version")
-            times[f"q={shape[0]},g={shape[1]}"] = cuda_ms(lambda: launch(shape), 5)
-        emit({"phase": "nn_shapes", "kernel": name, "shape": label, "ms_by_shape": times,
-              "chosen": "q={},g={}".format(*chosen), "fastest": min(times, key=times.get),
-              "seconds": time.perf_counter() - t0})
-
-    for B, N, engine_shaped in ((96, 1000, False), (8, 12000, True), (8, 20000, False),
-                                (160, 1000, False)):
-        x, y = (nn_engine_clouds(gen, B, N // 1000) if engine_shaped else
-                (torch.randn((B, N, 3), generator=gen, device=dev),
-                 torch.randn((B, N, 3), generator=gen, device=dev)))
-        ref = chamfer.nn_distance_plain(x, y)
-        out = tuple(torch.empty_like(r) for r in ref)
-        time_shapes("N", f"[{B},{N}]^2" + (" engine-shaped" if engine_shaped else ""),
-                    lambda shape: chamfer._launch_nn(x, y, *out, shape), out, ref,
-                    chamfer.nn_shape(N))
-        if N == 20000:  # the SM clock and power while N runs about a second at this shape
-            smi = subprocess.Popen(
-                ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
-                 "--format=csv,noheader,nounits", "-lms", "100"],
-                stdout=subprocess.PIPE, text=True)
-            cuda_ms(lambda: chamfer._launch_nn(x, y, *out), 1000)
-            smi.terminate()
-            samples = [tuple(map(float, line.split(","))) for line in
-                       smi.communicate(timeout=60)[0].split("\n") if line.strip()]
-            emit({"phase": "nn_shapes", "kernel": "N", "shape": f"[{B},{N}]^2",
-                  "under_load_clock_mhz": [c for c, _ in samples],
-                  "under_load_power_w": [w for _, w in samples]})
-    for B, P, active in ((1, 20, 3), (8, 12, 32)):
-        pts = 0.3 * torch.randn((B, P, 1000, 3), generator=gen, device=dev)
-        mask = torch.zeros((B * P * P,), dtype=torch.bool, device=dev)
-        mask[torch.randperm(B * P * P, generator=gen, device=dev)[:active]] = True
-        mask = mask.reshape(B, P, P)
-        ref = (chamfer.masked_pairwise_nn_plain(pts, mask),)
-        out = (torch.empty_like(ref[0]),)
-        time_shapes("M", f"B={B} P={P} N=1000, {active} active pairs",
-                    lambda shape: chamfer._launch_masked(pts, mask, out[0], shape), out, ref,
-                    chamfer.MASKED_SHAPE)
 
 
 def _full_config(data_root: str):
@@ -1214,8 +1150,7 @@ def phase_profile_denoiser(data_root: str) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,fps_shapes,nn_shapes,engine,merge,"
-                                        "profile,train,"
+    ap.add_argument("--phases", default="build,kernels,fps_shapes,engine,merge,profile,train,"
                                         "train_parity,profile_train,encoder_modes,"
                                         "train_denoiser,denoiser_parity,profile_denoiser")
     phases = ap.parse_args().phases.split(",")
@@ -1239,8 +1174,6 @@ def main() -> int:
         phase_kernels(results)
     if "fps_shapes" in phases:
         phase_fps_shapes()
-    if "nn_shapes" in phases:
-        phase_nn_shapes()
     launches = {}  # per path: the counts of its own run
     data_root = os.path.join(REPO, ".smoke", "chip_smoke_data")
     if {"engine", "merge", "profile", "encoder_modes"} & set(phases):

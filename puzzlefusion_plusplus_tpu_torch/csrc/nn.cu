@@ -26,14 +26,15 @@
 //   (from shared memory when the targets fit one tile, else from L2). A query whose best
 //   never falls (every distance +inf or NaN) keeps index 0. fminf ignores NaN as the strict <
 //   of an ascending scan did.
-// * G target groups a block (a template parameter, 1 to 8), of 64 threads each: every group
+// * G target groups a block (a template parameter, 1, 2 or 4), of 64 threads each: every group
 //   holds the block's 64 * Q queries and scans its own contiguous share of every tile, in
 //   ascending order. At the end the groups' (distance, index) pairs are merged
 //   lexicographically in shared memory, which is exact because "min, then lowest index" is
 //   associative. Groups multiply the warps of small batches. N launches Q = 2, G = 1 when the
 //   targets fit one tile, else Q = 4, G = 2 (4 warps a block of 256 queries); M launches
 //   Q = 2, G = 4 (8 warps a block of 128 queries, so one pair of 1000-point parts spreads
-//   over 64 warps, each scanning 256 targets).
+//   over 64 warps, each scanning 256 targets). These are the fastest, or within 1% of it, of
+//   Q in {2, 4} and G in {1, 2, 4, 8} timed on an H100 (PERF.md section 6).
 // The ragged edge of a tile is padded with +inf points, which never lower a best and never
 // equal one that fell. M runs the same scan without the index (a min is exact in any order)
 // over the active (pair, query block) items of a persistent grid, which ranks the active
@@ -282,35 +283,22 @@ void launch_masked(const float* pts, const bool* mask, int B, int P, int N, floa
 
 }  // namespace
 
-// The (queries a thread, target groups a block) shapes the library holds.
-#define PFPP_NN_SHAPES(X) X(2, 1) X(2, 2) X(2, 4) X(2, 8) X(4, 1) X(4, 2) X(4, 4) X(4, 8)
-
-// Kernel N with q queries a thread and g target groups a block (ops/chamfer.py::nn_shape);
-// cudaErrorInvalidValue for a shape the library does not hold.
-PFPP_EXPORT int pfpp_nn_distance(const float* x, const float* y, int B, int N, int M, int q,
-                                 int g, float* dist, int* idx, void* stream) {
+// Kernel N: Q = 2, G = 1 when the targets fit one tile, else Q = 4, G = 2.
+PFPP_EXPORT int pfpp_nn_distance(const float* x, const float* y, int B, int N, int M,
+                                 float* dist, int* idx, void* stream) {
   if (B == 0 || N == 0) return 0;
-#define PFPP_NN_LAUNCH(QQ, GG)                                                   \
-  if (q == QQ && g == GG) {                                                     \
-    launch_nn<QQ, GG>(x, y, B, N, M, dist, idx, (cudaStream_t)stream);          \
-    return (int)cudaGetLastError();                                             \
-  }
-  PFPP_NN_SHAPES(PFPP_NN_LAUNCH)
-#undef PFPP_NN_LAUNCH
-  return (int)cudaErrorInvalidValue;
+  if (M <= kTile)
+    launch_nn<2, 1>(x, y, B, N, M, dist, idx, (cudaStream_t)stream);
+  else
+    launch_nn<4, 2>(x, y, B, N, M, dist, idx, (cudaStream_t)stream);
+  return (int)cudaGetLastError();
 }
 
-// Kernel M with q queries a thread and g target groups a block (ops/chamfer.py::MASKED_SHAPE);
-// a grid of at most two blocks an SM, fewer when there are fewer (pair, query block) items.
+// Kernel M at Q = 2, G = 4, on a grid of at most two blocks an SM, fewer when there are
+// fewer (pair, query block) items.
 PFPP_EXPORT int pfpp_masked_pairwise_nn(const float* pts, const bool* mask, int B, int P,
-                                        int N, int q, int g, float* out, void* stream) {
+                                        int N, float* out, void* stream) {
   if (B == 0 || P == 0 || N == 0) return 0;
-#define PFPP_NN_LAUNCH(QQ, GG)                                                   \
-  if (q == QQ && g == GG) {                                                     \
-    launch_masked<QQ, GG>(pts, mask, B, P, N, out, (cudaStream_t)stream);       \
-    return (int)cudaGetLastError();                                             \
-  }
-  PFPP_NN_SHAPES(PFPP_NN_LAUNCH)
-#undef PFPP_NN_LAUNCH
-  return (int)cudaErrorInvalidValue;
+  launch_masked<2, 4>(pts, mask, B, P, N, out, (cudaStream_t)stream);
+  return (int)cudaGetLastError();
 }

@@ -5,9 +5,8 @@ N replaces ``puzzlefusion_plusplus_tpu/ops/chamfer_pallas.py::nn_distance_pallas
 (``_nn_kernel``) and feeds the metrics; M replaces ``chamfer_pallas.py::masked_pairwise_nn``
 (``_masked_pair_nn_kernel``) and feeds the merge step's interpenetration filter. Both compute
 squared distances from direct FP32 differences, bit-equal to the plain versions; they are
-bound by instruction issue (see the source note). ``nn_shape`` and ``MASKED_SHAPE`` give the
-kernels' (queries a thread, target groups a block). ``nn_distance`` is differentiable through
-``_NNDistanceFn``, the port of the custom VJP of
+bound by instruction issue (see the source note, which also gives their launch shapes).
+``nn_distance`` is differentiable through ``_NNDistanceFn``, the port of the custom VJP of
 ``puzzlefusion_plusplus_tpu/ops/chamfer.py::nn_distance``: the query side gets
 ``2 (x - y[idx]) g``, the target side the scatter-add of its negative (kernel B).
 """
@@ -21,18 +20,6 @@ from puzzlefusion_plusplus_tpu_torch.ops.gather import gather_points, scatter_ad
 
 INACTIVE = 3.9e12  # masked_pairwise_nn's value for pairs outside the mask
 _CHUNK_ELEMS = 1 << 25  # query chunk size of the plain version, in distance-matrix entries
-# (queries a thread, target groups a block) that csrc/nn.cu holds; chip_smoke.py times them
-SHAPES = ((2, 1), (2, 2), (2, 4), (2, 8), (4, 1), (4, 2), (4, 4), (4, 8))
-TILE = 1024  # target points a shared-memory tile (csrc/nn.cu kTile)
-# Launch shapes from chip_smoke.py's nn_shapes phase on an H100 (PERF.md section 6): N's
-# fastest or within 1% of it at each kernels-phase shape, M's fastest at both of its shapes
-MASKED_SHAPE = (2, 4)
-
-
-def nn_shape(M: int) -> tuple[int, int]:
-    """Kernel N's (queries a thread, target groups) for M targets: (2, 1) when they fit one
-    tile, else (4, 2)."""
-    return (2, 1) if M <= TILE else (4, 2)
 
 
 def _sq_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -56,15 +43,13 @@ def nn_distance_plain(x: torch.Tensor, y: torch.Tensor):
     return torch.cat(dists, 1), torch.cat(idxs, 1)
 
 
-def _launch_nn(x: torch.Tensor, y: torch.Tensor, dist: torch.Tensor, idx: torch.Tensor,
-               shape: tuple[int, int] | None = None) -> None:
-    """Launch kernel N into ``dist``/``idx`` at ``shape`` (default ``nn_shape``), uncounted."""
+def _launch_nn(x: torch.Tensor, y: torch.Tensor, dist: torch.Tensor, idx: torch.Tensor) -> None:
+    """Launch kernel N into ``dist``/``idx``, uncounted."""
     B, N, _ = x.shape
-    q, g = shape or nn_shape(y.shape[1])
     code = cuda_build.function("nn", "pfpp_nn_distance")(
-        x.data_ptr(), y.data_ptr(), B, N, y.shape[1], q, g, dist.data_ptr(), idx.data_ptr(),
+        x.data_ptr(), y.data_ptr(), B, N, y.shape[1], dist.data_ptr(), idx.data_ptr(),
         cuda_build.stream_ptr(x))
-    cuda_build.check(code, f"nn_distance (queries a thread {q}, target groups {g})")
+    cuda_build.check(code, "nn_distance")
 
 
 def _nn_distance_forward(x: torch.Tensor, y: torch.Tensor):
@@ -103,12 +88,9 @@ class _NNDistanceFn(torch.autograd.Function):
 
 def nn_distance(x: torch.Tensor, y: torch.Tensor):
     """Squared distance to, and index of, each x-point's nearest neighbour in y; kernel N on
-    CUDA tensors, differentiable in x and y (through autograd only where a gradient is
-    needed: the Function's bookkeeping is host time the card may wait on). x [B, N, 3] f32,
-    y [B, M, 3] f32 -> ([B, N] f32, [B, N] int32)."""
-    if torch.is_grad_enabled() and (x.requires_grad or y.requires_grad):
-        return _NNDistanceFn.apply(x, y)
-    return _nn_distance_forward(x, y)
+    CUDA tensors, differentiable in x and y. x [B, N, 3] f32, y [B, M, 3] f32 ->
+    ([B, N] f32, [B, N] int32)."""
+    return _NNDistanceFn.apply(x, y)
 
 
 nn_distance.launches = 0
@@ -143,16 +125,13 @@ def masked_pairwise_nn(pts: torch.Tensor, pair_mask: torch.Tensor) -> torch.Tens
     return out
 
 
-def _launch_masked(pts: torch.Tensor, mask: torch.Tensor, out: torch.Tensor,
-                   shape: tuple[int, int] = MASKED_SHAPE) -> None:
-    """Launch kernel M into ``out`` at ``shape``, uncounted; the kernel reads the contiguous
-    bool mask's own bytes (0 or 1)."""
+def _launch_masked(pts: torch.Tensor, mask: torch.Tensor, out: torch.Tensor) -> None:
+    """Launch kernel M into ``out``, uncounted; the kernel reads the contiguous bool mask's
+    own bytes (0 or 1)."""
     B, P, N, _ = pts.shape
-    q, g = shape
     code = cuda_build.function("nn", "pfpp_masked_pairwise_nn")(
-        pts.data_ptr(), mask.data_ptr(), B, P, N, q, g, out.data_ptr(),
-        cuda_build.stream_ptr(pts))
-    cuda_build.check(code, f"masked_pairwise_nn (queries a thread {q}, target groups {g})")
+        pts.data_ptr(), mask.data_ptr(), B, P, N, out.data_ptr(), cuda_build.stream_ptr(pts))
+    cuda_build.check(code, "masked_pairwise_nn")
 
 
 masked_pairwise_nn.launches = 0

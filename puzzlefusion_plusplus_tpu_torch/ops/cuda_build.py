@@ -34,8 +34,8 @@ SIGNATURES = {
         "pfpp_fps_cluster": [_P, _P] + [_I] * 6 + [_P, _P],
     },
     "nn": {
-        "pfpp_nn_distance": [_P, _P] + [_I] * 5 + [_P, _P, _P],
-        "pfpp_masked_pairwise_nn": [_P, _P] + [_I] * 5 + [_P, _P],
+        "pfpp_nn_distance": [_P, _P, _I, _I, _I, _P, _P, _P],
+        "pfpp_masked_pairwise_nn": [_P, _P, _I, _I, _I, _P, _P],
     },
     "sa_cached": {"pfpp_sa_cached": [_P] * 10 + [_I] * 7 + [_P],
                   "pfpp_sa_cached_rows": [_I] * 3},

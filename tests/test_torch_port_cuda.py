@@ -7,7 +7,7 @@ so on a machine without JAX it runs with the conftest left out:
 
 Tolerances: FPS (F and P) / gather (G and A) / NN (N and M) indices and values exact (the
 kernels compute distances with the plain version's rounding, no FMA; P equals F too; N and M
-at every launch shape and across two launches); S and R 1e-4
+also across two launches); S and R 1e-4
 of the largest output (3xTF32 products on the tensor cores, FP32 sums in another order),
 and bit-equal across two launches (no float atomics);
 B 1e-5 of the largest sum against the plain index_add_, which adds with atomics in no fixed
@@ -233,13 +233,12 @@ def test_nn_distance_gradient_on_card_matches_cpu(dev):
 
 
 def _nn_check(x, y):
-    """Kernel N at every shape csrc/nn.cu holds, and through its wrapper twice: distances and
-    indices bit-equal to the plain version."""
+    """Kernel N's bare launch, and its wrapper twice: distances and indices bit-equal to the
+    plain version (its launch shape changes with the targets at csrc/nn.cu's tile)."""
     ref = tch.nn_distance_plain(x, y)
-    for shape in tch.SHAPES:
-        out = tuple(torch.full_like(r, -1) for r in ref)
-        tch._launch_nn(x, y, *out, shape)
-        assert all(torch.equal(o, r) for o, r in zip(out, ref)), shape
+    out = tuple(torch.full_like(r, -1) for r in ref)
+    tch._launch_nn(x, y, *out)
+    assert all(torch.equal(o, r) for o, r in zip(out, ref))
     for _ in range(2):
         assert all(torch.equal(o, r) for o, r in zip(tch.nn_distance(x, y), ref))
 
@@ -289,7 +288,7 @@ def test_nn_kernel_ties_go_to_the_lowest_index_on_card(dev, case, M):
 @pytest.mark.parametrize("case", ["none_active", "all_active", "asymmetric", "odd_n",
                                   "many_pairs"])
 def test_masked_pairwise_kernel_matches_plain_on_card(dev, case):
-    """Kernel M at every shape, bit-equal to the plain version and across two launches; the
+    """Kernel M bit-equal to the plain version and across two launches; the
     mask passes as the bool tensor's own bytes, also from a non-contiguous view. many_pairs
     has more pairs than a block has threads, so each thread ranks several."""
     g = torch.Generator(device=dev).manual_seed(7)
@@ -302,37 +301,12 @@ def test_masked_pairwise_kernel_matches_plain_on_card(dev, case):
     else:
         pm = (torch.rand((B, P, P), generator=g, device=dev) < 0.3).transpose(1, 2)
     ref = tch.masked_pairwise_nn_plain(pts, pm)
-    for shape in tch.SHAPES:
-        out = torch.full_like(ref, -1)
-        tch._launch_masked(pts, pm.contiguous(), out, shape)
-        assert torch.equal(out, ref), shape
+    out = torch.full_like(ref, -1)
+    tch._launch_masked(pts, pm.contiguous(), out)
+    assert torch.equal(out, ref)
     for _ in range(2):
         assert torch.equal(tch.masked_pairwise_nn(pts, pm), ref)
     assert torch.equal(tch.masked_pairwise_nn(pts, pm.to(torch.uint8)), ref)
-
-
-def test_nn_distance_without_grad_skips_autograd_and_counts_its_launch(dev):
-    g = torch.Generator(device=dev).manual_seed(6)
-    x = torch.randn((2, 300, 3), generator=g, device=dev, requires_grad=True)
-    y = torch.randn((2, 200, 3), generator=g, device=dev)
-    ops.reset_launch_counts()
-    with_grad = tch.nn_distance(x, y)
-    assert with_grad[0].grad_fn is not None and ops.launch_counts()["N"] == 1
-    with torch.no_grad():
-        fast = tch.nn_distance(x, y)
-    assert fast[0].grad_fn is None and ops.launch_counts()["N"] == 2
-    assert torch.equal(fast[0], with_grad[0].detach()) and torch.equal(fast[1], with_grad[1])
-
-
-def test_nn_launches_refuse_a_shape_they_do_not_hold(dev):
-    x = torch.randn((1, 10, 3), device=dev)
-    d, i = torch.empty((1, 10), device=dev), torch.empty((1, 10), dtype=torch.int32, device=dev)
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        tch._launch_nn(x, x, d, i, (3, 1))
-    pts = torch.randn((1, 2, 10, 3), device=dev)
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        tch._launch_masked(pts, torch.ones((1, 2, 2), dtype=torch.bool, device=dev),
-                           torch.empty((1, 2, 2, 10), device=dev), (8, 1))
 
 
 def test_training_step_on_card_matches_cpu(dev, tmp_path):

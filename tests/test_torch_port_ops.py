@@ -317,22 +317,6 @@ def test_nn_distance_plain_ties_go_to_the_lowest_index(M):
     assert ties.sum() > 10  # the rule is exercised
 
 
-def test_nn_kernel_shapes_match_the_source():
-    """ops/chamfer.py's SHAPES is the list of (queries a thread, target groups) that
-    csrc/nn.cu instantiates, the launch shapes of N and M are in it, and N's rule switches
-    at the source's tile."""
-    import os
-    import re
-
-    src = open(os.path.join(os.path.dirname(tch.__file__), "..", "csrc", "nn.cu")).read()
-    macro = re.search(r"#define PFPP_NN_SHAPES\(X\)(.*?)\n", src).group(1)
-    shapes = tuple((int(a), int(b)) for a, b in re.findall(r"X\((\d+), (\d+)\)", macro))
-    assert shapes == tch.SHAPES
-    assert tch.MASKED_SHAPE in shapes and len(set(shapes)) == len(shapes)
-    assert tch.TILE == int(re.search(r"kTile = (\d+);", src).group(1))
-    assert [tch.nn_shape(m) for m in (1, 1000, 1024, 1025, 20000)] == [(2, 1)] * 3 + [(4, 2)] * 2
-
-
 def test_masked_pairwise_nn_matches_pallas_interpret():
     rng = np.random.default_rng(6)
     P, N = 4, 300  # N not a tile multiple
