@@ -48,7 +48,9 @@ Phases, each printing one JSON object per line (with its seconds):
   6. train   — VQ-VAE training through its entry point ``training.vqvae.train`` at
                ``Config()``'s full ``ae`` width on 16 synthetic shapes of 3-12 parts (seed 11),
                batch 8 x 20 part slots = 160 clouds per step: one warm-up step and 5 timed
-               steps; steps/s, valid parts/s, every step's losses, peak device memory.
+               steps; steps/s, valid parts/s, every step's losses, peak device memory, and
+               the host seconds to build one batch (``loader_s_per_batch``: the trainers'
+               ``prefetch_batches`` overlaps it with the step, except an epoch's first).
   7. train_parity — one train_step on the card and one on the CPU from the same weights and
                a 2-shape batch: loss, every gradient, BatchNorm statistics and the
                parameters after AdamW must agree (``training/parity.py``).
@@ -65,17 +67,37 @@ Phases, each printing one JSON object per line (with its seconds):
                parts (seeds 13, 14): one warm-up step, 5 timed steps, one validation pass
                (the 20-step sampler through kernel S), then one step with
                ``denoiser.train_encode_cached``; steps/s, shapes/s, losses, eval metrics,
-               peak device memory, the checkpoints written.
+               peak device memory, the checkpoints written, ``loader_s_per_batch``.
  11. denoiser_parity — one denoiser train_step on the card and one on the CPU, full width,
                from the same weights, a 2-shape batch, the same timesteps and noise and no
                dropout: loss, every gradient and the parameters after AdamW must agree
                (``training/parity.py``).
  12. profile_denoiser — torch.profiler over one full-width denoiser training step.
+ 13. verifier_gen — verifier data from the full-width denoiser through
+               ``data/verifier_gen.py`` (denoiser and encoder loaded from phases 10 and 6's
+               checkpoints, seeded when those did not run): 8 synthetic train shapes of 3-12
+               parts (seed 15) at the 20-part pad, one round; 8 files that
+               ``VerifierDataset`` reads back with finite features, kernels S, F, G, N
+               launched; seconds per shape. Phase 2 holds S (M = 20), F, G and N at this
+               path's shapes against their plain versions (path "verifier_gen").
+ 14. train_verifier — verifier training through ``training.verifier.train`` at ``Config()``
+               widths (256/6/8, 7 features, 190 edges) and the config's batch of 64, on 160
+               synthetic verifier files (``data/synthetic.py::make_verifier_data_npz``, seed
+               16; 128 train, 32 val): one warm-up step, 5 timed steps, one validation pass;
+               steps/s, edges/s, peak device memory, the checkpoints written.
+ 15. verifier_parity — one verifier train_step on the card and one on the CPU, full width,
+               batch 64, dropout off (``training/parity.py``).
+ 16. serve   — the b8 engine batch of phase 3 served through ``build_engine_fn`` with
+               ``denoiser.encoder_ckpt_path``, ``denoiser.ckpt_path`` and
+               ``verifier.ckpt_path`` naming phases 6, 10 and 14's checkpoints (a phase not
+               run is stood in for by a saved seeded model), then with the same weights as
+               ``state_dicts`` under the same generator seed: results equal; assemblies/s.
 Each path's launch counts are read from its own run: reset right before phase 3's second
 (counted) engine call and read right after phase 4's GPU run (the inference path), reset
 right before phase 6 and read right after it (the VQ-VAE training path), reset right before
-phase 9's three encodes and read right after them (the encoder-modes path), and reset right
-before phase 10 and read right after it (the denoiser training path). Then a ``kernels``
+phase 9's three encodes and read right after them (the encoder-modes path), reset right
+before phase 10 and read right after it (the denoiser training path), and so for phases 13,
+14 (which runs no kernel of the port) and 16's checkpoint-loaded call. Then a ``kernels``
 line lists every kernel with its path's count, its error and its times, and the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and the script exits non-zero without
 that line. Needs one CUDA card; ``--phases`` picks phases.
@@ -119,8 +141,11 @@ REPLACES = {
 INFERENCE_KERNELS, TRAIN_KERNELS = "SFGNMP", "FGNAB"
 MERGE_ONLY_KERNELS = "MP"  # launched only when a merge fires (the merge phase)
 ENCODER_MODE_KERNELS, DENOISER_KERNELS = "RSGA", "SFGNA"
+VERIFIER_GEN_KERNELS, SERVE_KERNELS = "SFGN", "SFGN"
 PATH_KERNELS = {"inference": INFERENCE_KERNELS, "train": TRAIN_KERNELS,
-                "encoder_modes": ENCODER_MODE_KERNELS, "train_denoiser": DENOISER_KERNELS}
+                "encoder_modes": ENCODER_MODE_KERNELS, "train_denoiser": DENOISER_KERNELS,
+                "verifier_gen": VERIFIER_GEN_KERNELS, "train_verifier": "",
+                "serve": SERVE_KERNELS}
 MAIN_PATH = {"A": "train", "B": "train", "R": "encoder_modes"}  # the rest: "inference"
 
 
@@ -327,14 +352,16 @@ def phase_kernels(results: dict) -> None:
     raw_rows = cuda_build.function("sa_raw", "pfpp_sa_raw_rows")
 
     # S: the three SA stages of one denoise step at M = 96 clouds (b8 x P12), then of the
-    # denoiser validation's frozen encode at M = 1280 (64 shapes x 20 slots; listed apart
+    # denoiser validation's frozen encode at M = 1280 (64 shapes x 20 slots) and of verifier
+    # generation's denoise step at M = 20 (one shape at the 20-part pad; both listed apart
     # from the step's sum)
     S_STAGES = {"SA1": (256, 32, 0, 0, 64, 64, 128),
                 "SA2": (128, 64, 256, 128, 128, 128, 256),
                 "SA3": (25, 64, 128, 256, 256, 256, 512)}
     for M, path, reps, plain_reps, (stage, (S, K, N2, D, C1, C2, C3)) in (
             [(96, "inference", 20, 3, st) for st in S_STAGES.items()]
-            + [(1280, "train_denoiser", 5, 1, st) for st in S_STAGES.items()]):
+            + [(1280, "train_denoiser", 5, 1, st) for st in S_STAGES.items()]
+            + [(20, "verifier_gen", 20, 3, st) for st in S_STAGES.items()]):
         t0 = time.perf_counter()
         g = randn(M, S, K, 3, scale=0.1)
         w_eff = randn(M, 3, C1, scale=3 ** -0.5)
@@ -423,14 +450,17 @@ def phase_kernels(results: dict) -> None:
 
     # F: the inference cache build's three stages at M = 96 clouds and the widest merge pad
     # (partial mask; the streaming variant), then the three SA stages of a training step at
-    # M = 160 clouds
+    # M = 160 clouds, then verifier generation's cache build at M = 20
     for B, N, npoint, masked, path in ((96, 1000, 256, False, "inference"),
                                        (96, 256, 128, False, "inference"),
                                        (96, 128, 25, False, "inference"),
                                        (10, 20000, 1000, True, "inference"),
                                        (160, 1000, 256, False, "train"),
                                        (160, 256, 128, False, "train"),
-                                       (160, 128, 25, False, "train")):
+                                       (160, 128, 25, False, "train"),
+                                       (20, 1000, 256, False, "verifier_gen"),
+                                       (20, 256, 128, False, "verifier_gen"),
+                                       (20, 128, 25, False, "verifier_gen")):
         t0 = time.perf_counter()
         xyz = randn(B, N, 3)
         mask = (torch.rand((B, N), generator=gen, device=dev) < 0.6) if masked else None
@@ -502,14 +532,16 @@ def phase_kernels(results: dict) -> None:
                seconds=time.perf_counter() - t0)
 
     # G: the largest grouping gather of the cache build (SA1 neighbourhoods), then the
-    # neighbourhood xyz gathers of a training step's SA1, SA2 and SA3 at M = 160
+    # neighbourhood xyz gathers of a training step's SA1, SA2 and SA3 at M = 160, then
+    # verifier generation's SA1 neighbourhoods at M = 20
     gather_row("G", gather.gather_points, 96, 1000, 3, (256, 32), "inference", 50)
     for N, S, K in ((1000, 256, 32), (256, 128, 64), (128, 25, 64)):
         gather_row("G", gather.gather_points, 160, N, 3, (S, K), "train", 50)
+    gather_row("G", gather.gather_points, 20, 1000, 3, (256, 32), "verifier_gen", 50)
 
     # N: part_acc clouds, the b8 engine's shape_cd clouds (engine-shaped: 12 parts of 1000
     # points, padded parts at 1e3, two poses), the widest pad's shape_cd clouds (random), then
-    # a training step's chamfer loss
+    # a training step's chamfer loss, then verifier generation's per-part labels (20 parts)
     sms, clock_mhz = torch.cuda.get_device_properties(0).multi_processor_count, sm_clock_mhz()
 
     def issue(pairs, ms):
@@ -522,7 +554,8 @@ def phase_kernels(results: dict) -> None:
     for B, N, path, engine_shaped in ((96, 1000, "inference", False),
                                       (8, 12000, "inference", True),
                                       (8, 20000, "inference", False),
-                                      (160, 1000, "train", False)):
+                                      (160, 1000, "train", False),
+                                      (20, 1000, "verifier_gen", False)):
         t0 = time.perf_counter()
         x, y = (nn_engine_clouds(gen, B, N // 1000) if engine_shaped
                 else (randn(B, N, 3), randn(B, N, 3)))
@@ -777,6 +810,16 @@ def _train_config(data_root: str, out_dir: str):
     return cfg
 
 
+def _loader_seconds(dataset, batch: int) -> float:
+    """Host seconds to build one training batch (the work ``prefetch_batches`` moves off
+    the step, except for each epoch's first batch)."""
+    from puzzlefusion_plusplus_tpu_torch.data import Loader
+
+    t1 = time.perf_counter()
+    next(iter(Loader(dataset, batch, seed=1)))
+    return time.perf_counter() - t1
+
+
 def phase_train(data_root: str) -> dict:
     """Six steps of the trainer's entry point on the card (the first warms up); per-step
     times from its metrics stream, whose records end in a host sync."""
@@ -786,6 +829,7 @@ def phase_train(data_root: str) -> dict:
     import torch
 
     from puzzlefusion_plusplus_tpu_torch import ops
+    from puzzlefusion_plusplus_tpu_torch.data import VQVAEDataset
     from puzzlefusion_plusplus_tpu_torch.training.vqvae import METRIC_KEYS, train
 
     t0 = time.perf_counter()
@@ -806,6 +850,8 @@ def phase_train(data_root: str) -> dict:
     _check(all(counts[k] > 0 for k in TRAIN_KERNELS), f"a kernel never launched: {counts}")
     timed_s = recs[-1]["wall_s"] - recs[0]["wall_s"]
     row = {"phase": "train", "seconds": time.perf_counter() - t0, "batch_shapes": 8,
+           "steps_per_epoch": TRAIN_SHAPES // 8,
+           "loader_s_per_batch": _loader_seconds(VQVAEDataset(cfg.data.data_dir), 8),
            "clouds_per_step": 8 * cfg.data.max_num_part, "timed_steps": steps - 1,
            "steps_per_s": (steps - 1) / timed_s,
            "valid_parts_per_s": sum(r["valid_parts"] for r in recs[1:]) / timed_s,
@@ -1023,6 +1069,7 @@ def phase_train_denoiser(data_root: str, vqvae_trained: bool) -> dict:
     import torch
 
     from puzzlefusion_plusplus_tpu_torch import ops
+    from puzzlefusion_plusplus_tpu_torch.data import DenoiserDataset
     from puzzlefusion_plusplus_tpu_torch.training.denoiser import EVAL_KEYS, train
 
     t0 = time.perf_counter()
@@ -1050,7 +1097,10 @@ def phase_train_denoiser(data_root: str, vqvae_trained: bool) -> dict:
     _check(all(np.isfinite(evals[0][f"eval_{k}"]) for k in EVAL_KEYS), f"eval: {evals}")
     _check(all(counts[k] > 0 for k in DENOISER_KERNELS), f"a kernel never launched: {counts}")
     timed_s = steps[5]["wall_s"] - steps[0]["wall_s"]
+    loader_s = _loader_seconds(DenoiserDataset(cfg.data.data_dir, mode="train"),
+                               DENOISER_BATCH)
     row = {"phase": "train_denoiser", "seconds": time.perf_counter() - t0,
+           "steps_per_epoch": DENOISER_SHAPES // DENOISER_BATCH, "loader_s_per_batch": loader_s,
            "encoder_ckpt": cfg.denoiser.encoder_ckpt_path or "seeded (phase train not run)",
            "batch_shapes": DENOISER_BATCH, "clouds_per_step": DENOISER_BATCH * 20,
            "timed_steps": 5, "steps_per_s": 5 / timed_s,
@@ -1148,11 +1198,269 @@ def phase_profile_denoiser(data_root: str) -> dict:
     return row
 
 
+def _denoiser_checkpoint(trained: bool) -> str:
+    """Phase 10's checkpoint directory, or "" when phase 10 did not run in this invocation."""
+    path = os.path.join(REPO, ".smoke", "denoiser_out", "everyday", "denoiser", "ckpt")
+    return path if trained and os.path.isdir(path) else ""
+
+
+VERIFIER_GEN_SHAPES = 8  # synthetic train shapes of 3-12 parts (seed 15), one round each
+
+
+def phase_verifier_gen(data_root: str, vqvae_trained: bool, denoiser_trained: bool) -> dict:
+    """Verifier data from the full-width denoiser (phase 13): 8 shapes at the 20-part pad
+    through ``data/verifier_gen.py``, the denoiser and encoder loaded from phases 10 and 6's
+    checkpoints (seeded when those did not run)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from puzzlefusion_plusplus_tpu_torch import ops
+    from puzzlefusion_plusplus_tpu_torch.data import VerifierDataset, verifier_gen
+    from puzzlefusion_plusplus_tpu_torch.utils.config import Config
+
+    t0 = time.perf_counter()
+    cfg = Config()
+    cfg.denoiser.encoder_ckpt_path = _vqvae_checkpoint(vqvae_trained)
+    cfg.denoiser.ckpt_path = _denoiser_checkpoint(denoiser_trained)
+    out_dir = os.path.join(REPO, ".smoke", "verifier_gen_out")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    sample_fn = verifier_gen.denoiser_sample_fn(cfg, "cuda")
+    sample_s = []
+
+    def timed_sample(batch, generator):
+        t1 = time.perf_counter()
+        out = sample_fn(batch, generator)
+        torch.cuda.synchronize()
+        sample_s.append(time.perf_counter() - t1)
+        return out
+
+    ops.reset_launch_counts()  # the verifier-generation path's run starts here
+    t1 = time.perf_counter()
+    written = verifier_gen.generate_verifier_data(
+        timed_sample, os.path.join(data_root, "pc_data", "train"),
+        os.path.join(data_root, "matching_data"), out_dir, cfg.data.max_num_part,
+        seed=cfg.trainer.seed, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = ops.launch_counts()
+    files = sorted(os.listdir(out_dir))
+    _check(written == len(files) == VERIFIER_GEN_SHAPES, f"{written} written, files {files}")
+    read = [VerifierDataset(out_dir, mode) for mode in ("train", "val")]
+    _check(sum(len(d) for d in read) == VERIFIER_GEN_SHAPES, "VerifierDataset lost files")
+    items = [d.get(i, None) for d in read for i in range(len(d))]
+    _check(all(np.isfinite(it["edge_features"]).all() for it in items), "non-finite features")
+    _check(all(counts[k] > 0 for k in VERIFIER_GEN_KERNELS), f"a kernel never launched: {counts}")
+    labels = [np.load(os.path.join(out_dir, f))["cls_gt"] for f in files]
+    row = {"phase": "verifier_gen", "seconds": time.perf_counter() - t0, "shapes": written,
+           "denoiser_ckpt": cfg.denoiser.ckpt_path or "seeded (phase train_denoiser not run)",
+           "encoder_ckpt": cfg.denoiser.encoder_ckpt_path or "seeded (phase train not run)",
+           "wall_s": wall, "seconds_per_shape": wall / written, "sample_s": sample_s,
+           "edges": int(sum(len(x) for x in labels)),
+           "positive_edges": int(sum(int(x.sum()) for x in labels)), "launches": counts}
+    emit(row)
+    return row
+
+
+VERIFIER_FILES, VERIFIER_BATCH = 160, 64  # 128 train + 32 val files; the config's batch
+
+
+def _verifier_files(root: str) -> None:
+    """160 synthetic verifier files (``data/synthetic.py::make_verifier_data_npz``) over 8
+    fractured shapes of 3-12 parts, 20 draws of the edge labels each (seed 16)."""
+    import numpy as np
+
+    from puzzlefusion_plusplus_tpu_torch.data.synthetic import (
+        fracture_shape,
+        make_matching_data_npz,
+        make_verifier_data_npz,
+    )
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(16)
+    pool = []
+    for _ in range(8):
+        shape = fracture_shape(rng, int(rng.integers(3, 13)), n_points=1000, n_dense=40000)
+        pool.append((shape, make_matching_data_npz(shape, rng)))
+    for i in range(VERIFIER_FILES):
+        shape, matching = pool[i % len(pool)]
+        np.savez(os.path.join(root, f"{i:05d}.npz"),
+                 **make_verifier_data_npz(shape, matching, rng))
+
+
+def _verifier_config(data_dir: str, out_dir: str):
+    """Config() at full verifier width (256/6/8, 7 features, 190 edges), batch 64: two steps
+    an epoch on 128 train files, validation at the end of epoch 3 on the 32 val files."""
+    from puzzlefusion_plusplus_tpu_torch.utils.config import Config
+
+    cfg = Config()
+    cfg.data.verifier_data_path = data_dir
+    cfg.data.batch_size = cfg.data.val_batch_size = VERIFIER_BATCH
+    cfg.trainer.output_dir = out_dir
+    cfg.trainer.log_every = 1
+    cfg.verifier.epochs = cfg.trainer.ckpt_every_epochs = 3
+    return cfg
+
+
+def phase_train_verifier(data_dir: str) -> dict:
+    """Six steps and a validation pass of the verifier trainer (phase 14); per-step times
+    from its metrics stream."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from puzzlefusion_plusplus_tpu_torch import ops
+    from puzzlefusion_plusplus_tpu_torch.data import Loader, VerifierDataset
+    from puzzlefusion_plusplus_tpu_torch.training.verifier import METRIC_KEYS, train
+
+    t0 = time.perf_counter()
+    out_dir = os.path.join(REPO, ".smoke", "verifier_out")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cfg = _verifier_config(data_dir, out_dir)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()  # the verifier training path's run starts here
+    state = train(cfg, device="cuda")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    run_dir = os.path.join(out_dir, cfg.trainer.experiment_name, "verifier")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as fh:
+        recs = [json.loads(line) for line in fh]
+    steps = [r for r in recs if "cls_loss" in r]
+    evals = [r for r in recs if "val_cls_acc" in r]
+    _check(state.step == 6 and len(steps) == 6 and len(evals) == 1,
+           f"{state.step} steps, {len(steps)} step logs, {len(evals)} eval logs")
+    _check(all(np.isfinite(r[k]) for r in steps for k in METRIC_KEYS), f"non-finite: {steps}")
+    _check(all(np.isfinite(evals[0][f"val_{k}"]) for k in METRIC_KEYS), f"eval: {evals}")
+    # the valid edges of the timed steps 1-5, from the trainer's own batch order
+    loader = Loader(VerifierDataset(data_dir, "train"), VERIFIER_BATCH, seed=cfg.trainer.seed)
+    edges = [float(b["edge_valids"].sum()) for _ in range(3) for b in loader]
+    timed_s = steps[5]["wall_s"] - steps[0]["wall_s"]
+    row = {"phase": "train_verifier", "seconds": time.perf_counter() - t0,
+           "files": VERIFIER_FILES, "batch": VERIFIER_BATCH, "timed_steps": 5,
+           "steps_per_s": 5 / timed_s, "edges_per_s": sum(edges[1:6]) / timed_s,
+           "step_wall_s": [b["wall_s"] - a["wall_s"] for a, b in zip(steps, steps[1:])],
+           "validation_wall_s": evals[0]["wall_s"] - steps[5]["wall_s"],
+           "per_step": [{"step": r["step"], "cls_loss": r["cls_loss"], "cls_acc": r["cls_acc"]}
+                        for r in steps],
+           "eval": {k: evals[0][f"val_{k}"] for k in METRIC_KEYS},
+           "max_memory_allocated_bytes": peak, "launches": counts,
+           "checkpoints": sorted(d for d in os.listdir(os.path.join(run_dir, "ckpt"))
+                                 if d.startswith("step_"))}
+    emit(row)
+    return row
+
+
+def phase_verifier_parity(data_dir: str) -> dict:
+    """One verifier train_step on the card and one on the CPU (phase 15), full width, the
+    config's batch of 64 files, dropout off."""
+    import torch
+
+    from puzzlefusion_plusplus_tpu_torch.data import Loader, VerifierDataset
+    from puzzlefusion_plusplus_tpu_torch.training import parity
+    from puzzlefusion_plusplus_tpu_torch.training.verifier import make_model
+
+    t0 = time.perf_counter()
+    cfg = _verifier_config(data_dir, os.path.join(REPO, ".smoke", "verifier_out"))
+    batch = next(iter(Loader(VerifierDataset(data_dir, "train"), VERIFIER_BATCH,
+                             shuffle=False)))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.trainer.seed)
+        sd = make_model(cfg).state_dict()
+    args = (lambda: make_model(cfg, dropout=0.0), sd, batch)
+    gpu = parity.verifier_step_on(*args, "cuda")
+    t_gpu = time.perf_counter() - t0
+    cpu = parity.verifier_step_on(*args, "cpu")
+    row = {"phase": "verifier_parity", "gpu_seconds": t_gpu,
+           "edges": int(batch["edge_valids"].sum()),
+           "loss_gpu": gpu["metrics"]["cls_loss"], "loss_cpu": cpu["metrics"]["cls_loss"],
+           "cls_acc_gpu": gpu["metrics"]["cls_acc"], "cls_acc_cpu": cpu["metrics"]["cls_acc"]}
+    row["errors"] = parity.compare(cpu, gpu, ("cls_loss",))
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+    return row
+
+
+def _serve_checkpoints(vqvae_trained: bool, denoiser_trained: bool,
+                       verifier_trained: bool) -> dict:
+    """The checkpoints of phases 6, 10 and 14; a phase that did not run in this invocation
+    is stood in for by its seeded model saved under ``.smoke/serve_ckpt``."""
+    import torch
+
+    from puzzlefusion_plusplus_tpu_torch.inference.run import make_models
+    from puzzlefusion_plusplus_tpu_torch.training.state import adamw_reference, save_checkpoint
+    from puzzlefusion_plusplus_tpu_torch.utils.config import Config
+
+    import shutil
+
+    shutil.rmtree(os.path.join(REPO, ".smoke", "serve_ckpt"), ignore_errors=True)
+    paths = {"vqvae": _vqvae_checkpoint(vqvae_trained),
+             "denoiser": _denoiser_checkpoint(denoiser_trained),
+             "verifier": os.path.join(REPO, ".smoke", "verifier_out", "everyday", "verifier",
+                                      "ckpt") if verifier_trained else ""}
+    models = dict(zip(("vqvae", "denoiser", "verifier"), make_models(Config())))
+    for name, path in paths.items():
+        if not path:
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(17)  # other weights than the seeded engine's
+                for p in models[name].parameters():
+                    p.data.add_(0.01 * torch.randn_like(p))
+            paths[name] = save_checkpoint(os.path.join(REPO, ".smoke", "serve_ckpt", name),
+                                          adamw_reference(models[name], 1e-4))
+    return paths
+
+
+def phase_serve(data_root: str, paths: dict) -> dict:
+    """The b8 engine batch served through ``build_engine_fn`` with the three checkpoints named
+    by ``*.ckpt_path`` (phase 16), then with the same weights passed as ``state_dicts``
+    under the same generator seed: the results must be equal."""
+    import numpy as np
+
+    from puzzlefusion_plusplus_tpu_torch import ops
+    from puzzlefusion_plusplus_tpu_torch.inference.run import build_engine_fn, run_inference
+    from puzzlefusion_plusplus_tpu_torch.training.state import load_model_state
+
+    t0 = time.perf_counter()
+    cfg = _full_config(data_root)
+    cfg.denoiser.encoder_ckpt_path = paths["vqvae"]
+    cfg.denoiser.ckpt_path = paths["denoiser"]
+    cfg.verifier.ckpt_path = paths["verifier"]
+    engine = build_engine_fn(cfg, "cuda")
+    ops.reset_launch_counts()  # the serving path's run starts here
+    t1 = time.perf_counter()
+    served = run_inference(cfg, engine=engine)
+    wall_ckpt = time.perf_counter() - t1
+    counts = ops.launch_counts()
+    sds = {name: load_model_state(path, name) for name, path in paths.items()}
+    plain = _full_config(data_root)
+    given_engine = build_engine_fn(plain, "cuda", state_dicts=sds)
+    t1 = time.perf_counter()
+    given = run_inference(plain, engine=given_engine)
+    wall_given = time.perf_counter() - t1
+    _check(all(counts[k] > 0 for k in SERVE_KERNELS), f"a kernel never launched: {counts}")
+    vals = [served[f"eval/{k}"] for k in ("part_acc", "shape_cd", "rmse_r", "rmse_t")]
+    _check(all(np.isfinite(vals)), f"non-finite metrics {served}")
+    row = {"phase": "serve", "seconds": time.perf_counter() - t0, "checkpoints": paths,
+           "num_samples": served["num_samples"], "wall_s_checkpoints": wall_ckpt,
+           "wall_s_state_dicts": wall_given,
+           "assemblies_per_s": served["num_samples"] / wall_ckpt,
+           "assemblies_per_s_state_dicts": given["num_samples"] / wall_given,
+           "part_acc": served["eval/part_acc"], "shape_cd": served["eval/shape_cd"],
+           "n_iters": served["n_iters"], "n_merged_pairs": served["n_merged_pairs"],
+           "equal_to_state_dicts": served == given, "launches": counts}
+    emit(row)
+    _check(served == given, f"checkpoint-loaded engine differs: {served} vs {given}")
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,fps_shapes,engine,merge,profile,train,"
                                         "train_parity,profile_train,encoder_modes,"
-                                        "train_denoiser,denoiser_parity,profile_denoiser")
+                                        "train_denoiser,denoiser_parity,profile_denoiser,"
+                                        "verifier_gen,train_verifier,verifier_parity,serve")
     phases = ap.parse_args().phases.split(",")
 
     import torch
@@ -1176,7 +1484,7 @@ def main() -> int:
         phase_fps_shapes()
     launches = {}  # per path: the counts of its own run
     data_root = os.path.join(REPO, ".smoke", "chip_smoke_data")
-    if {"engine", "merge", "profile", "encoder_modes"} & set(phases):
+    if {"engine", "merge", "profile", "encoder_modes", "serve"} & set(phases):
         t0 = time.perf_counter()
         generate_dataset(data_root, num_shapes=8, seed=7, split="val", min_parts=3,
                          max_parts=12)
@@ -1222,6 +1530,27 @@ def main() -> int:
             phase_denoiser_parity(den_root)
         if "profile_denoiser" in phases:
             phase_profile_denoiser(den_root)
+    if "verifier_gen" in phases:
+        t0 = time.perf_counter()
+        gen_root = os.path.join(REPO, ".smoke", "chip_smoke_verifier_gen_data")
+        generate_dataset(gen_root, num_shapes=VERIFIER_GEN_SHAPES, seed=15, split="train",
+                         min_parts=3, max_parts=12, with_verifier=False)
+        emit({"phase": "verifier_gen_data", "seconds": time.perf_counter() - t0})
+        launches["verifier_gen"] = phase_verifier_gen(
+            gen_root, "train" in phases, "train_denoiser" in phases)["launches"]
+    if {"train_verifier", "verifier_parity"} & set(phases):
+        t0 = time.perf_counter()
+        ver_root = os.path.join(REPO, ".smoke", "chip_smoke_verifier_data")
+        _verifier_files(ver_root)
+        emit({"phase": "verifier_data", "seconds": time.perf_counter() - t0})
+        if "train_verifier" in phases:
+            launches["train_verifier"] = phase_train_verifier(ver_root)["launches"]
+        if "verifier_parity" in phases:
+            phase_verifier_parity(ver_root)
+    if "serve" in phases:
+        launches["serve"] = phase_serve(data_root, _serve_checkpoints(
+            "train" in phases, "train_denoiser" in phases,
+            "train_verifier" in phases))["launches"]
 
     if results:
         rows = []

@@ -1,7 +1,7 @@
 """Dataset readers over the pc_data / matching_data .npz schemas.
 
-Copies of ``VQVAEDataset`` and ``DenoiserDataset`` (train, val and test modes) from
-``puzzlefusion_plusplus_tpu/data/datasets.py``, with the per-part augmentation done in numpy
+Copies of ``VQVAEDataset``, ``DenoiserDataset`` (train, val and test modes) and
+``VerifierDataset`` from ``puzzlefusion_plusplus_tpu/data/datasets.py``, with the per-part augmentation done in numpy
 (the numpy fallback of ``utils/native.py::augment_parts_cpu``). Rotations and the training
 curriculum's draws come in the reference rng order, so the same loader seed yields the same
 samples as the JAX package's datasets.
@@ -15,6 +15,8 @@ import numpy as np
 from scipy.spatial.transform import Rotation as R
 
 from puzzlefusion_plusplus_tpu_torch.models.scheduler import piecewise_betas
+
+MAX_EDGES = 190  # 20 * 19 / 2: the upper triangle of the 20-part pad
 
 
 def _draw_rotations(num: int, rng: np.random.Generator) -> tuple[np.ndarray, np.ndarray]:
@@ -293,4 +295,45 @@ class DenoiserDataset:
             d = self._densify_matching(d, s["matching"])
         elif self.mode == "train" and self.multiple_ref_parts:
             d = self._curriculum_ref_parts(d, rng)
+        return d
+
+
+class VerifierDataset:
+    """Verifier files (``cls_gt``, ``edge_features [E, 6]``, ``edge_indices [E, 2]``) padded
+    to ``max_edges`` with ``edge_valids``; the sorted files split 80/20 into train and val.
+    ``get`` divides each edge's 6 histogram bins by its point count and appends the count
+    as the 7th feature (reference verifier/dataset/dataset.py)."""
+
+    def __init__(self, data_dir: str, mode: str = "train", overfit: int = -1,
+                 max_edges: int = MAX_EDGES):
+        self.max_edges = max_edges
+        files = sorted(f for f in os.listdir(data_dir) if f.endswith(".npz"))
+        if overfit != -1:
+            files = files[:overfit]
+        cut = int(0.8 * len(files))
+        files = files[:cut] if mode == "train" else files[cut:]
+        self.data_list = []
+        for f in files:
+            data = np.load(os.path.join(data_dir, f))
+            num_edges = data["edge_indices"].shape[0]
+            edge_valids = np.zeros(max_edges, np.float32)
+            edge_valids[:num_edges] = 1
+            self.data_list.append({
+                "cls_gt": _pad(data["cls_gt"].astype(np.float32)[:, None], max_edges)[:, 0],
+                "edge_features": _pad(data["edge_features"].astype(np.float32), max_edges),
+                "edge_indices": _pad(data["edge_indices"].astype(np.float32), max_edges)
+                .astype(np.int64),
+                "edge_valids": edge_valids,
+                "num_edges": num_edges,
+            })
+
+    def __len__(self):
+        return len(self.data_list)
+
+    def get(self, idx: int, rng: np.random.Generator) -> dict:
+        d = dict(self.data_list[idx])
+        feats = d["edge_features"]
+        num_points = feats.sum(axis=1)
+        feats = feats / np.where(num_points == 0, 1, num_points)[:, None]
+        d["edge_features"] = np.concatenate([feats, num_points[:, None]], axis=1)
         return d

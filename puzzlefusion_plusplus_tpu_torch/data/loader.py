@@ -1,12 +1,15 @@
 """Host-side batch loader (numpy).
 
-A copy of ``Loader`` and ``collate_stack`` from ``puzzlefusion_plusplus_tpu/data/loader.py``,
-kept so that the port imports nothing from the JAX package. Batches are stacked dicts of
-numpy arrays; the same seed serves the same batches in the same order as the JAX package.
+A copy of ``Loader``, ``prefetch_batches`` and ``collate_stack`` from
+``puzzlefusion_plusplus_tpu/data/loader.py``, kept so that the port imports nothing from the
+JAX package. Batches are stacked dicts of numpy arrays; the same seed serves the same batches
+in the same order as the JAX package.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Any, Callable, Iterator
 
 import numpy as np
@@ -81,6 +84,51 @@ class Loader:
         if self.shuffle and rng is not None:
             batches = [batches[i] for i in rng.permutation(len(batches))]
         return batches
+
+
+def prefetch_batches(iterable, depth: int = 2) -> Iterator[Any]:
+    """Drive ``iterable`` from one daemon thread, at most ``depth`` items ahead of the
+    consumer, so that the host builds the next batch while the card runs the step. One
+    producer keeps the loader's rng call order, so batches come out bit for bit as plain
+    iteration gives them. The producer touches numpy only, never CUDA. Its exceptions
+    re-raise at the consumer; a consumer that leaves early (``max_steps``) stops it."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    sentinel = object()
+    err: list[BaseException] = []
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in iterable:
+                if not put(item):
+                    return
+        except BaseException as e:  # noqa: BLE001 - re-raised at the consumer
+            err.append(e)
+        finally:
+            # the sentinel must reach the consumer even when the queue is full at the end
+            # (a slow consumer), or it waits in q.get() forever
+            put(sentinel)
+
+    threading.Thread(target=worker, daemon=True).start()
+    try:
+        while True:
+            item = q.get()
+            if item is sentinel:
+                if err:
+                    raise err[0]
+                return
+            yield item
+    finally:
+        stop.set()
 
 
 def collate_stack(items: list[dict[str, Any]]) -> dict[str, np.ndarray]:

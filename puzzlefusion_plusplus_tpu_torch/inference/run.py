@@ -6,9 +6,13 @@ CPU), prints the mean metrics and writes the renderer artifacts in the JAX packa
 (per sample ``predict_{acc}.npy``, ``gt.npy``, ``init_pose.npy``, ``mesh_file_path.txt``) and,
 with ``inference.save_breakdown``, one ``breakdown.jsonl`` record per shape.
 
-Loading the orbax checkpoints that ``*.ckpt_path`` name waits for a later slice; without
-them the port initialises its weights from ``trainer.seed``. Callers holding flax weights
-pass them converted (``convert/from_jax.py``) as ``state_dicts``.
+The weights come from the checkpoints that ``denoiser.encoder_ckpt_path``,
+``denoiser.ckpt_path`` and ``verifier.ckpt_path`` name: the port's own (``state.pt`` under a
+``step_N`` dir, a ckpt dir for its best, ``.../best`` or ``.../latest``) or the original
+repo's Lightning ``.ckpt`` files (``training/state.py::load_model_state``). The JAX package's
+orbax checkpoints are converted first by ``scripts/jax_ckpt_to_torch.py``. A key left empty
+keeps the weights drawn from ``trainer.seed``. Callers holding flax weights may also pass
+them converted (``convert/from_jax.py``) as ``state_dicts``.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from puzzlefusion_plusplus_tpu_torch.models.denoiser import make_denoiser
 from puzzlefusion_plusplus_tpu_torch.models.scheduler import DDPMParams
 from puzzlefusion_plusplus_tpu_torch.models.verifier import VerifierTransformer
 from puzzlefusion_plusplus_tpu_torch.models.vqvae import VQVAE
+from puzzlefusion_plusplus_tpu_torch.training.state import load_model_state
 from puzzlefusion_plusplus_tpu_torch.utils.config import Config, config_from_argv
 from puzzlefusion_plusplus_tpu_torch.utils.metrics import assembly_metrics
 
@@ -54,10 +59,8 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
 
 
 def make_models(cfg: Config):
-    """(vqvae, denoiser, verifier) at cfg's widths, with weights drawn from trainer.seed."""
-    if cfg.denoiser.ckpt_path or cfg.verifier.ckpt_path or cfg.denoiser.encoder_ckpt_path:
-        raise NotImplementedError("orbax checkpoints are not loaded by the port yet; "
-                                  "pass converted state_dicts instead")
+    """(vqvae, denoiser, verifier) at cfg's widths, with weights drawn from trainer.seed and
+    then loaded from each checkpoint that cfg names (``load_model_state``)."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.trainer.seed)
         vqvae = VQVAE(cfg.ae.n_embeddings, cfg.ae.embedding_dim, cfg.ae.num_point,
@@ -66,6 +69,15 @@ def make_models(cfg: Config):
         verifier = VerifierTransformer(cfg.verifier.embed_dim, cfg.verifier.num_layers,
                                        cfg.verifier.num_heads, cfg.verifier.max_nodes,
                                        cfg.verifier.num_features)
+    if cfg.denoiser.encoder_ckpt_path:
+        # the denoiser trainer's loader (imported here: that module imports this one)
+        from puzzlefusion_plusplus_tpu_torch.training.denoiser import load_frozen_encoder
+
+        vqvae = load_frozen_encoder(cfg, "cpu").model
+    if cfg.denoiser.ckpt_path:
+        denoiser.load_state_dict(load_model_state(cfg.denoiser.ckpt_path, "denoiser"))
+    if cfg.verifier.ckpt_path:
+        verifier.load_state_dict(load_model_state(cfg.verifier.ckpt_path, "verifier"))
     return vqvae, denoiser, verifier
 
 

@@ -38,15 +38,19 @@ class AdaLayerNorm(nn.Module):
         return x * (1.0 + scale[:, None, :]) + shift[:, None, :]
 
 
-def attention(q, k, v, heads: int, bias):
-    """q/k/v [B, T, C] -> [B, T, C]: softmax(q k^T / sqrt(hd) + bias) v per head."""
+def attention(q, k, v, heads: int, bias, dropout: float = 0.0):
+    """q/k/v [B, T, C] -> [B, T, C]: softmax(q k^T / sqrt(hd) + bias) v per head, with
+    dropout of rate ``dropout`` on the probabilities (callers pass 0 outside training)."""
     B, T, C = q.shape
     hd = C // heads
     q, k, v = (t.reshape(B, T, heads, hd).transpose(1, 2) for t in (q, k, v))
     scores = q @ k.transpose(-1, -2) / math.sqrt(hd)
     if bias is not None:
         scores = scores + bias
-    out = torch.softmax(scores, dim=-1) @ v
+    probs = torch.softmax(scores, dim=-1)
+    if dropout:
+        probs = F.dropout(probs, dropout, training=True)
+    out = probs @ v
     return out.transpose(1, 2).reshape(B, T, C)
 
 

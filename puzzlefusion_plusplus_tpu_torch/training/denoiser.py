@@ -17,7 +17,8 @@ denoiser/model/denoiser.py):
 * optimizer: AdamW lr 2e-4, betas (0.95, 0.999), weight decay 1e-6.
 
 The stage-1 encoder comes from a checkpoint of ``training.vqvae`` (the port's format), or is
-untrained and seeded when no path is given. One device; data parallelism comes later.
+untrained and seeded when no path is given. One device (``trainer.num_devices`` above 1
+raises); data parallelism comes later.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch
 
 from puzzlefusion_plusplus_tpu_torch.data.bucketing import part_bucket, slice_batch_parts
 from puzzlefusion_plusplus_tpu_torch.data.datasets import DenoiserDataset
-from puzzlefusion_plusplus_tpu_torch.data.loader import Loader
+from puzzlefusion_plusplus_tpu_torch.data.loader import Loader, prefetch_batches
 from puzzlefusion_plusplus_tpu_torch.inference.run import resolve_device
 from puzzlefusion_plusplus_tpu_torch.inference.sampler import (
     FrozenEncoder,
@@ -50,8 +51,9 @@ from puzzlefusion_plusplus_tpu_torch.training.state import (
     TopKCheckpointer,
     TrainState,
     adamw_reference,
-    load_checkpoint,
+    load_model_state,
     maybe_restore,
+    require_one_device,
     save_checkpoint,
 )
 from puzzlefusion_plusplus_tpu_torch.training.vqvae import make_model as make_ae_model
@@ -159,22 +161,26 @@ def require_fp32(cfg: Config) -> None:
 
 def load_frozen_encoder(cfg: Config, device) -> FrozenEncoder:
     """The stage-1 VQ-VAE from ``denoiser.encoder_ckpt_path`` (a ``training.vqvae``
-    checkpoint: a ``step_N`` dir, a ckpt dir for its best, or ``.../best`` / ``.../latest``),
-    or untrained from seed 0 when no path is given. fp32 only (``require_fp32``)."""
+    checkpoint: a ``step_N`` dir, a ckpt dir for its best, or ``.../best`` / ``.../latest``;
+    or an original-repo Lightning file, ``training/state.py::load_model_state``), or
+    untrained from seed 0 when no path is given. fp32 only (``require_fp32``)."""
     require_fp32(cfg)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         ae = make_ae_model(cfg)
     if cfg.denoiser.encoder_ckpt_path:
-        ae.load_state_dict(load_checkpoint(cfg.denoiser.encoder_ckpt_path)["model"])
+        ae.load_state_dict(load_model_state(cfg.denoiser.encoder_ckpt_path, "vqvae"))
     return make_frozen_encoder(ae.to(device))
 
 
 def train(cfg: Config, max_steps: int | None = None, device=None) -> TrainState:
     """Train from a seeded init (or resume), validating every ``denoiser.val_every`` epochs
     and keeping the top-k checkpoints by eval part accuracy; ``max_steps`` stops early with
-    a checkpoint. Runs on ``cuda`` unless ``device="cpu"``; fp32 only (``require_fp32``)."""
+    a checkpoint. Runs on ``cuda`` unless ``device="cpu"``; fp32 only (``require_fp32``) and
+    on one device (``require_one_device``); a producer thread builds the next batch
+    meanwhile."""
     require_fp32(cfg)
+    require_one_device(cfg)
     device = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.trainer.seed)
@@ -220,7 +226,7 @@ def train(cfg: Config, max_steps: int | None = None, device=None) -> TrainState:
     state = maybe_restore(state, f"{out_dir}/ckpt", d.ckpt_path)
     steps_per_epoch = max(len(train_loader), 1)
     for epoch in range(min(state.step // steps_per_epoch, d.epochs), d.epochs):
-        for batch in train_loader:
+        for batch in prefetch_batches(train_loader):
             step = state.step
             metrics = train_step(state, prepare(batch), encoder, ddpm, generator,
                                  timestep_set, d.train_encode_cached)

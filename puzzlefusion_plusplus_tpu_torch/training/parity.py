@@ -30,6 +30,8 @@ The denoiser step is held to the same tolerances (it has no SA stage and no Batc
 all its gradients are held elementwise), with its injected timesteps and noise, dropout
 off, and the same frozen-encoder codes on both devices (``denoiser_step_on`` returns the
 smallest code margin so a caller can check that no code sat within float error of a tie).
+The verifier step (``verifier_step_on``) is held to them too, with dropout off: its loss
+1e-5 relative, every gradient elementwise.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from puzzlefusion_plusplus_tpu_torch.inference.sampler import build_feature_cach
 from puzzlefusion_plusplus_tpu_torch.models.scheduler import DDPMParams, add_noise
 from puzzlefusion_plusplus_tpu_torch.models.vqvae import VQVAE
 from puzzlefusion_plusplus_tpu_torch.training import denoiser as den_train
+from puzzlefusion_plusplus_tpu_torch.training import verifier as ver_train
 from puzzlefusion_plusplus_tpu_torch.training.state import adamw_multistep, adamw_reference
 from puzzlefusion_plusplus_tpu_torch.training.vqvae import METRIC_KEYS, to_device, train_step
 from puzzlefusion_plusplus_tpu_torch.utils.masking import compact_parts
@@ -94,6 +97,17 @@ def denoiser_step_on(make_model, state_dict: dict, make_encoder, batch: dict, de
                                    encode_cached, timesteps.to(device), noise.to(device))
     margin = code_margin(encoder, batch, timesteps.to(device), noise.to(device))
     return {**_result(model, metrics, lr), "code_margin": margin}
+
+
+def verifier_step_on(make_model, state_dict: dict, batch: dict, device, lr: float = 2e-4,
+                     weight_decay: float = 1e-6, negative_weight: float = 0.2) -> dict:
+    """One verifier ``train_step`` on ``device``; ``make_model()`` must build the verifier
+    without dropout. -> ``step_on``'s result."""
+    model = make_model().to(device)
+    model.load_state_dict(state_dict)
+    state = adamw_reference(model, lr, weight_decay=weight_decay)
+    metrics = ver_train.train_step(state, to_device(batch, device), negative_weight)
+    return _result(model, metrics, lr)
 
 
 @torch.no_grad()

@@ -9,7 +9,8 @@
   the optimizer's and scheduler's ``state_dict``s and the step; a save writes
   ``step_N.tmp`` and renames it, so an interrupted save never looks complete. Auto-resume,
   top-k retention with smoothed ranking (``topk.json``) and the ``best``/``latest`` aliases
-  keep the JAX package's semantics.
+  keep the JAX package's semantics. ``load_model_state`` also reads the original repo's
+  Lightning files (``convert/lightning_ckpt.py``).
 * Logging: an append-only JSONL stream echoed to stdout.
 """
 
@@ -23,6 +24,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from puzzlefusion_plusplus_tpu_torch.convert import lightning_ckpt
 
 STATE_FILE = "state.pt"
 _TMP = ".tmp"
@@ -131,6 +134,35 @@ def load_checkpoint(path: str) -> dict:
     """The saved dict of a checkpoint path (see ``resolve_checkpoint_path``), on the CPU."""
     return torch.load(os.path.join(resolve_checkpoint_path(path), STATE_FILE),
                       map_location="cpu", weights_only=True)
+
+
+def load_model_state(path: str, kind: str | None = None) -> dict:
+    """The model ``state_dict`` of one checkpoint, on the CPU: a port checkpoint (see
+    ``resolve_checkpoint_path``), or an original-repo Lightning ``.ckpt`` file, whose
+    ``kind`` ('vqvae', 'denoiser' or 'verifier') names the module to take
+    (``convert/lightning_ckpt.py``). A directory without ``state.pt``, such as an orbax
+    checkpoint of the JAX package, raises FileNotFoundError naming the converter."""
+    if os.path.isfile(path):
+        if kind is None:
+            raise ValueError(f"{path}: a Lightning checkpoint needs its kind "
+                             "('vqvae', 'denoiser' or 'verifier')")
+        return lightning_ckpt.load_file(path, kind)
+    resolved = resolve_checkpoint_path(path)
+    if not os.path.isfile(os.path.join(resolved, STATE_FILE)):
+        raise FileNotFoundError(
+            f"{path}: no {STATE_FILE} at {resolved}. An orbax checkpoint of the JAX package "
+            "is converted first: python scripts/jax_ckpt_to_torch.py --kind <vqvae|denoiser|"
+            "verifier> <orbax step dir> <out ckpt dir>")
+    return load_checkpoint(resolved)["model"]
+
+
+def require_one_device(cfg) -> None:
+    """The port trains on one card: refuse ``trainer.num_devices`` above 1 rather than
+    ignore it (-1, all local devices, and 1 train on one card)."""
+    if cfg.trainer.num_devices > 1:
+        raise NotImplementedError(
+            f"trainer.num_devices={cfg.trainer.num_devices} is not supported by the port yet "
+            "(data parallelism, parallel/mesh.py, is not ported); use trainer.num_devices=1")
 
 
 def _restore_into(state: TrainState, saved: dict) -> TrainState:

@@ -5,7 +5,8 @@ data.data_val_dir=...`` trains on the GPU (``--cpu`` for the CPU), with the JAX 
 config keys. The loss is the reference FractureAE's: bidirectional chamfer between the
 reconstruction and the input part cloud with chamferdist's default reductions (per-part
 point sum, mean over the valid parts), plus the quantizer's embedding loss, both masked over
-the compacted valid part slots. One device; data parallelism comes later.
+the compacted valid part slots. One device (``trainer.num_devices`` above 1 raises); data
+parallelism comes later.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 
 from puzzlefusion_plusplus_tpu_torch.data.bucketing import part_bucket, slice_batch_parts
 from puzzlefusion_plusplus_tpu_torch.data.datasets import VQVAEDataset
-from puzzlefusion_plusplus_tpu_torch.data.loader import Loader
+from puzzlefusion_plusplus_tpu_torch.data.loader import Loader, prefetch_batches
 from puzzlefusion_plusplus_tpu_torch.inference.run import resolve_device
 from puzzlefusion_plusplus_tpu_torch.models.vqvae import VQVAE
 from puzzlefusion_plusplus_tpu_torch.ops.chamfer import nn_distance
@@ -27,6 +28,7 @@ from puzzlefusion_plusplus_tpu_torch.training.state import (
     TrainState,
     adamw_multistep,
     maybe_restore,
+    require_one_device,
     save_checkpoint,
 )
 from puzzlefusion_plusplus_tpu_torch.utils.config import Config, config_from_argv
@@ -90,7 +92,9 @@ def eval_step(state: TrainState, batch: dict) -> dict:
 def train(cfg: Config, max_steps: int | None = None, device=None) -> TrainState:
     """Train from a seeded init (or resume), validating and keeping the top-k checkpoints
     by val cd_loss every ``trainer.ckpt_every_epochs``; ``max_steps`` stops early with a
-    checkpoint. Runs on ``cuda`` unless ``device="cpu"``."""
+    checkpoint. Runs on ``cuda`` unless ``device="cpu"``, on one device
+    (``require_one_device``); a producer thread builds the next batch meanwhile."""
+    require_one_device(cfg)
     device = resolve_device(device)
     train_ds = VQVAEDataset(cfg.data.data_dir, cfg.data.max_num_part, cfg.data.min_num_part,
                             cfg.data.overfit)
@@ -130,7 +134,7 @@ def train(cfg: Config, max_steps: int | None = None, device=None) -> TrainState:
     state = maybe_restore(state, f"{out_dir}/ckpt", cfg.ae.ckpt_path)
     start_epoch = min(state.step // steps_per_epoch, cfg.ae.epochs)
     for epoch in range(start_epoch, cfg.ae.epochs):
-        for batch in train_loader:
+        for batch in prefetch_batches(train_loader):
             step = state.step
             metrics = train_step(state, prepare(batch))
             if step % cfg.trainer.log_every == 0:
