@@ -92,12 +92,29 @@ Phases, each printing one JSON object per line (with its seconds):
                ``verifier.ckpt_path`` naming phases 6, 10 and 14's checkpoints (a phase not
                run is stood in for by a saved seeded model), then with the same weights as
                ``state_dicts`` under the same generator seed: results equal; assemblies/s.
+ 17. dp      — data parallelism (``parallel/``; the other phases run on one card,
+               ``trainer.num_devices=1``): NCCL over up to 4 cards, or with one card 2 ranks
+               on it over gloo (``dp_plan``: 4 ranks from 4 cards, else 2). One VQ-VAE, denoiser and verifier step at that
+               world size W held to the one-process step (``training/parity.py::dp_steps``,
+               ``compare``; BatchNorm statistics equal on every rank); each trainer's entry
+               for 6 steps (the first warms up) at W: steps/s and peak memory per card, the
+               VQ-VAE at global batch 8 W (the config's 64, 16 shapes a card, from 4 cards),
+               the denoiser at 64 (16 on a shared card), the verifier at 64; the b8 engine
+               batch through ``run_inference`` at W against one process, each with its
+               engine built once and called twice (the second timed): per-shape
+               ``breakdown.jsonl`` records and ``n_iters`` equal, mean metrics within 1e-3
+               relative; assemblies/s of both. Phase 2 holds S, F, G and N at the
+               engine's per-rank shapes (M = 8/W x 12 clouds, N also on the engine-shaped
+               [8/W, 12000] shape_cd clouds) and F, G, N, A, B at each training rank's M
+               where no other path gives them (path "dp").
 Each path's launch counts are read from its own run: reset right before phase 3's second
 (counted) engine call and read right after phase 4's GPU run (the inference path), reset
 right before phase 6 and read right after it (the VQ-VAE training path), reset right before
 phase 9's three encodes and read right after them (the encoder-modes path), reset right
 before phase 10 and read right after it (the denoiser training path), and so for phases 13,
-14 (which runs no kernel of the port) and 16's checkpoint-loaded call. Then a ``kernels``
+14 (which runs no kernel of the port) and 16's checkpoint-loaded call; phase 17's counts are
+each rank's, reset in the rank right before each entry run and summed over the ranks after it
+(its parity steps are not counted). Then a ``kernels``
 line lists every kernel with its path's count, its error and its times, and the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and the script exits non-zero without
 that line. Needs one CUDA card; ``--phases`` picks phases.
@@ -142,11 +159,31 @@ INFERENCE_KERNELS, TRAIN_KERNELS = "SFGNMP", "FGNAB"
 MERGE_ONLY_KERNELS = "MP"  # launched only when a merge fires (the merge phase)
 ENCODER_MODE_KERNELS, DENOISER_KERNELS = "RSGA", "SFGNA"
 VERIFIER_GEN_KERNELS, SERVE_KERNELS = "SFGN", "SFGN"
+DP_KERNELS = "SFGNAB"  # the three trainers and the b8 engine batch, data-parallel
 PATH_KERNELS = {"inference": INFERENCE_KERNELS, "train": TRAIN_KERNELS,
                 "encoder_modes": ENCODER_MODE_KERNELS, "train_denoiser": DENOISER_KERNELS,
                 "verifier_gen": VERIFIER_GEN_KERNELS, "train_verifier": "",
-                "serve": SERVE_KERNELS}
+                "serve": SERVE_KERNELS, "dp": DP_KERNELS}
 MAIN_PATH = {"A": "train", "B": "train", "R": "encoder_modes"}  # the rest: "inference"
+
+
+def dp_plan() -> dict:
+    """The dp phase's layout: NCCL over 4 cards where there are 4 or more, else over 2 (2
+    or 3 cards), or 2 ranks on one card over gloo; global batches and each rank's clouds
+    (the kernels phase holds the kernels at the per-rank shapes that no other path gives
+    them). Every global batch is a multiple of the world size."""
+    import torch
+
+    cards = torch.cuda.device_count()
+    world = 4 if cards >= 4 else 2
+    vqvae_batch = 64 if world >= 4 else 8 * world  # the config's 64: 16 shapes a card
+    denoiser_batch = 64 if cards >= 2 else 16
+    return {"cards": cards, "world": world, "share_card": cards < 2,
+            "backend": "nccl" if cards >= 2 else "gloo", "vqvae_batch": vqvae_batch,
+            "denoiser_batch": denoiser_batch, "verifier_batch": 64, "engine_batch": 8,
+            "train_clouds": sorted({vqvae_batch // world * 20, denoiser_batch // world * 20}
+                                   - {160}),  # M = 160: the train path's, held already
+            "engine_clouds": 8 // world * 12}  # the b8 batch is bucketed to P = 12
 
 
 def emit(obj) -> None:
@@ -311,6 +348,7 @@ def phase_kernels(results: dict) -> None:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
+    plan = dp_plan()
 
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
@@ -361,7 +399,8 @@ def phase_kernels(results: dict) -> None:
     for M, path, reps, plain_reps, (stage, (S, K, N2, D, C1, C2, C3)) in (
             [(96, "inference", 20, 3, st) for st in S_STAGES.items()]
             + [(1280, "train_denoiser", 5, 1, st) for st in S_STAGES.items()]
-            + [(20, "verifier_gen", 20, 3, st) for st in S_STAGES.items()]):
+            + [(20, "verifier_gen", 20, 3, st) for st in S_STAGES.items()]
+            + [(plan["engine_clouds"], "dp", 20, 3, st) for st in S_STAGES.items()]):
         t0 = time.perf_counter()
         g = randn(M, S, K, 3, scale=0.1)
         w_eff = randn(M, 3, C1, scale=3 ** -0.5)
@@ -450,7 +489,8 @@ def phase_kernels(results: dict) -> None:
 
     # F: the inference cache build's three stages at M = 96 clouds and the widest merge pad
     # (partial mask; the streaming variant), then the three SA stages of a training step at
-    # M = 160 clouds, then verifier generation's cache build at M = 20
+    # M = 160 clouds, then verifier generation's cache build at M = 20, then a data-parallel
+    # engine rank's cache build and each training rank's stages
     for B, N, npoint, masked, path in ((96, 1000, 256, False, "inference"),
                                        (96, 256, 128, False, "inference"),
                                        (96, 128, 25, False, "inference"),
@@ -460,7 +500,10 @@ def phase_kernels(results: dict) -> None:
                                        (160, 128, 25, False, "train"),
                                        (20, 1000, 256, False, "verifier_gen"),
                                        (20, 256, 128, False, "verifier_gen"),
-                                       (20, 128, 25, False, "verifier_gen")):
+                                       (20, 128, 25, False, "verifier_gen"),
+                                       *((m, n, k, False, "dp")
+                                         for m in [plan["engine_clouds"], *plan["train_clouds"]]
+                                         for n, k in ((1000, 256), (256, 128), (128, 25)))):
         t0 = time.perf_counter()
         xyz = randn(B, N, 3)
         mask = (torch.rand((B, N), generator=gen, device=dev) < 0.6) if masked else None
@@ -533,15 +576,22 @@ def phase_kernels(results: dict) -> None:
 
     # G: the largest grouping gather of the cache build (SA1 neighbourhoods), then the
     # neighbourhood xyz gathers of a training step's SA1, SA2 and SA3 at M = 160, then
-    # verifier generation's SA1 neighbourhoods at M = 20
+    # verifier generation's SA1 neighbourhoods at M = 20, then a data-parallel engine rank's
+    # SA1 neighbourhoods and each training rank's gathers
     gather_row("G", gather.gather_points, 96, 1000, 3, (256, 32), "inference", 50)
     for N, S, K in ((1000, 256, 32), (256, 128, 64), (128, 25, 64)):
         gather_row("G", gather.gather_points, 160, N, 3, (S, K), "train", 50)
     gather_row("G", gather.gather_points, 20, 1000, 3, (256, 32), "verifier_gen", 50)
+    gather_row("G", gather.gather_points, plan["engine_clouds"], 1000, 3, (256, 32), "dp", 50)
+    for M in plan["train_clouds"]:  # a data-parallel training rank's
+        for N, S, K in ((1000, 256, 32), (256, 128, 64), (128, 25, 64)):
+            gather_row("G", gather.gather_points, M, N, 3, (S, K), "dp", 50)
 
     # N: part_acc clouds, the b8 engine's shape_cd clouds (engine-shaped: 12 parts of 1000
     # points, padded parts at 1e3, two poses), the widest pad's shape_cd clouds (random), then
-    # a training step's chamfer loss, then verifier generation's per-part labels (20 parts)
+    # a training step's chamfer loss, then verifier generation's per-part labels (20 parts),
+    # then a data-parallel engine rank's part_acc and shape_cd clouds and each training rank's
+    # chamfer loss
     sms, clock_mhz = torch.cuda.get_device_properties(0).multi_processor_count, sm_clock_mhz()
 
     def issue(pairs, ms):
@@ -555,7 +605,10 @@ def phase_kernels(results: dict) -> None:
                                       (8, 12000, "inference", True),
                                       (8, 20000, "inference", False),
                                       (160, 1000, "train", False),
-                                      (20, 1000, "verifier_gen", False)):
+                                      (20, 1000, "verifier_gen", False),
+                                      (plan["engine_clouds"], 1000, "dp", False),
+                                      (8 // plan["world"], 12000, "dp", True),
+                                      *((m, 1000, "dp", False) for m in plan["train_clouds"])):
         t0 = time.perf_counter()
         x, y = (nn_engine_clouds(gen, B, N // 1000) if engine_shaped
                 else (randn(B, N, 3), randn(B, N, 3)))
@@ -584,17 +637,23 @@ def phase_kernels(results: dict) -> None:
         gather_row("A", gather.gather_points_approx, 160, N, C, (S, K), "train", 20)
     for N, C, S, K in ((256, 128, 128, 64), (128, 256, 25, 64)):
         gather_row("A", gather.gather_points_approx, 1280, N, C, (S, K), "train_denoiser", 5)
+    for M in plan["train_clouds"]:
+        for N, C, S, K in ((256, 128, 128, 64), (128, 256, 25, 64)):
+            gather_row("A", gather.gather_points_approx, M, N, C, (S, K), "dp", 10)
 
     # B: the backward of those gathers and the chamfer loss's target side, at M = 160, then
     # the chamfer case with every row to one index (listed apart from the step's sum).
     # Tolerance 1e-5 of the largest sum: the plain version's index_add_ on the card adds
     # with atomics in no fixed order; the kernel adds in row order and is deterministic.
-    for N, C, R, skewed in ((1000, 3, 1000, False), (256, 128, 128 * 64, False),
-                            (128, 256, 25 * 64, False), (1000, 3, 1000, True)):
+    step_shapes = ((1000, 3, 1000, False), (256, 128, 128 * 64, False),
+                   (128, 256, 25 * 64, False))
+    for M, path, (N, C, R, skewed) in (
+            [(160, "train", sh) for sh in step_shapes + ((1000, 3, 1000, True),)]
+            + [(m, "dp", sh) for m in plan["train_clouds"] for sh in step_shapes]):
         t0 = time.perf_counter()
-        g = randn(160, R, C)
-        idx = (torch.zeros((160, R), device=dev, dtype=torch.int32) if skewed else
-               torch.randint(0, N, (160, R), generator=gen, device=dev, dtype=torch.int32))
+        g = randn(M, R, C)
+        idx = (torch.zeros((M, R), device=dev, dtype=torch.int32) if skewed else
+               torch.randint(0, N, (M, R), generator=gen, device=dev, dtype=torch.int32))
         out = gather.scatter_add(g, idx, N)
         again = gather.scatter_add(g, idx, N)
         ref = gather.scatter_add_plain(g, idx, N)
@@ -603,21 +662,21 @@ def phase_kernels(results: dict) -> None:
         scale = ref.abs().max().item()
         deterministic = bool(torch.equal(out, again))
         _check(err <= 1e-5 * scale and deterministic,
-               f"B [160,{R},{C}]->{N}: err {err} (scale {scale}), deterministic "
+               f"B [{M},{R},{C}]->{N}: err {err} (scale {scale}), deterministic "
                f"{deterministic}")
-        rows = (idx.long() + N * torch.arange(160, device=dev)[:, None]).reshape(-1)
-        g2, acc = g.reshape(-1, C), torch.zeros((160 * N, C), device=dev)
-        dst = torch.empty((160, N, C), device=dev)
-        ints = gather.scatter_scratch_ints(160, R, N, C)
+        rows = (idx.long() + N * torch.arange(M, device=dev)[:, None]).reshape(-1)
+        g2, acc = g.reshape(-1, C), torch.zeros((M * N, C), device=dev)
+        dst = torch.empty((M, N, C), device=dev)
+        ints = gather.scatter_scratch_ints(M, R, N, C)
         scratch = torch.empty(ints, dtype=torch.int32, device=dev) if ints else None
         launch = lambda: gather._launch_scatter_add(g, idx, dst, scratch)  # noqa: E731
         library = lambda: acc.zero_().index_add_(0, rows, g2)  # noqa: E731
-        record("B", f"[160,{R},{C}]->[160,{N},{C}]" + (" every row to n=0" if skewed else ""),
+        record("B", f"[{M},{R},{C}]->[{M},{N},{C}]" + (" every row to n=0" if skewed else ""),
                err,
                cuda_ms(lambda: gather.scatter_add(g, idx, N), 10),
                cuda_ms(lambda: gather.scatter_add_plain(g, idx, N), 10),
-               4 * (g.numel() + idx.numel() + 160 * N * C), float(g.numel()),
-               library_ms=cuda_ms(library, 10), path="train", kernel_ms=cuda_ms(launch, 10),
+               4 * (g.numel() + idx.numel() + M * N * C), float(g.numel()),
+               library_ms=cuda_ms(library, 10), path=path, kernel_ms=cuda_ms(launch, 10),
                kernel_graph_ms=graph_ms(launch, 10), library_graph_ms=graph_ms(library, 10),
                max_rel_err=err / scale, deterministic=deterministic, skewed=skewed,
                launches_a_call=1 if ints == 0 else 2,
@@ -701,6 +760,7 @@ def _full_config(data_root: str):
     from puzzlefusion_plusplus_tpu_torch.utils.config import Config
 
     cfg = Config()
+    cfg.trainer.num_devices = 1  # one card; the dp phase sets its own
     cfg.data.data_val_dir = os.path.join(data_root, "pc_data", "val")
     cfg.data.matching_data_path = os.path.join(data_root, "matching_data")
     cfg.inference.batch_size = 8
@@ -802,6 +862,7 @@ def _train_config(data_root: str, out_dir: str):
     from puzzlefusion_plusplus_tpu_torch.utils.config import Config
 
     cfg = Config()
+    cfg.trainer.num_devices = 1  # one card; the dp phase sets its own
     cfg.data.data_dir = cfg.data.data_val_dir = os.path.join(data_root, "pc_data", "train")
     cfg.data.batch_size = 8
     cfg.data.part_bucket_multiple = 0
@@ -1043,6 +1104,7 @@ def _denoiser_config(data_root: str, out_dir: str, encoder_ckpt: str):
     from puzzlefusion_plusplus_tpu_torch.utils.config import Config
 
     cfg = Config()
+    cfg.trainer.num_devices = 1  # one card; the dp phase sets its own
     cfg.data.data_dir = os.path.join(data_root, "pc_data", "train")
     cfg.data.data_val_dir = os.path.join(data_root, "pc_data", "val")
     cfg.data.batch_size = cfg.data.val_batch_size = DENOISER_BATCH
@@ -1121,8 +1183,9 @@ def _denoiser_parts(data_root: str, n: int):
     """(config without dropout, a batch of n train shapes, the frozen-encoder maker). The
     encoder is the seeded one with its codebook spread to unit scale, so that no code sits
     within float error of a tie (``training/parity.py``)."""
+    import functools
+
     from puzzlefusion_plusplus_tpu_torch.data import DenoiserDataset, Loader
-    from puzzlefusion_plusplus_tpu_torch.inference.sampler import make_frozen_encoder
     from puzzlefusion_plusplus_tpu_torch.training import parity
     from puzzlefusion_plusplus_tpu_torch.training.denoiser import load_frozen_encoder
     from puzzlefusion_plusplus_tpu_torch.training.vqvae import make_model as make_ae
@@ -1133,14 +1196,7 @@ def _denoiser_parts(data_root: str, n: int):
                              shuffle=False)))
     ae = load_frozen_encoder(cfg, "cpu").model
     parity.spread_codebook(ae)
-    ae_sd = ae.state_dict()
-
-    def make_encoder(device):
-        model = make_ae(cfg)
-        model.load_state_dict(ae_sd)
-        return make_frozen_encoder(model.to(device))
-
-    return cfg, batch, make_encoder
+    return cfg, batch, parity.encoder_maker(functools.partial(make_ae, cfg), ae.state_dict())
 
 
 def phase_denoiser_parity(data_root: str) -> dict:
@@ -1222,6 +1278,7 @@ def phase_verifier_gen(data_root: str, vqvae_trained: bool, denoiser_trained: bo
 
     t0 = time.perf_counter()
     cfg = Config()
+    cfg.trainer.num_devices = 1  # one card; the dp phase sets its own
     cfg.denoiser.encoder_ckpt_path = _vqvae_checkpoint(vqvae_trained)
     cfg.denoiser.ckpt_path = _denoiser_checkpoint(denoiser_trained)
     out_dir = os.path.join(REPO, ".smoke", "verifier_gen_out")
@@ -1295,6 +1352,7 @@ def _verifier_config(data_dir: str, out_dir: str):
     from puzzlefusion_plusplus_tpu_torch.utils.config import Config
 
     cfg = Config()
+    cfg.trainer.num_devices = 1  # one card; the dp phase sets its own
     cfg.data.verifier_data_path = data_dir
     cfg.data.batch_size = cfg.data.val_batch_size = VERIFIER_BATCH
     cfg.trainer.output_dir = out_dir
@@ -1455,12 +1513,200 @@ def phase_serve(data_root: str, paths: dict) -> dict:
     return row
 
 
+def _dp_train(module, cfg, plan: dict, steps: int) -> dict:
+    """``steps`` steps of a trainer's entry point on the dp plan's ranks -> the rank-0
+    metrics records, per-rank peak memory and the launches summed over the ranks."""
+    import shutil
+
+    from puzzlefusion_plusplus_tpu_torch.parallel import launch
+    from puzzlefusion_plusplus_tpu_torch.training import parity
+
+    shutil.rmtree(cfg.trainer.output_dir, ignore_errors=True)
+    cfg.trainer.num_devices, cfg.trainer.log_every = plan["world"], 1
+    out = launch.run(parity.measured,
+                     (launch.discard_result, (module.train, cfg, steps, "cuda")),
+                     plan["world"], "cuda", share_card=plan["share_card"])
+    name = module.__name__.rsplit(".", 1)[1]
+    with open(os.path.join(cfg.trainer.output_dir, cfg.trainer.experiment_name, name,
+                           "metrics.jsonl")) as fh:
+        out["records"] = [json.loads(line) for line in fh]
+    _check(len(out["records"]) == steps, f"{name}: {len(out['records'])} records")
+    return out
+
+
+def phase_dp(train_root: str, den_root: str, ver_root: str, data_root: str) -> dict:
+    """Data parallelism (``parallel/``), phase 17: one VQ-VAE, denoiser and verifier step
+    and the b8 engine batch at the dp plan's world size, each held to the one-process
+    result; then each trainer's entry for 6 steps (the first warms up) and the engine for
+    two calls (the second timed) at that world size."""
+    import functools
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from puzzlefusion_plusplus_tpu_torch.data import (
+        DenoiserDataset,
+        Loader,
+        VerifierDataset,
+        VQVAEDataset,
+    )
+    from puzzlefusion_plusplus_tpu_torch.inference import run as R
+    from puzzlefusion_plusplus_tpu_torch.parallel import launch
+    from puzzlefusion_plusplus_tpu_torch.training import denoiser, parity, verifier, vqvae
+
+    t0 = time.perf_counter()
+    plan = dp_plan()
+    W = plan["world"]
+    emit({"phase": "dp", "world_size": W, "backend": plan["backend"], "cards": plan["cards"],
+          "ranks_share_a_card": plan["share_card"]})
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks' processes need the card's memory
+
+    # one step of each trainer at world W against the one-process step, 2 shapes a rank
+    tcfg = _train_config(train_root, os.path.join(REPO, ".smoke", "train_out"))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(tcfg.trainer.seed)
+        ae = vqvae.make_model(tcfg)
+    parity.spread_codebook(ae)
+    dcfg, dbatch, make_encoder = _denoiser_parts(den_root, 2 * W)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(dcfg.trainer.seed)
+        den_sd = denoiser.make_model(dcfg).state_dict()
+    gen = torch.Generator().manual_seed(2)
+    vcfg = _verifier_config(ver_root, os.path.join(REPO, ".smoke", "verifier_out"))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(vcfg.trainer.seed)
+        ver_sd = verifier.make_model(vcfg).state_dict()
+    cases = {
+        "vqvae": dict(kind="vqvae", make_model=functools.partial(vqvae.make_model, tcfg),
+                      state_dict=ae.state_dict(),
+                      batch=next(iter(Loader(VQVAEDataset(tcfg.data.data_dir), 2 * W,
+                                             shuffle=False)))),
+        "denoiser": dict(kind="denoiser",
+                         make_model=functools.partial(denoiser.make_model, dcfg),
+                         state_dict=den_sd, batch=dbatch, make_encoder=make_encoder,
+                         timesteps=torch.randint(0, 1000, (2 * W,), generator=gen),
+                         noise=torch.randn(dbatch["part_trans"].shape[:2] + (7,),
+                                           generator=gen)),
+        "verifier": dict(kind="verifier",
+                         make_model=functools.partial(verifier.make_model, vcfg, dropout=0.0),
+                         state_dict=ver_sd,
+                         batch=next(iter(Loader(VerifierDataset(ver_root, "train"),
+                                                VERIFIER_BATCH, shuffle=False)))),
+    }
+    one = parity.dp_steps(cases, 1, "cuda")
+    t1 = time.perf_counter()
+    many = parity.dp_steps(cases, W, "cuda", share_card=plan["share_card"])
+    row = {"phase": "dp_parity", "world_size": W, "backend": plan["backend"],
+           "seconds_world": time.perf_counter() - t1}
+    for name, keys in (("vqvae", vqvae.METRIC_KEYS), ("denoiser", ("mse_loss",)),
+                       ("verifier", verifier.METRIC_KEYS)):
+        row[name] = {"loss_world": many[name]["metrics"][keys[0]],
+                     "loss_one": one[name]["metrics"][keys[0]],
+                     "errors": parity.compare(one[name], many[name], keys)}
+    bufs = many["vqvae"]["rank_buffers"]
+    row["bn_stats_equal_across_ranks"] = all(
+        torch.equal(b[n], bufs[0][n]) for b in bufs for n in bufs[0])
+    emit(row)
+    _check(row["bn_stats_equal_across_ranks"], "BatchNorm statistics differ across ranks")
+    del one, many, cases
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the trainers' entries at world W
+    launches = dict.fromkeys(DP_KERNELS, 0)
+    rows = {}
+    for name, module, cfg, batch, clouds in (
+            ("vqvae", vqvae,
+             _train_config(den_root, os.path.join(REPO, ".smoke", "dp_vqvae_out")),
+             plan["vqvae_batch"], 20),
+            ("denoiser", denoiser,
+             _denoiser_config(den_root, os.path.join(REPO, ".smoke", "dp_denoiser_out"), ""),
+             plan["denoiser_batch"], 20),
+            ("verifier", verifier,
+             _verifier_config(ver_root, os.path.join(REPO, ".smoke", "dp_verifier_out")),
+             plan["verifier_batch"], 0)):
+        cfg.data.batch_size = cfg.data.val_batch_size = batch
+        if name == "denoiser":
+            cfg.denoiser.val_every = 1000  # training steps only
+        t1 = time.perf_counter()
+        out = _dp_train(module, cfg, plan, 6)
+        recs = out["records"]
+        timed_s = recs[-1]["wall_s"] - recs[0]["wall_s"]
+        loss_key = {"vqvae": "total_loss", "denoiser": "mse_loss", "verifier": "cls_loss"}[name]
+        _check(all(np.isfinite(r[loss_key]) for r in recs), f"{name}: non-finite {recs}")
+        ds = (VQVAEDataset(cfg.data.data_dir) if name == "vqvae" else
+              VerifierDataset(ver_root, "train") if name == "verifier" else
+              DenoiserDataset(cfg.data.data_dir, mode="train"))
+        rows[name] = {"phase": "dp_train", "trainer": name, "world_size": W,
+                      "backend": plan["backend"], "global_batch": batch,
+                      "shapes_per_card": batch // W,
+                      "clouds_per_card": batch // W * clouds or None,
+                      "steps_per_s": (len(recs) - 1) / timed_s,
+                      "step_wall_s": [b["wall_s"] - a["wall_s"] for a, b in zip(recs, recs[1:])],
+                      "peak_bytes_per_card": out["peak_bytes"],
+                      "loader_s_per_global_batch": _loader_seconds(ds, batch),
+                      "losses": [r[loss_key] for r in recs], "launches": out["launches"],
+                      "seconds": time.perf_counter() - t1}
+        emit(rows[name])
+        for k in launches:
+            launches[k] += out["launches"][k]
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the b8 engine batch at world W against one process
+    t1 = time.perf_counter()
+    cfg = _full_config(data_root)
+    cfg.inference.save_breakdown = True
+    cfg.trainer.output_dir = os.path.join(REPO, ".smoke", "dp_engine_out")
+    cfg.inference.inference_dir = "one"
+    shutil.rmtree(cfg.trainer.output_dir, ignore_errors=True)
+    one_out = parity.serving(cfg, "cuda", 2)  # a warm-up call, then the timed one
+    one = one_out["result"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg.trainer.num_devices, cfg.inference.inference_dir = W, "world"
+    out = launch.run(parity.serving, (cfg, "cuda", 2), W, "cuda",
+                     share_card=plan["share_card"])
+    many = out["result"]
+    base = os.path.join(cfg.trainer.output_dir, cfg.trainer.experiment_name, "inference")
+    recs = {}
+    for d in ("one", "world"):  # two calls each, appended
+        with open(os.path.join(base, d, "breakdown.jsonl")) as fh:
+            recs[d] = [json.loads(line) for line in fh]
+    n = many["num_samples"]
+    metric_err = max(abs(many[f"eval/{k}"] - one[f"eval/{k}"]) / max(abs(one[f"eval/{k}"]), 1e-30)
+                     for k in R.METRIC_KEYS)
+    row = {"phase": "dp_engine", "world_size": W, "backend": plan["backend"], "batch": 8,
+           "shapes_per_card": 8 // W, "num_samples": n, "wall_s_per_call": out["seconds"],
+           "assemblies_per_s": n / out["seconds"][-1],
+           "wall_s_per_call_one_process": one_out["seconds"],
+           "assemblies_per_s_one_process": n / one_out["seconds"][-1],
+           "peak_bytes_per_card": out["peak_bytes"],
+           "records_equal": len(recs["one"]) == 2 * n and recs["world"] == recs["one"],
+           "n_iters_equal": many["n_iters"] == one["n_iters"],
+           "max_rel_metric_diff": metric_err, "launches": out["launches"],
+           "seconds": time.perf_counter() - t1}
+    emit(row)
+    for k in launches:
+        launches[k] += out["launches"][k]
+    _check(n == one["num_samples"] and row["records_equal"] and row["n_iters_equal"],
+           f"the engine at world {W} differs from one process: {row}")
+    _check(metric_err <= 1e-3, f"engine metrics at world {W} differ by {metric_err}")
+    _check(all(launches[k] > 0 for k in DP_KERNELS), f"a kernel never launched: {launches}")
+    emit({"phase": "dp_total", "seconds": time.perf_counter() - t0, "launches": launches})
+    return {"launches": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,fps_shapes,engine,merge,profile,train,"
                                         "train_parity,profile_train,encoder_modes,"
                                         "train_denoiser,denoiser_parity,profile_denoiser,"
-                                        "verifier_gen,train_verifier,verifier_parity,serve")
+                                        "verifier_gen,train_verifier,verifier_parity,serve,"
+                                        "dp")
     phases = ap.parse_args().phases.split(",")
 
     import torch
@@ -1484,7 +1730,7 @@ def main() -> int:
         phase_fps_shapes()
     launches = {}  # per path: the counts of its own run
     data_root = os.path.join(REPO, ".smoke", "chip_smoke_data")
-    if {"engine", "merge", "profile", "encoder_modes", "serve"} & set(phases):
+    if {"engine", "merge", "profile", "encoder_modes", "serve", "dp"} & set(phases):
         t0 = time.perf_counter()
         generate_dataset(data_root, num_shapes=8, seed=7, split="val", min_parts=3,
                          max_parts=12)
@@ -1502,9 +1748,9 @@ def main() -> int:
                f"kernel never launched: {launches['inference']}")
     if "profile" in phases:
         phase_profile(data_root)
-    if {"train", "train_parity", "profile_train"} & set(phases):
+    train_root = os.path.join(REPO, ".smoke", "chip_smoke_train_data")
+    if {"train", "train_parity", "profile_train", "dp"} & set(phases):
         t0 = time.perf_counter()
-        train_root = os.path.join(REPO, ".smoke", "chip_smoke_train_data")
         generate_dataset(train_root, num_shapes=TRAIN_SHAPES, seed=11, split="train",
                          min_parts=3, max_parts=12)
         emit({"phase": "train_data", "seconds": time.perf_counter() - t0})
@@ -1516,9 +1762,9 @@ def main() -> int:
             phase_profile_train(train_root)
     if "encoder_modes" in phases:
         launches["encoder_modes"] = phase_encoder_modes(data_root)["launches"]
-    if {"train_denoiser", "denoiser_parity", "profile_denoiser"} & set(phases):
+    den_root = os.path.join(REPO, ".smoke", "chip_smoke_denoiser_data")
+    if {"train_denoiser", "denoiser_parity", "profile_denoiser", "dp"} & set(phases):
         t0 = time.perf_counter()
-        den_root = os.path.join(REPO, ".smoke", "chip_smoke_denoiser_data")
         for split, seed in (("train", 13), ("val", 14)):
             generate_dataset(den_root, num_shapes=DENOISER_SHAPES, seed=seed, split=split,
                              min_parts=3, max_parts=12)
@@ -1538,9 +1784,9 @@ def main() -> int:
         emit({"phase": "verifier_gen_data", "seconds": time.perf_counter() - t0})
         launches["verifier_gen"] = phase_verifier_gen(
             gen_root, "train" in phases, "train_denoiser" in phases)["launches"]
-    if {"train_verifier", "verifier_parity"} & set(phases):
+    ver_root = os.path.join(REPO, ".smoke", "chip_smoke_verifier_data")
+    if {"train_verifier", "verifier_parity", "dp"} & set(phases):
         t0 = time.perf_counter()
-        ver_root = os.path.join(REPO, ".smoke", "chip_smoke_verifier_data")
         _verifier_files(ver_root)
         emit({"phase": "verifier_data", "seconds": time.perf_counter() - t0})
         if "train_verifier" in phases:
@@ -1551,6 +1797,8 @@ def main() -> int:
         launches["serve"] = phase_serve(data_root, _serve_checkpoints(
             "train" in phases, "train_denoiser" in phases,
             "train_verifier" in phases))["launches"]
+    if "dp" in phases:
+        launches["dp"] = phase_dp(train_root, den_root, ver_root, data_root)["launches"]
 
     if results:
         rows = []

@@ -11,9 +11,10 @@ package's numpy-only modules it keeps its own copy.
                   for Hopper under ``csrc/``, with a plain PyTorch version beside it.
 * ``inference`` — the frozen encoder, the sampler, the auto-agglomerative
                   denoise-verify-merge engine and its entry point.
-* ``training``  — stage-1 VQ-VAE and stage-2 denoiser training, checkpoints, device parity.
+* ``training``  — VQ-VAE, denoiser and verifier training, checkpoints, device parity.
 * ``data``      — synthetic fixtures, the datasets, the loader, part bucketing.
 * ``convert``   — flax parameter trees -> torch ``state_dict``s.
+* ``parallel``  — data parallelism on ``torch.distributed`` (``trainer.num_devices``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

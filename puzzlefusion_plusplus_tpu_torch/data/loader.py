@@ -4,6 +4,11 @@ A copy of ``Loader``, ``prefetch_batches`` and ``collate_stack`` from
 ``puzzlefusion_plusplus_tpu/data/loader.py``, kept so that the port imports nothing from the
 JAX package. Batches are stacked dicts of numpy arrays; the same seed serves the same batches
 in the same order as the JAX package.
+
+Data-parallel training iterates the same global batches on every rank and keeps each rank's
+rows (``parallel/mesh.py::shard_batch``): the augmentations come from one rng drawn across a
+batch's items in order, so a rank that built only its own rows would draw other ones than
+one process does. ``process_index``/``process_count`` deal out whole batches instead.
 """
 
 from __future__ import annotations

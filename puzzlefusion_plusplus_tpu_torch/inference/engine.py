@@ -394,9 +394,13 @@ def auto_agglomerate_batch(
     cfg: AgglConfig,
     noise: tuple[torch.Tensor, torch.Tensor] | None = None,
     generator: torch.Generator | None = None,
+    all_done: Callable[[bool], bool] = bool,
 ) -> dict:
     """Full denoise-verify-merge loop over a batch; exits once every sample is done.
-    Trajectory rows past an early exit repeat the final pose."""
+    Trajectory rows past an early exit repeat the final pose. ``all_done`` turns "every
+    sample of this batch is done" into the exit condition; a data-parallel caller makes it
+    "on every rank" (``parallel/mesh.py::all_ranks``), so that ``n_iters`` is the global
+    batch's, as the JAX engine's is over a sharded batch."""
     B, P = batch["part_valids"].shape
     dev = batch["part_pcs"].device
     if noise is None:
@@ -410,7 +414,7 @@ def auto_agglomerate_batch(
     traj_buf = torch.zeros((B, cfg.max_iters * S, P, 7), dtype=state.noisy.dtype, device=dev)
 
     it = 0
-    while it < cfg.max_iters and not bool(state.done.all()):
+    while it < cfg.max_iters and not all_done(bool(state.done.all())):
         state, traj = denoise_phase(state, denoiser, encoder, ddpm, cfg,
                                     noise_steps[it * S : (it + 1) * S])
         traj_buf[:, it * S : (it + 1) * S] = traj

@@ -13,6 +13,13 @@ repo's Lightning ``.ckpt`` files (``training/state.py::load_model_state``). The 
 orbax checkpoints are converted first by ``scripts/jax_ckpt_to_torch.py``. A key left empty
 keeps the weights drawn from ``trainer.seed``. Callers holding flax weights may also pass
 them converted (``convert/from_jax.py``) as ``state_dicts``.
+
+``trainer.num_devices`` above 1 serves data-parallel (``parallel/``), as the JAX entry shards
+each batch over its mesh: every rank takes the same bucket-sliced global batch, padded to a
+multiple of the world size by repeating row 0, and the noise of the whole batch drawn from
+the one seeded generator; each runs the engine on its rows, the ranks leave the loop
+together, and rank 0 gathers the rows in order, drops the padding and alone writes the
+artifacts. Per-shape results do not depend on the world size.
 """
 
 from __future__ import annotations
@@ -27,12 +34,17 @@ import torch
 from puzzlefusion_plusplus_tpu_torch.data.bucketing import part_bucket, slice_batch_parts
 from puzzlefusion_plusplus_tpu_torch.data.datasets import DenoiserDataset
 from puzzlefusion_plusplus_tpu_torch.data.loader import Loader
-from puzzlefusion_plusplus_tpu_torch.inference.engine import AgglConfig, auto_agglomerate_batch
+from puzzlefusion_plusplus_tpu_torch.inference.engine import (
+    AgglConfig,
+    auto_agglomerate_batch,
+    draw_noise,
+)
 from puzzlefusion_plusplus_tpu_torch.inference.sampler import FrozenEncoder
 from puzzlefusion_plusplus_tpu_torch.models.denoiser import make_denoiser
 from puzzlefusion_plusplus_tpu_torch.models.scheduler import DDPMParams
 from puzzlefusion_plusplus_tpu_torch.models.verifier import VerifierTransformer
 from puzzlefusion_plusplus_tpu_torch.models.vqvae import VQVAE
+from puzzlefusion_plusplus_tpu_torch.parallel import launch, mesh
 from puzzlefusion_plusplus_tpu_torch.training.state import load_model_state
 from puzzlefusion_plusplus_tpu_torch.utils.config import Config, config_from_argv
 from puzzlefusion_plusplus_tpu_torch.utils.metrics import assembly_metrics
@@ -97,7 +109,8 @@ def build_engine_fn(cfg: Config, device=None, state_dicts: dict | None = None,
     """-> ``engine(batch, noise=None, generator=None) -> dict`` of numpy results.
 
     ``state_dicts``: optional {"vqvae", "denoiser", "verifier"} weights; ``models``:
-    optional prebuilt (vqvae, denoiser, verifier) modules, e.g. at test widths."""
+    optional prebuilt (vqvae, denoiser, verifier) modules, e.g. at test widths. Inside a
+    process group the engine is a collective: every rank calls it, each on its rows."""
     device = resolve_device(device)
     vqvae, denoiser, verifier = models if models is not None else make_models(cfg)
     for name, mod in (("vqvae", vqvae), ("denoiser", denoiser), ("verifier", verifier)):
@@ -112,7 +125,8 @@ def build_engine_fn(cfg: Config, device=None, state_dicts: dict | None = None,
     def engine(batch: dict, noise=None, generator=None) -> dict:
         t = {k: torch.as_tensor(np.asarray(batch[k]), device=device) for k in SAMPLE_KEYS}
         out = auto_agglomerate_batch(denoiser, verifier, encoder, ddpm, t, acfg,
-                                     noise=noise, generator=generator)
+                                     noise=noise, generator=generator,
+                                     all_done=mesh.all_ranks)
         pts = t["part_pcs"] * t["part_scale"][..., None]  # original local clouds
         res = {
             **assembly_metrics(pts, out["pred_trans"], out["pred_rots"], t["part_trans"],
@@ -174,9 +188,21 @@ def save_breakdown_records(out_dir: str, batch: dict, results: dict, n_real: int
 
 
 def run_inference(cfg: Config, device=None, max_batches: int | None = None,
-                  engine=None) -> dict:
-    """Serve the test set in part-count-sorted, bucketed batches -> mean metrics."""
-    engine = engine or build_engine_fn(cfg, device)
+                  engine=None, join_timeout_s: float | None = None) -> dict:
+    """Serve the test set in part-count-sorted, bucketed batches -> mean metrics. On
+    ``trainer.num_devices`` above 1 it spawns the ranks (``parallel/launch.py::entry``;
+    ``join_timeout_s`` bounds their run) and returns rank 0's result; inside a process group
+    every rank returns the same result."""
+    device = resolve_device(engine.device if engine is not None else device)
+    if engine is None:
+        spawned = launch.entry(run_inference, (cfg, device, max_batches),
+                               cfg.trainer.num_devices, device, join_timeout_s=join_timeout_s)
+        if spawned is not launch.HERE:
+            return spawned
+        engine = build_engine_fn(cfg, device)
+    elif launch.needs_spawn(mesh.world_size(cfg.trainer.num_devices, device)):
+        raise ValueError("a prebuilt engine serves in this process only: pass "
+                         "trainer.num_devices=1, or no engine")
     ds = DenoiserDataset(
         cfg.data.data_val_dir, mode="test", matching_data_path=cfg.data.matching_data_path,
         max_num_part=cfg.data.max_num_part, overfit=cfg.data.overfit,
@@ -189,7 +215,9 @@ def run_inference(cfg: Config, device=None, max_batches: int | None = None,
                     seed=cfg.trainer.seed, order=order)
     out_dir = os.path.join(cfg.trainer.output_dir, cfg.trainer.experiment_name, "inference",
                            cfg.inference.inference_dir)
+    acfg = agg_config(cfg)
     generator = torch.Generator(device=engine.device).manual_seed(cfg.trainer.seed)
+    rank, world = mesh.rank(), mesh.world()
     metrics: dict[str, list] = {k: [] for k in METRIC_KEYS + ("n_merged_pairs", "n_iters")}
     for bi, batch in enumerate(loader):
         if max_batches is not None and bi >= max_batches:
@@ -198,13 +226,22 @@ def run_inference(cfg: Config, device=None, max_batches: int | None = None,
             P_b = part_bucket(int(np.max(batch["num_parts"])), bucket_mult,
                               cap=cfg.data.max_num_part)
             batch = slice_batch_parts(batch, P_b)
-        results = engine(batch, generator=generator)
+        sample = {k: np.asarray(batch[k]) for k in SAMPLE_KEYS}
+        n_real, P = sample["part_valids"].shape
+        # the real rows' noise, as one process draws it; the padding rows repeat row 0's
+        init, steps = draw_noise(acfg, n_real, P, generator, engine.device)
+        padded = mesh.pad_batch_to_devices(sample, world)[0]
+        b = len(padded["part_valids"]) // world
+        src = torch.cat([torch.arange(n_real), torch.zeros(b * world - n_real, dtype=torch.long)])
+        rows = src[rank * b:(rank + 1) * b].to(engine.device)
+        results = engine(mesh.shard_batch(padded, rank, world), noise=(init[rows], steps[:, rows]))
+        results = mesh.gather_rows(results, n_real)
         for name in metrics:
             metrics[name].extend(np.asarray(results[name]).tolist())
-        if cfg.inference.save_trajectories:
+        if cfg.inference.save_trajectories and mesh.is_main():
             save_inference_artifacts(out_dir, batch, results)
-        if cfg.inference.save_breakdown:
-            save_breakdown_records(out_dir, batch, results, len(results["part_acc"]))
+        if cfg.inference.save_breakdown and mesh.is_main():
+            save_breakdown_records(out_dir, batch, results, n_real)
     agg = {f"eval/{k}": float(np.mean(metrics[k])) for k in METRIC_KEYS if metrics[k]}
     agg["num_samples"] = len(metrics["part_acc"])
     agg["n_merged_pairs"] = int(np.sum(metrics["n_merged_pairs"]))

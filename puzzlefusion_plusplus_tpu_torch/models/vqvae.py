@@ -29,6 +29,7 @@ from puzzlefusion_plusplus_tpu_torch.ops.grouping import (
     query_ball_point,
 )
 from puzzlefusion_plusplus_tpu_torch.ops.sa_fused import fold_batchnorm
+from puzzlefusion_plusplus_tpu_torch.parallel import mesh
 
 SA_RADII = (0.2, 0.4, 0.8)
 SA_MLPS = ((64, 64, 128), (128, 128, 256), (256, 256, 512))
@@ -65,6 +66,14 @@ def pn2_grouping_geometry(
     return tuple(idx_stages), tuple(geom_stages)
 
 
+def _sum_over(group, x: torch.Tensor, grad: bool = False) -> torch.Tensor:
+    """``x`` summed over the ranks of ``group`` (``parallel/mesh.py``; with ``grad`` its
+    backward sums the gradient too); ``x`` itself when ``group`` is None."""
+    if group is None:
+        return x
+    return mesh.all_reduce_sum(x, group) if grad else mesh.global_sum(x, group)
+
+
 @contextlib.contextmanager
 def _stats_frozen(stage: nn.Module):
     """A checkpointed stage's second forward (in backward): BatchNorm's running statistics
@@ -87,20 +96,24 @@ class MaskedBatchNorm(nn.BatchNorm2d):
     variance. Keeps BatchNorm2d's parameters and buffers under their names."""
 
     update_stats = True  # off while a checkpointed stage recomputes its forward
+    group = None  # the ranks whose batch the statistics cover (``VQVAE.reduce_over``)
 
     def forward(self, x: torch.Tensor, weights: torch.Tensor | None = None) -> torch.Tensor:
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
+            # the statistics of the group's batch: sums over its ranks, the variance in a
+            # second pass around the group's mean
             red = tuple(range(x.dim() - 1))
             if weights is None:
-                mean = x.mean(red)
-                var = (x - mean).square().mean(red)
+                w = torch.ones((), dtype=x.dtype, device=x.device)
+                count = torch.tensor(float(x.numel() // x.shape[-1]), device=x.device)
             else:
                 w = weights.to(x.dtype).reshape((-1,) + (1,) * (x.dim() - 1))
-                denom = (w.sum() * math.prod(x.shape[1:-1])).clamp_min(1e-6)
-                mean = (x * w).sum(red) / denom
-                var = ((x - mean).square() * w).sum(red) / denom
+                count = w.sum() * math.prod(x.shape[1:-1])
+            denom = _sum_over(self.group, count).clamp_min(1e-6)
+            mean = _sum_over(self.group, (x * w).sum(red), grad=True) / denom
+            var = _sum_over(self.group, ((x - mean).square() * w).sum(red), grad=True) / denom
             if self.update_stats:
                 m = 1.0 - self.momentum  # flax's momentum
                 with torch.no_grad():
@@ -208,6 +221,8 @@ class PN2(nn.Module):
 
 
 class VectorQuantizer(nn.Module):
+    group = None  # the ranks whose batch the loss and perplexity cover (``VQVAE.reduce_over``)
+
     def __init__(self, n_e: int = 1024, e_dim: int = 16, beta: float = 0.25):
         super().__init__()
         self.n_e, self.e_dim, self.beta = n_e, e_dim, beta
@@ -230,14 +245,15 @@ class VectorQuantizer(nn.Module):
         sq_to_code = (z_q.detach() - z).square()
         sq_to_z = (z_q - z.detach()).square()
         onehot = F.one_hot(codes, self.n_e).to(z.dtype)  # [B, T, n_e]
-        if mask is None:
-            loss = sq_to_code.mean() + self.beta * sq_to_z.mean()
-            e_mean = onehot.reshape(-1, self.n_e).mean(0)
-        else:
-            w = mask.to(z.dtype).reshape(-1, 1, 1)
-            denom = (w.sum() * z.shape[1] * z.shape[2]).clamp_min(1.0)
-            loss = (sq_to_code * w).sum() / denom + self.beta * (sq_to_z * w).sum() / denom
-            e_mean = (onehot * w).sum((0, 1)) / (w.sum() * z.shape[1]).clamp_min(1.0)
+        # over the group's batch: the loss is this rank's share (a local sum over the
+        # group's count), the perplexity that of the group's summed code histogram
+        w = (torch.ones((z.shape[0], 1, 1), dtype=z.dtype, device=z.device) if mask is None
+             else mask.to(z.dtype).reshape(-1, 1, 1))
+        n = _sum_over(self.group, w.sum())
+        denom = (n * z.shape[1] * z.shape[2]).clamp_min(1.0)
+        loss = (sq_to_code * w).sum() / denom + self.beta * (sq_to_z * w).sum() / denom
+        e_mean = (_sum_over(self.group, (onehot * w).sum((0, 1)))
+                  / (n * z.shape[1]).clamp_min(1.0))
         perplexity = torch.exp(-(e_mean * torch.log(e_mean + 1e-10)).sum())
         return loss, z + (z_q - z).detach(), perplexity, codes
 
@@ -264,6 +280,15 @@ class VQVAE(nn.Module):
         self.sa_nsamples = tuple(sa_nsamples)
         self.pn2 = PN2(num_point, num_dim, local_decode_pts, sa_npoints, sa_nsamples, remat)
         self.vector_quantization = VectorQuantizer(n_embeddings, embedding_dim, beta)
+
+    def reduce_over(self, group) -> "VQVAE":
+        """Compute the batch statistics (train-mode BatchNorm's, the quantizer's loss count
+        and perplexity) over the batch of ``group``'s ranks, as a data-parallel trainer asks
+        (``parallel/mesh.py::data_group``); None, the default, keeps them this process's."""
+        for m in self.modules():
+            if isinstance(m, (MaskedBatchNorm, VectorQuantizer)):
+                m.group = group
+        return self
 
     def forward(self, part_pcs: torch.Tensor, mask: torch.Tensor | None = None) -> dict:
         """part_pcs [B, N, 3] -> reconstruction offsets and quantizer outputs. ``mask`` [B]

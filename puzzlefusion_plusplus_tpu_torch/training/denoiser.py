@@ -17,8 +17,13 @@ denoiser/model/denoiser.py):
 * optimizer: AdamW lr 2e-4, betas (0.95, 0.999), weight decay 1e-6.
 
 The stage-1 encoder comes from a checkpoint of ``training.vqvae`` (the port's format), or is
-untrained and seeded when no path is given. One device (``trainer.num_devices`` above 1
-raises); data parallelism comes later.
+untrained and seeded when no path is given.
+
+``trainer.num_devices`` above 1 trains data-parallel (``parallel/``, as ``training.vqvae``):
+the MSE is normalised by the global batch's count, the timesteps, the diffusion noise and the
+validation sampler's noise are drawn for the global batch from one seeded generator on every
+rank and then sliced (so the draws do not depend on the world size), and the ranks' dropout
+seeds differ by their rank.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from puzzlefusion_plusplus_tpu_torch.models.scheduler import (
     add_noise,
     leading_timesteps,
 )
+from puzzlefusion_plusplus_tpu_torch.parallel import launch, mesh
 from puzzlefusion_plusplus_tpu_torch.training.state import (
     MetricsLogger,
     TopKCheckpointer,
@@ -53,11 +59,10 @@ from puzzlefusion_plusplus_tpu_torch.training.state import (
     adamw_reference,
     load_model_state,
     maybe_restore,
-    require_one_device,
     save_checkpoint,
 )
+from puzzlefusion_plusplus_tpu_torch.training.vqvae import local_rows
 from puzzlefusion_plusplus_tpu_torch.training.vqvae import make_model as make_ae_model
-from puzzlefusion_plusplus_tpu_torch.training.vqvae import to_device
 from puzzlefusion_plusplus_tpu_torch.utils.config import Config, config_from_argv
 from puzzlefusion_plusplus_tpu_torch.utils.metrics import assembly_metrics
 
@@ -68,25 +73,35 @@ def _gt(batch: dict) -> torch.Tensor:
     return torch.cat([batch["part_trans"], batch["part_rots"]], dim=-1)  # [B, P, 7]
 
 
+def draw_step_noise(ddpm: DDPMParams, shape, generator: torch.Generator | None,
+                    timestep_set: torch.Tensor | None = None, device=None):
+    """(timesteps [B], noise [B, P, 7]) of one training step for poses of ``shape``, drawn
+    from ``generator`` in that order; ``timestep_set`` restricts the timesteps to its
+    entries."""
+    B = shape[0]
+    if timestep_set is None:
+        timesteps = torch.randint(0, ddpm.num_train_timesteps, (B,), generator=generator,
+                                  device=device)
+    else:
+        timesteps = timestep_set[torch.randint(0, timestep_set.shape[0], (B,),
+                                               generator=generator, device=device)]
+    return timesteps, torch.randn(shape, generator=generator, device=device)
+
+
 def loss_fn(model: DenoiserTransformer, encoder: FrozenEncoder, ddpm: DDPMParams, batch: dict,
             generator: torch.Generator | None = None, timestep_set: torch.Tensor | None = None,
             encode_cached: bool = False, timesteps: torch.Tensor | None = None,
-            noise: torch.Tensor | None = None):
-    """-> (mse, metrics). ``timesteps`` [B] and ``noise`` [B, P, 7] are drawn from
-    ``generator`` unless given (tests inject the JAX package's draws); ``timestep_set``
-    restricts the drawn timesteps to its entries."""
+            noise: torch.Tensor | None = None, group=None):
+    """-> (this rank's share of the mse, the global batch's metrics). ``timesteps`` [B] and
+    ``noise`` [B, P, 7] are drawn from ``generator`` unless given (the trainer draws them for
+    the global batch, tests inject the JAX package's draws); ``timestep_set`` restricts the
+    drawn timesteps to its entries. ``group``: the ranks that split the batch (all)."""
     gt = _gt(batch)
     ref = batch["ref_part"].bool()
-    B, dev = gt.shape[0], gt.device
-    if timesteps is None:
-        if timestep_set is None:
-            timesteps = torch.randint(0, ddpm.num_train_timesteps, (B,), generator=generator,
-                                      device=dev)
-        else:
-            timesteps = timestep_set[torch.randint(0, timestep_set.shape[0], (B,),
-                                                   generator=generator, device=dev)]
-    if noise is None:
-        noise = torch.randn(gt.shape, generator=generator, device=dev)
+    if timesteps is None or noise is None:
+        drawn = draw_step_noise(ddpm, gt.shape, generator, timestep_set, gt.device)
+        timesteps = drawn[0] if timesteps is None else timesteps
+        noise = drawn[1] if noise is None else noise
     noisy = torch.where(ref[..., None], gt, add_noise(ddpm, gt, noise, timesteps))
     with torch.no_grad():  # the encoder is frozen (the JAX package's stop_gradient)
         cache = (build_feature_cache(encoder, batch["part_pcs"], batch["part_valids"])
@@ -95,20 +110,22 @@ def loss_fn(model: DenoiserTransformer, encoder: FrozenEncoder, ddpm: DDPMParams
                                        batch["part_valids"])
     pred = model(noisy, timesteps, latent, xyz, batch["part_valids"], batch["part_scale"], ref)
     w = ((batch["part_valids"] > 0) & ~ref)[..., None].to(pred.dtype)
-    # F.mse_loss over the selected [M, 7] elements == weighted sum / (M * 7)
-    mse = ((pred - noise) ** 2 * w).sum() / (w.sum() * 7.0).clamp_min(1.0)
-    return mse, {"mse_loss": mse.detach()}
+    # F.mse_loss over the selected [M, 7] elements == weighted sum / (M * 7), M global
+    mse = ((pred - noise) ** 2 * w).sum() / (mesh.global_sum(w.sum(), group) * 7.0).clamp_min(1.0)
+    return mse, mesh.global_sums({"mse_loss": mse.detach()}, group)
 
 
 def train_step(state: TrainState, batch: dict, encoder: FrozenEncoder, ddpm: DDPMParams,
                generator: torch.Generator | None = None, timestep_set=None,
                encode_cached: bool = False, timesteps=None, noise=None) -> dict:
-    """One AdamW update on ``batch`` (tensors on the model's device); returns the metrics."""
+    """One AdamW update on ``batch`` (this rank's rows, tensors on the model's device) with
+    the gradient summed over the ranks; returns the global batch's metrics."""
     state.model.train()
     state.optimizer.zero_grad(set_to_none=True)
     loss, metrics = loss_fn(state.model, encoder, ddpm, batch, generator, timestep_set,
                             encode_cached, timesteps, noise)
     loss.backward()
+    mesh.all_reduce_gradients(state.model)
     state.optimizer.step()
     state.scheduler.step()
     state.step += 1
@@ -173,44 +190,67 @@ def load_frozen_encoder(cfg: Config, device) -> FrozenEncoder:
     return make_frozen_encoder(ae.to(device))
 
 
-def train(cfg: Config, max_steps: int | None = None, device=None) -> TrainState:
-    """Train from a seeded init (or resume), validating every ``denoiser.val_every`` epochs
-    and keeping the top-k checkpoints by eval part accuracy; ``max_steps`` stops early with
-    a checkpoint. Runs on ``cuda`` unless ``device="cpu"``; fp32 only (``require_fp32``) and
-    on one device (``require_one_device``); a producer thread builds the next batch
-    meanwhile."""
-    require_fp32(cfg)
-    require_one_device(cfg)
-    device = resolve_device(device)
+def _setup(cfg: Config, device):
+    """-> (train loader, val loader, prepare, state at its seeded init)."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.trainer.seed)
         model = make_model(cfg).to(device)
-    encoder = load_frozen_encoder(cfg, device)
-    ddpm = DDPMParams.piecewise(cfg.denoiser.ddpm_train_steps)
     kw = dict(max_num_part=cfg.data.max_num_part,
               multiple_ref_parts=cfg.denoiser.multiple_ref_parts, overfit=cfg.data.overfit)
     train_ds = DenoiserDataset(cfg.data.data_dir, mode="train", **kw)
     val_ds = DenoiserDataset(cfg.data.data_val_dir, mode="val", **kw)
     # part-count bucketing: batches never mix buckets and each is sliced to its bucket's
-    # pad; the loss masks the pad, so training does not depend on it
+    # pad (from the global batch, so every rank runs the same shapes); the loss masks the
+    # pad, so training does not depend on it
     mult, cap = cfg.data.part_bucket_multiple, cfg.data.max_num_part
 
     def bucket_key(ds):
         return [part_bucket(int(c), mult, cap=cap) for c in ds.num_parts_list()] if mult else None
 
-    def prepare(batch):
+    def prepare(batch, pad=False):
         if mult:
             batch = slice_batch_parts(
                 batch, part_bucket(int(np.max(batch["num_parts"])), mult, cap=cap))
-        return to_device(batch, device)
+        return local_rows(batch, device, pad)
 
     train_loader = Loader(train_ds, cfg.data.batch_size, seed=cfg.trainer.seed,
                           bucket_key=bucket_key(train_ds))
     val_loader = Loader(val_ds, cfg.data.val_batch_size, shuffle=False, drop_last=False,
                         seed=cfg.trainer.seed, bucket_key=bucket_key(val_ds))
     d = cfg.denoiser
-    state = adamw_reference(model, d.lr, d.b1, d.b2, d.weight_decay)
-    sample_fn = make_sample_fn(model, encoder, ddpm, d.num_inference_steps)
+    return train_loader, val_loader, prepare, adamw_reference(model, d.lr, d.b1, d.b2,
+                                                              d.weight_decay)
+
+
+def _global_draws(shape, generator: torch.Generator, steps: int):
+    """The validation sampler's draws for the global batch: (init [B, P, 7], per-step
+    noise [steps, B, P, 7]), in the order the sampler itself draws them."""
+    init = torch.randn(shape, generator=generator, device=generator.device)
+    seq = [torch.randn(shape, generator=generator, device=generator.device)
+           for _ in range(steps)]
+    return init, torch.stack(seq)
+
+
+def train(cfg: Config, max_steps: int | None = None, device=None,
+          join_timeout_s: float | None = None) -> TrainState:
+    """Train from a seeded init (or resume), validating every ``denoiser.val_every`` epochs
+    and keeping the top-k checkpoints by eval part accuracy; ``max_steps`` stops early with
+    a checkpoint. Runs on ``cuda`` unless ``device="cpu"``, fp32 only (``require_fp32``),
+    on ``trainer.num_devices`` (``training.vqvae.train`` says how); a producer thread builds
+    the next batch meanwhile."""
+    require_fp32(cfg)
+    device = resolve_device(device)
+    out_dir = f"{cfg.trainer.output_dir}/{cfg.trainer.experiment_name}/denoiser"
+    spawned = launch.entry(launch.discard_result, (train, cfg, max_steps, device),
+                           cfg.trainer.num_devices, device, cfg.data.batch_size, join_timeout_s)
+    if spawned is not launch.HERE:
+        return maybe_restore(_setup(cfg, device)[3], f"{out_dir}/ckpt")
+    train_loader, val_loader, prepare, state = _setup(cfg, device)
+    mesh.seed_ranks(cfg.trainer.seed)  # the ranks' dropout masks differ
+    encoder = load_frozen_encoder(cfg, device)
+    ddpm = DDPMParams.piecewise(cfg.denoiser.ddpm_train_steps)
+    d = cfg.denoiser
+    sample_fn = make_sample_fn(state.model, encoder, ddpm, d.num_inference_steps)
     timestep_set = (
         torch.as_tensor(leading_timesteps(d.ddpm_train_steps, d.num_inference_steps),
                         device=device)
@@ -218,18 +258,24 @@ def train(cfg: Config, max_steps: int | None = None, device=None) -> TrainState:
     )
     generator = torch.Generator(device=device).manual_seed(cfg.trainer.seed)
 
-    out_dir = f"{cfg.trainer.output_dir}/{cfg.trainer.experiment_name}/denoiser"
     logger = MetricsLogger(out_dir)
     # top-3 on eval part accuracy (reference config/denoiser/global_config.yaml:42-50)
     topk = TopKCheckpointer(f"{out_dir}/ckpt", monitor="eval_part_acc", mode="max",
                             top_k=cfg.trainer.ckpt_top_k, smooth_k=cfg.trainer.ckpt_smooth_k)
     state = maybe_restore(state, f"{out_dir}/ckpt", d.ckpt_path)
+    mesh.replicate(state.model)
+    rank, world = mesh.rank(), mesh.world()
     steps_per_epoch = max(len(train_loader), 1)
     for epoch in range(min(state.step // steps_per_epoch, d.epochs), d.epochs):
         for batch in prefetch_batches(train_loader):
             step = state.step
-            metrics = train_step(state, prepare(batch), encoder, ddpm, generator,
-                                 timestep_set, d.train_encode_cached)
+            local = prepare(batch)
+            b, P = local["part_valids"].shape
+            t, noise = draw_step_noise(ddpm, (b * world, P, 7), generator, timestep_set,
+                                       device)
+            rows = slice(rank * b, (rank + 1) * b)
+            metrics = train_step(state, local, encoder, ddpm, encode_cached=d.train_encode_cached,
+                                 timesteps=t[rows], noise=noise[rows])
             if step % cfg.trainer.log_every == 0:
                 logger.log(step, epoch=epoch, **metrics)
             if max_steps is not None and state.step >= max_steps:
@@ -238,10 +284,15 @@ def train(cfg: Config, max_steps: int | None = None, device=None) -> TrainState:
         if (epoch + 1) % d.val_every == 0 or epoch + 1 == d.epochs:
             evals = []
             for batch in val_loader:
-                batch = prepare(batch)
-                final, _ = sample_fn(batch, generator)
-                evals.append({k: float(v.float().mean()) for k, v in
-                              eval_metrics(final, batch).items()})
+                # the padded global batch, repeats included, as the JAX trainer computes it
+                local = prepare(batch, pad=True)
+                b, P = local["part_valids"].shape
+                init, seq = _global_draws((b * world, P, 7), generator, d.num_inference_steps)
+                rows = slice(rank * b, (rank + 1) * b)
+                final, _ = sample_fn(local, init=init[rows], noise_seq=seq[:, rows])
+                sums = {k: v.float().sum() for k, v in eval_metrics(final, local).items()}
+                sums = mesh.global_sums({**sums, "count": torch.tensor(float(b), device=device)})
+                evals.append({k: float(sums[k] / sums["count"]) for k in EVAL_KEYS})
             if evals:
                 agg = {k: float(np.mean([e[k] for e in evals])) for k in EVAL_KEYS}
                 logger.log(state.step, epoch=epoch, **{f"eval_{k}": v for k, v in agg.items()})

@@ -32,15 +32,32 @@ off, and the same frozen-encoder codes on both devices (``denoiser_step_on`` ret
 smallest code margin so a caller can check that no code sat within float error of a tie).
 The verifier step (``verifier_step_on``) is held to them too, with dropout off: its loss
 1e-5 relative, every gradient elementwise.
+
+``dp_steps`` runs the same steps data-parallel: each case's global batch split over
+``world`` ranks (``parallel/``), the result rank 0's, plus every rank's buffers under
+``rank_buffers``. ``compare`` holds it to the one-process step (``dp_steps`` at world 1, the
+same code in this process) with the tolerances above; ``chip_smoke.py`` (phase ``dp``) and
+``tests/test_torch_port_parallel.py`` run it. ``measured`` (and ``serving``, for the
+inference entry) reads a data-parallel entry's times, launch counts and peak device memory
+on every rank.
 """
 
 from __future__ import annotations
 
-import torch
+import functools
+import time
 
-from puzzlefusion_plusplus_tpu_torch.inference.sampler import build_feature_cache
+import torch
+import torch.distributed as dist
+
+from puzzlefusion_plusplus_tpu_torch import ops
+from puzzlefusion_plusplus_tpu_torch.inference.sampler import (
+    build_feature_cache,
+    make_frozen_encoder,
+)
 from puzzlefusion_plusplus_tpu_torch.models.scheduler import DDPMParams, add_noise
 from puzzlefusion_plusplus_tpu_torch.models.vqvae import VQVAE
+from puzzlefusion_plusplus_tpu_torch.parallel import launch, mesh
 from puzzlefusion_plusplus_tpu_torch.training import denoiser as den_train
 from puzzlefusion_plusplus_tpu_torch.training import verifier as ver_train
 from puzzlefusion_plusplus_tpu_torch.training.state import adamw_multistep, adamw_reference
@@ -62,7 +79,7 @@ def step_on(make_model, state_dict: dict, batch: dict, device, lr: float = 5e-4,
             weight_decay: float = 1e-6) -> dict:
     """One ``train_step`` on ``device`` -> loss metrics, gradients, BatchNorm buffers and
     parameters after the update, all on the CPU."""
-    model = make_model().to(device)
+    model = make_model().to(device).reduce_over(mesh.data_group())
     model.load_state_dict(state_dict)
     state = adamw_multistep(model, lr, (), 0.5, weight_decay)
     metrics = train_step(state, to_device(batch, device))
@@ -108,6 +125,93 @@ def verifier_step_on(make_model, state_dict: dict, batch: dict, device, lr: floa
     state = adamw_reference(model, lr, weight_decay=weight_decay)
     metrics = ver_train.train_step(state, to_device(batch, device), negative_weight)
     return _result(model, metrics, lr)
+
+
+def encoder_maker(make_ae, ae_state_dict: dict):
+    """A picklable ``make_encoder(device)`` for ``denoiser_step_on``: the frozen encoder of
+    ``make_ae()`` with ``ae_state_dict`` loaded."""
+    return functools.partial(_frozen_encoder, make_ae, ae_state_dict)
+
+
+def _frozen_encoder(make_ae, ae_state_dict: dict, device):
+    model = make_ae()
+    model.load_state_dict(ae_state_dict)
+    return make_frozen_encoder(model.to(device))
+
+
+def _rank_step(kind: str, make_model, state_dict: dict, batch: dict, device,
+               make_encoder=None, timesteps=None, noise=None) -> dict:
+    """This rank's part of one step of ``kind`` ('vqvae', 'denoiser' or 'verifier') on the
+    global ``batch`` (the denoiser's ``timesteps`` and ``noise`` are the global batch's)."""
+    rank, world = mesh.rank(), mesh.world()
+    rows = mesh.shard_batch({k: v for k, v in batch.items() if hasattr(v, "shape")}, rank,
+                            world)
+    if kind == "vqvae":
+        res = step_on(make_model, state_dict, rows, device)
+    elif kind == "denoiser":
+        b = len(rows["part_valids"])
+        own = slice(rank * b, (rank + 1) * b)
+        res = denoiser_step_on(make_model, state_dict, make_encoder, rows, device,
+                               timesteps[own], noise[own])
+    else:
+        res = verifier_step_on(make_model, state_dict, rows, device)
+    gathered = [res["buffers"]]
+    if world > 1:
+        gathered = [None] * world
+        dist.all_gather_object(gathered, res["buffers"])
+    return {**res, "rank_buffers": gathered}
+
+
+def _rank_steps(cases: dict, device) -> dict:
+    return {name: _rank_step(device=device, **case) for name, case in cases.items()}
+
+
+def dp_steps(cases: dict, world: int, device, share_card: bool = False,
+             join_timeout_s: float | None = None) -> dict:
+    """One step of every case ({name: ``_rank_step``'s keyword arguments}) at world size
+    ``world`` -> {name: rank 0's ``step_on``-style result with ``rank_buffers``}; world 1
+    runs in this process. The models must be picklable factories (``functools.partial``)."""
+    if world == 1:
+        return _rank_steps(cases, device)
+    return launch.run(_rank_steps, (cases, device), world, device, share_card=share_card,
+                      join_timeout_s=join_timeout_s)
+
+
+def measured(fn, args: tuple, calls: int = 1) -> dict:
+    """``fn(*args)`` ``calls`` times on this rank, with its launch counts and peak device
+    memory read around them -> {"result": the last call's (a trainer's state stays in its
+    rank: pass ``launch.discard_result`` and the trainer as ``fn``), "seconds": per call, "peak_bytes": per rank, "launches": summed over the calls and the
+    ranks}. A worker for ``launch.run``, or a plain call on one process."""
+    cuda = torch.cuda.is_available()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    seconds = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        if cuda:
+            torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    mine = {"peak_bytes": torch.cuda.max_memory_allocated() if cuda else 0,
+            "launches": ops.launch_counts()}
+    ranks = [mine]
+    if mesh.world() > 1:
+        ranks = [None] * mesh.world()
+        dist.all_gather_object(ranks, mine)
+    return {"result": out, "seconds": seconds,
+            "peak_bytes": [r["peak_bytes"] for r in ranks],
+            "launches": {k: sum(r["launches"][k] for r in ranks) for k in mine["launches"]}}
+
+
+def serving(cfg, device, calls: int) -> dict:
+    """``measured`` over ``calls`` calls of ``inference/run.py::run_inference`` with one
+    engine built first, as a server keeps it (a worker for ``launch.run``)."""
+    from puzzlefusion_plusplus_tpu_torch.inference import run
+
+    engine = run.build_engine_fn(cfg, device)
+    return measured(run.run_inference, (cfg, device, None, engine), calls)
 
 
 @torch.no_grad()

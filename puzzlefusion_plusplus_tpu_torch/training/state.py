@@ -12,6 +12,8 @@
   keep the JAX package's semantics. ``load_model_state`` also reads the original repo's
   Lightning files (``convert/lightning_ckpt.py``).
 * Logging: an append-only JSONL stream echoed to stdout.
+* Data parallelism: rank 0 alone writes checkpoints, ``topk.json`` and the metrics log, and
+  the ranks wait for its checkpoint writes.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from puzzlefusion_plusplus_tpu_torch.convert import lightning_ckpt
+from puzzlefusion_plusplus_tpu_torch.parallel import mesh
 
 STATE_FILE = "state.pt"
 _TMP = ".tmp"
@@ -61,18 +64,23 @@ def adamw_reference(model: torch.nn.Module, lr: float, b1: float = 0.95, b2: flo
 
 
 def save_checkpoint(ckpt_dir: str, state: TrainState, step: int | None = None) -> str:
-    """Write ``step_N/state.pt`` (replacing an older one of that name). Returns the path."""
+    """Write ``step_N/state.pt`` (replacing an older one of that name). Returns the path.
+    Inside a process group rank 0 writes and every rank waits for it (the ranks' states are
+    equal)."""
     step = int(state.step if step is None else step)
     path = os.path.abspath(os.path.join(ckpt_dir, f"step_{step}"))
-    prune_incomplete_checkpoints(ckpt_dir)
-    tmp = path + _TMP
-    os.makedirs(tmp)
-    torch.save({"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
-                "scheduler": state.scheduler.state_dict(), "step": int(state.step)},
-               os.path.join(tmp, STATE_FILE))
-    if os.path.isdir(path):
-        shutil.rmtree(path)
-    os.replace(tmp, path)
+    if mesh.is_main():
+        prune_incomplete_checkpoints(ckpt_dir)
+        tmp = path + _TMP
+        os.makedirs(tmp)
+        torch.save({"model": state.model.state_dict(),
+                    "optimizer": state.optimizer.state_dict(),
+                    "scheduler": state.scheduler.state_dict(), "step": int(state.step)},
+                   os.path.join(tmp, STATE_FILE))
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        os.replace(tmp, path)
+    mesh.barrier()
     return path
 
 
@@ -156,15 +164,6 @@ def load_model_state(path: str, kind: str | None = None) -> dict:
     return load_checkpoint(resolved)["model"]
 
 
-def require_one_device(cfg) -> None:
-    """The port trains on one card: refuse ``trainer.num_devices`` above 1 rather than
-    ignore it (-1, all local devices, and 1 train on one card)."""
-    if cfg.trainer.num_devices > 1:
-        raise NotImplementedError(
-            f"trainer.num_devices={cfg.trainer.num_devices} is not supported by the port yet "
-            "(data parallelism, parallel/mesh.py, is not ported); use trainer.num_devices=1")
-
-
 def _restore_into(state: TrainState, saved: dict) -> TrainState:
     state.model.load_state_dict(saved["model"])
     state.optimizer.load_state_dict(saved["optimizer"])
@@ -177,7 +176,9 @@ def maybe_restore(state: TrainState, ckpt_dir: str, explicit_path: str = "") -> 
     """Auto-resume in place: from ``explicit_path`` or else the mtime-latest complete
     checkpoint of ``ckpt_dir`` (resume means latest even where a top-k index exists). A
     damaged checkpoint found by auto-resume is passed over for the next-newest one; a
-    damaged explicit one raises. Returns ``state`` unchanged when nothing exists."""
+    damaged explicit one raises. Returns ``state`` unchanged when nothing exists. Inside a
+    process group every rank reads the same files (the trainers then broadcast rank 0's
+    model, ``parallel/mesh.py::replicate``)."""
     path = explicit_path or latest_checkpoint(ckpt_dir)
     if not path:
         return state
@@ -242,10 +243,13 @@ class TopKCheckpointer:
                               if self.smooth_k > 1 else raw)
         keep = set(self._ranked()[: self.top_k]) | {name}
         for old in [k for k in self.entries if k not in keep]:
-            shutil.rmtree(os.path.join(self.ckpt_dir, old), ignore_errors=True)
+            if mesh.is_main():
+                shutil.rmtree(os.path.join(self.ckpt_dir, old), ignore_errors=True)
             del self.entries[old]
             self.raw.pop(old, None)
-        self._write_index()
+        if mesh.is_main():
+            self._write_index()
+        mesh.barrier()
         return path
 
     def _ranked(self) -> list[str]:
@@ -256,16 +260,20 @@ class TopKCheckpointer:
 
 
 class MetricsLogger:
-    """Append-only JSONL metrics stream + stdout echo."""
+    """Append-only JSONL metrics stream + stdout echo, written by rank 0 alone inside a
+    process group (every rank's metrics are the global batch's)."""
 
     def __init__(self, out_dir: str, name: str = "metrics"):
-        os.makedirs(out_dir, exist_ok=True)
+        if mesh.is_main():
+            os.makedirs(out_dir, exist_ok=True)
         self.path = os.path.join(out_dir, f"{name}.jsonl")
         self._t0 = time.time()
 
     def log(self, step: int, **metrics):
         """Append one record; ``wall_s`` is taken after the values are read, so for device
         tensors it marks the end of the step that produced them."""
+        if not mesh.is_main():
+            return
         vals = {k: float(v) if isinstance(v, (torch.Tensor, np.ndarray, np.generic)) else v
                 for k, v in metrics.items()}
         rec = {"step": int(step), "wall_s": time.time() - self._t0, **vals}

@@ -12,8 +12,10 @@ trains on the GPU (``--cpu`` for the CPU), with the JAX package's config keys. S
   checkpoints on ``val_cls_acc`` (mode max), validation every ``trainer.ckpt_every_epochs``
   and at the last epoch; auto-resume from ``verifier.ckpt_path`` or the latest checkpoint.
 
-fp32 only (``trainer.precision``) and one device (``trainer.num_devices``); either key set
-otherwise raises.
+fp32 only (``trainer.precision`` set otherwise raises). ``trainer.num_devices`` above 1
+trains data-parallel (``parallel/``, as ``training.vqvae``): the loss is normalised by the
+global count of valid edges, and accuracy, precision, recall and F1 come from the ranks'
+summed tp/fp/fn/tn counts.
 """
 
 from __future__ import annotations
@@ -28,16 +30,16 @@ from puzzlefusion_plusplus_tpu_torch.data.loader import Loader, prefetch_batches
 from puzzlefusion_plusplus_tpu_torch.inference.run import resolve_device
 from puzzlefusion_plusplus_tpu_torch.models.verifier import VerifierTransformer
 from puzzlefusion_plusplus_tpu_torch.training.denoiser import require_fp32
+from puzzlefusion_plusplus_tpu_torch.parallel import launch, mesh
 from puzzlefusion_plusplus_tpu_torch.training.state import (
     MetricsLogger,
     TopKCheckpointer,
     TrainState,
     adamw_reference,
     maybe_restore,
-    require_one_device,
     save_checkpoint,
 )
-from puzzlefusion_plusplus_tpu_torch.training.vqvae import to_device
+from puzzlefusion_plusplus_tpu_torch.training.vqvae import local_rows
 from puzzlefusion_plusplus_tpu_torch.utils.config import Config, config_from_argv
 
 METRIC_KEYS = ("cls_loss", "cls_acc", "cls_precision", "cls_recall", "cls_f1_score")
@@ -50,16 +52,17 @@ def make_model(cfg: Config, dropout: float = 0.1) -> VerifierTransformer:
 
 
 def binary_cls_metrics(pred: torch.Tensor, gt: torch.Tensor, w: torch.Tensor) -> dict:
-    """Masked accuracy / precision / recall / F1 (torchmetrics' 'binary' semantics)."""
-    tp = (w * pred * gt).sum()
-    fp = (w * pred * (1 - gt)).sum()
-    fn = (w * (1 - pred) * gt).sum()
-    tn = (w * (1 - pred) * (1 - gt)).sum()
+    """Masked accuracy / precision / recall / F1 (torchmetrics' 'binary' semantics) of the
+    global batch: the ratios of the ranks' summed counts."""
+    c = mesh.global_sums({"tp": (w * pred * gt).sum(), "fp": (w * pred * (1 - gt)).sum(),
+                          "fn": (w * (1 - pred) * gt).sum(),
+                          "tn": (w * (1 - pred) * (1 - gt)).sum(), "n": w.sum()})
+    tp, fp, fn, tn = c["tp"], c["fp"], c["fn"], c["tn"]
     eps = 1e-9
     precision = tp / (tp + fp).clamp_min(eps)
     recall = tp / (tp + fn).clamp_min(eps)
     return {
-        "cls_acc": (tp + tn) / w.sum().clamp_min(eps),
+        "cls_acc": (tp + tn) / c["n"].clamp_min(eps),
         "cls_precision": precision,
         "cls_recall": recall,
         "cls_f1_score": 2 * precision * recall / (precision + recall).clamp_min(eps),
@@ -67,25 +70,29 @@ def binary_cls_metrics(pred: torch.Tensor, gt: torch.Tensor, w: torch.Tensor) ->
 
 
 def loss_fn(model: VerifierTransformer, batch: dict, negative_weight: float):
-    """-> (loss, metrics); dropout acts when ``model.training``."""
+    """-> (this rank's share of the loss, the global batch's metrics); dropout acts when
+    ``model.training``."""
     logits = model(batch["edge_features"], batch["edge_indices"],
                    batch["edge_valids"])[..., 0]  # [B, E]
     gt, valid = batch["cls_gt"], batch["edge_valids"]
     # weighted BCE-with-logits in the JAX package's form, `negative_weight` on negatives
     per_edge = logits.clamp_min(0) - logits * gt + torch.log1p(torch.exp(-logits.abs()))
     cls_w = torch.where(gt == 0, negative_weight, 1.0) * valid
-    cls_loss = (per_edge * cls_w).sum() / valid.sum().clamp_min(1.0)
+    cls_loss = (per_edge * cls_w).sum() / mesh.global_sum(valid.sum()).clamp_min(1.0)
     pred = (torch.sigmoid(logits) > 0.5).to(gt.dtype)
-    metrics = {"cls_loss": cls_loss, **binary_cls_metrics(pred, gt, valid)}
+    metrics = {**mesh.global_sums({"cls_loss": cls_loss.detach()}),
+               **binary_cls_metrics(pred, gt, valid)}
     return cls_loss, {k: v.detach() for k, v in metrics.items()}
 
 
 def train_step(state: TrainState, batch: dict, negative_weight: float) -> dict:
-    """One AdamW update on ``batch`` (tensors on the model's device); returns the metrics."""
+    """One AdamW update on ``batch`` (this rank's rows, tensors on the model's device) with
+    the gradient summed over the ranks; returns the global batch's metrics."""
     state.model.train()
     state.optimizer.zero_grad(set_to_none=True)
     loss, metrics = loss_fn(state.model, batch, negative_weight)
     loss.backward()
+    mesh.all_reduce_gradients(state.model)
     state.optimizer.step()
     state.scheduler.step()
     state.step += 1
@@ -98,13 +105,8 @@ def eval_step(state: TrainState, batch: dict, negative_weight: float) -> dict:
     return loss_fn(state.model, batch, negative_weight)[1]
 
 
-def train(cfg: Config, max_steps: int | None = None, device=None) -> TrainState:
-    """Train from a seeded init (or resume), validating and keeping the top-k checkpoints by
-    val cls_acc; ``max_steps`` stops early with a checkpoint. Runs on ``cuda`` unless
-    ``device="cpu"``; a producer thread builds the next batch meanwhile."""
-    require_fp32(cfg)
-    require_one_device(cfg)
-    device = resolve_device(device)
+def _setup(cfg: Config, device):
+    """-> (train loader, val loader, state at its seeded init)."""
     train_ds = VerifierDataset(cfg.data.verifier_data_path, "train", cfg.data.overfit)
     val_ds = VerifierDataset(cfg.data.verifier_data_path, "val", cfg.data.overfit)
     train_loader = Loader(train_ds, cfg.data.batch_size, seed=cfg.trainer.seed)
@@ -114,27 +116,45 @@ def train(cfg: Config, max_steps: int | None = None, device=None) -> TrainState:
         torch.manual_seed(cfg.trainer.seed)
         model = make_model(cfg).to(device)
     v = cfg.verifier
-    state = adamw_reference(model, v.lr, v.b1, v.b2, v.weight_decay)
+    return train_loader, val_loader, adamw_reference(model, v.lr, v.b1, v.b2, v.weight_decay)
 
+
+def train(cfg: Config, max_steps: int | None = None, device=None,
+          join_timeout_s: float | None = None) -> TrainState:
+    """Train from a seeded init (or resume), validating and keeping the top-k checkpoints by
+    val cls_acc; ``max_steps`` stops early with a checkpoint. Runs on ``cuda`` unless
+    ``device="cpu"``, on ``trainer.num_devices`` (``training.vqvae.train`` says how); a
+    producer thread builds the next batch meanwhile."""
+    require_fp32(cfg)
+    device = resolve_device(device)
     out_dir = f"{cfg.trainer.output_dir}/{cfg.trainer.experiment_name}/verifier"
+    spawned = launch.entry(launch.discard_result, (train, cfg, max_steps, device),
+                           cfg.trainer.num_devices, device, cfg.data.batch_size, join_timeout_s)
+    if spawned is not launch.HERE:
+        return maybe_restore(_setup(cfg, device)[2], f"{out_dir}/ckpt")
+    train_loader, val_loader, state = _setup(cfg, device)
+    mesh.seed_ranks(cfg.trainer.seed)  # the ranks' dropout masks differ
+    v = cfg.verifier
     logger = MetricsLogger(out_dir)
     # top-k on val cls_acc (reference config/verifier/global_config.yaml:41-49)
     topk = TopKCheckpointer(f"{out_dir}/ckpt", monitor="val_cls_acc", mode="max",
                             top_k=cfg.trainer.ckpt_top_k)
     state = maybe_restore(state, f"{out_dir}/ckpt", v.ckpt_path)
+    mesh.replicate(state.model)
     start_epoch = min(state.step // max(len(train_loader), 1), v.epochs)
     for epoch in range(start_epoch, v.epochs):
         for batch in prefetch_batches(train_loader):
             step = state.step
-            metrics = train_step(state, to_device(batch, device), v.negative_weight)
+            metrics = train_step(state, local_rows(batch, device), v.negative_weight)
             if step % cfg.trainer.log_every == 0:
                 logger.log(step, epoch=epoch, **metrics)
             if max_steps is not None and state.step >= max_steps:
                 save_checkpoint(f"{out_dir}/ckpt", state)
                 return state
         if (epoch + 1) % cfg.trainer.ckpt_every_epochs == 0 or epoch + 1 == v.epochs:
-            vals = [{k: float(x) for k, x in
-                     eval_step(state, to_device(b, device), v.negative_weight).items()}
+            # the padded global batch, repeats included, as the JAX trainer computes it
+            vals = [{k: float(x) for k, x in eval_step(state, local_rows(b, device, pad=True),
+                                                       v.negative_weight).items()}
                     for b in val_loader]
             if vals:
                 agg = {f"val_{k}": float(np.mean([r[k] for r in vals])) for k in METRIC_KEYS}

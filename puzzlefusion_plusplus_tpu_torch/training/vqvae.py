@@ -5,8 +5,13 @@ data.data_val_dir=...`` trains on the GPU (``--cpu`` for the CPU), with the JAX 
 config keys. The loss is the reference FractureAE's: bidirectional chamfer between the
 reconstruction and the input part cloud with chamferdist's default reductions (per-part
 point sum, mean over the valid parts), plus the quantizer's embedding loss, both masked over
-the compacted valid part slots. One device (``trainer.num_devices`` above 1 raises); data
-parallelism comes later.
+the compacted valid part slots.
+
+``trainer.num_devices`` above 1 trains data-parallel (``parallel/``): the entry spawns one
+process a card (NCCL; gloo on the CPU), every rank builds the same global batch of
+``data.batch_size`` shapes and keeps its rows, and the losses, the BatchNorm statistics and
+the perplexity are those of the global batch, so a step equals the one-process step on the
+same batch. Rank 0 writes the checkpoints and the log.
 """
 
 from __future__ import annotations
@@ -22,19 +27,20 @@ from puzzlefusion_plusplus_tpu_torch.data.loader import Loader, prefetch_batches
 from puzzlefusion_plusplus_tpu_torch.inference.run import resolve_device
 from puzzlefusion_plusplus_tpu_torch.models.vqvae import VQVAE
 from puzzlefusion_plusplus_tpu_torch.ops.chamfer import nn_distance
+from puzzlefusion_plusplus_tpu_torch.parallel import launch, mesh
 from puzzlefusion_plusplus_tpu_torch.training.state import (
     MetricsLogger,
     TopKCheckpointer,
     TrainState,
     adamw_multistep,
     maybe_restore,
-    require_one_device,
     save_checkpoint,
 )
 from puzzlefusion_plusplus_tpu_torch.utils.config import Config, config_from_argv
 from puzzlefusion_plusplus_tpu_torch.utils.masking import compact_parts, compaction_indices
 
 METRIC_KEYS = ("cd_loss", "embedding_loss", "perplexity", "total_loss")
+SHARES = ("cd_loss", "embedding_loss", "total_loss", "valid_parts")  # summed over the ranks
 
 
 def make_model(cfg: Config) -> VQVAE:
@@ -51,18 +57,20 @@ def _flatten_compact(batch: dict):
 
 
 def loss_fn(model: VQVAE, batch: dict):
-    """-> (total loss, metrics); BatchNorm runs in train mode when ``model.training``.
-    ``valid_parts`` counts the batch's real parts (the slots the loss averages over)."""
+    """-> (this rank's share of the total loss, the global batch's metrics); BatchNorm runs
+    in train mode when ``model.training``. ``valid_parts`` counts the batch's real parts
+    (the slots the loss averages over). On one process the share is the loss."""
     flat, slot_mask = _flatten_compact(batch)
     w = slot_mask.to(flat.dtype)
     out = model(flat, mask=w)
     recon = model.reconstruction(out)
     per_part_cd = nn_distance(recon, flat)[0].sum(-1) + nn_distance(flat, recon)[0].sum(-1)
-    cd_loss = (per_part_cd * w).sum() / w.sum().clamp_min(1.0)
+    cd_loss = (per_part_cd * w).sum() / mesh.global_sum(w.sum()).clamp_min(1.0)
     total = cd_loss + out["embedding_loss"]
     metrics = {"cd_loss": cd_loss, "embedding_loss": out["embedding_loss"],
                "perplexity": out["perplexity"], "total_loss": total, "valid_parts": w.sum()}
-    return total, {k: v.detach() for k, v in metrics.items()}
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return total, {**metrics, **mesh.global_sums({k: metrics[k] for k in SHARES})}
 
 
 def to_device(batch: dict, device) -> dict:
@@ -71,12 +79,24 @@ def to_device(batch: dict, device) -> dict:
             if isinstance(v, np.ndarray) and v.dtype != object}
 
 
+def local_rows(batch: dict, device, pad: bool = False) -> dict:
+    """This rank's rows of a global loader batch, as ``to_device`` gives them; ``pad``
+    first pads a ragged batch to a multiple of the world size by repeating row 0, as the
+    JAX trainers' validation does (the repeats count in the metrics there too)."""
+    batch = {k: v for k, v in batch.items() if isinstance(v, np.ndarray) and v.dtype != object}
+    if pad:
+        batch = mesh.pad_batch_to_devices(batch, mesh.world())[0]
+    return to_device(mesh.shard_batch(batch, mesh.rank(), mesh.world()), device)
+
+
 def train_step(state: TrainState, batch: dict) -> dict:
-    """One AdamW update on ``batch`` (tensors on the model's device); returns the metrics."""
+    """One AdamW update on ``batch`` (this rank's rows, tensors on the model's device) with
+    the gradient summed over the ranks; returns the global batch's metrics."""
     state.model.train()
     state.optimizer.zero_grad(set_to_none=True)
     loss, metrics = loss_fn(state.model, batch)
     loss.backward()
+    mesh.all_reduce_gradients(state.model)
     state.optimizer.step()
     state.scheduler.step()
     state.step += 1
@@ -89,13 +109,8 @@ def eval_step(state: TrainState, batch: dict) -> dict:
     return loss_fn(state.model, batch)[1]
 
 
-def train(cfg: Config, max_steps: int | None = None, device=None) -> TrainState:
-    """Train from a seeded init (or resume), validating and keeping the top-k checkpoints
-    by val cd_loss every ``trainer.ckpt_every_epochs``; ``max_steps`` stops early with a
-    checkpoint. Runs on ``cuda`` unless ``device="cpu"``, on one device
-    (``require_one_device``); a producer thread builds the next batch meanwhile."""
-    require_one_device(cfg)
-    device = resolve_device(device)
+def _setup(cfg: Config, device):
+    """-> (train loader, val loader, prepare, state at its seeded init)."""
     train_ds = VQVAEDataset(cfg.data.data_dir, cfg.data.max_num_part, cfg.data.min_num_part,
                             cfg.data.overfit)
     val_ds = VQVAEDataset(cfg.data.data_val_dir, cfg.data.max_num_part,
@@ -107,11 +122,12 @@ def train(cfg: Config, max_steps: int | None = None, device=None) -> TrainState:
     def bucket_key(ds):
         return [part_bucket(int(c), mult, cap=cap) for c in ds.num_parts_list()] if mult else None
 
-    def prepare(batch):
+    def prepare(batch, pad=False):
+        # the pad comes from the global batch, so every rank runs the same shapes
         if mult:
             batch = slice_batch_parts(
                 batch, part_bucket(int(np.max(batch["num_parts"])), mult, cap=cap))
-        return to_device(batch, device)
+        return local_rows(batch, device, pad)
 
     train_loader = Loader(train_ds, cfg.data.batch_size, seed=cfg.trainer.seed,
                           bucket_key=bucket_key(train_ds))
@@ -121,17 +137,36 @@ def train(cfg: Config, max_steps: int | None = None, device=None) -> TrainState:
 
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.trainer.seed)
-        model = make_model(cfg).to(device)
+        model = make_model(cfg).to(device).reduce_over(mesh.data_group())
     state = adamw_multistep(model, cfg.ae.lr,
                             [int(m) * steps_per_epoch for m in cfg.ae.lr_milestones],
                             cfg.ae.lr_gamma, cfg.ae.weight_decay)
+    return train_loader, val_loader, prepare, state
 
+
+def train(cfg: Config, max_steps: int | None = None, device=None,
+          join_timeout_s: float | None = None) -> TrainState:
+    """Train from a seeded init (or resume), validating and keeping the top-k checkpoints
+    by val cd_loss every ``trainer.ckpt_every_epochs``; ``max_steps`` stops early with a
+    checkpoint. Runs on ``cuda`` unless ``device="cpu"``, on ``trainer.num_devices``
+    (``parallel/mesh.py::world_size``): above one it spawns the ranks
+    (``parallel/launch.py::entry``; ``join_timeout_s`` bounds their run) and returns the
+    state of the last checkpoint they wrote. A producer thread builds the next batch
+    meanwhile."""
+    device = resolve_device(device)
     out_dir = f"{cfg.trainer.output_dir}/{cfg.trainer.experiment_name}/vqvae"
+    spawned = launch.entry(launch.discard_result, (train, cfg, max_steps, device),
+                           cfg.trainer.num_devices, device, cfg.data.batch_size, join_timeout_s)
+    if spawned is not launch.HERE:
+        return maybe_restore(_setup(cfg, device)[3], f"{out_dir}/ckpt")
+    train_loader, val_loader, prepare, state = _setup(cfg, device)
+    steps_per_epoch = max(len(train_loader), 1)
     logger = MetricsLogger(out_dir)
     # top-k on val cd_loss, mode min (reference config/ae/global_config.yaml:42-50)
     topk = TopKCheckpointer(f"{out_dir}/ckpt", monitor="val_cd_loss", mode="min",
                             top_k=cfg.trainer.ckpt_top_k)
     state = maybe_restore(state, f"{out_dir}/ckpt", cfg.ae.ckpt_path)
+    mesh.replicate(state.model)
     start_epoch = min(state.step // steps_per_epoch, cfg.ae.epochs)
     for epoch in range(start_epoch, cfg.ae.epochs):
         for batch in prefetch_batches(train_loader):
@@ -143,7 +178,8 @@ def train(cfg: Config, max_steps: int | None = None, device=None) -> TrainState:
                 save_checkpoint(f"{out_dir}/ckpt", state)
                 return state
         if (epoch + 1) % cfg.trainer.ckpt_every_epochs == 0 or epoch + 1 == cfg.ae.epochs:
-            vals = [float(eval_step(state, prepare(b))["cd_loss"]) for b in val_loader]
+            vals = [float(eval_step(state, prepare(b, pad=True))["cd_loss"])
+                    for b in val_loader]
             if vals:
                 val_cd = float(np.mean(vals))
                 logger.log(state.step, epoch=epoch, val_cd_loss=val_cd)

@@ -450,15 +450,40 @@ def test_trainer_runs_on_cpu_and_needs_cuda_otherwise(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("trainer", ["vqvae", "denoiser", "verifier"])
-def test_trainers_refuse_more_than_one_device(trainer):
-    """``trainer.num_devices`` above 1 raises before any work; -1 and 1 train on one card."""
+def test_trainers_refuse_more_than_one_device(tmp_path, monkeypatch, trainer):
+    """More cards than are visible raise before any work. On the CPU,
+    ``trainer.num_devices=2`` trains on two processes (``parallel/launch.py``): 2 steps, one
+    checkpoint and one metrics record a step, written by rank 0 alone, and the state
+    returned is the checkpoint's."""
     import importlib
 
     module = importlib.import_module(f"puzzlefusion_plusplus_tpu_torch.training.{trainer}")
-    cfg = Config()
+    root = str(tmp_path)
+    if trainer == "verifier":
+        generate_dataset(root, num_shapes=6, seed=34, split="train", min_parts=2,
+                         max_parts=5, n_points=64)
+        cfg = _tiny_cfg(root)
+    else:
+        generate_dataset(root, num_shapes=4, seed=11, split="train", min_parts=2,
+                         max_parts=4, n_points=1000)
+        generate_dataset(root, num_shapes=2, seed=12, split="val", min_parts=2, max_parts=4,
+                         n_points=1000)
+        cfg = apply_overrides(Config(), [
+            f"data.data_dir={root}/pc_data/train", f"data.data_val_dir={root}/pc_data/val",
+            "data.batch_size=2", "data.val_batch_size=2", "data.max_num_part=4",
+            "ae.n_embeddings=32", "denoiser.embed_dim=32", "denoiser.num_layers=1",
+            "denoiser.num_heads=2", "trainer.log_every=1", f"trainer.output_dir={root}/out"])
     cfg.trainer.num_devices = 2
-    with pytest.raises(NotImplementedError, match="trainer.num_devices=2"):
-        module.train(cfg, device="cpu")
-    for n in (-1, 1):
-        cfg.trainer.num_devices = n
-        tstate.require_one_device(cfg)
+    state = module.train(cfg, max_steps=2, device="cpu", join_timeout_s=120)
+    assert state.step == 2
+    out = os.path.join(root, "out", "everyday", trainer)
+    assert sorted(os.listdir(os.path.join(out, "ckpt"))) == ["step_2"]
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        assert [json.loads(line)["step"] for line in f] == [0, 1]
+    sd = tstate.load_model_state(os.path.join(out, "ckpt", "latest"))
+    assert all(torch.equal(v, state.model.state_dict()[k]) for k, v in sd.items())
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(ValueError, match="trainer.num_devices=2 but only 1 CUDA"):
+            module.train(cfg, device="cuda")
