@@ -92,13 +92,35 @@ Phases, each printing one JSON object per line (with its seconds):
                ``verifier.ckpt_path`` naming phases 6, 10 and 14's checkpoints (a phase not
                run is stood in for by a saved seeded model), then with the same weights as
                ``state_dicts`` under the same generator seed: results equal; assemblies/s.
- 17. dp      — data parallelism (``parallel/``; the other phases run on one card,
+ 17. train_matching — the Jigsaw matcher's entry ``matching.train.train_matching`` at its
+               defaults (the reference jigsaw_4x4_128_512_250e width: PointNet++ MSG
+               (1024, 256, 64, 16), 128/512 features, 8 heads, 16 kNN samples, Sinkhorn 20 x
+               0.05, 5000 points, 20 parts, batch 1, Adam 1e-3 under cosine decay) with
+               ``mat_epoch = rig_epoch = 0`` (all three losses) on 7 synthetic shapes of 3-12
+               parts (seed 18): a warm-up step, 6 timed steps, one validation pass over 1
+               shape (seed 20) and a top-k checkpoint; steps/s, points/s, peak memory, the
+               loader's s a shape, val ``mat_f1`` (random weights: it measures nothing).
+ 18. matching_parity — one full-width matcher train_step on the card and one on the CPU
+               (``training/parity.py::MATCHING``).
+ 18b. profile_matching — torch.profiler over one full-width matcher training step.
+ 19. matching_gen — the eval entry ``matching.eval`` writes matching_data for 4 shapes
+               (seed 19) from phase 17's checkpoint (a saved seeded model without it), cut
+               to 1500 points a shape (``MATCHING_GEN_POINTS``: the host Hungarian); s a
+               shape; the oracle mode once; then ``run_inference`` serves those 4 shapes from
+               the written directory with the full-width seeded engine, finite metrics.
+               Phase 2 holds F, G and B at the matcher's batch-1 shapes (path
+               "train_matching": F on the 5000/1024/256/64-point stages, G on sa1-sa4's
+               groupings, fp4's and fp1's interpolation and the PointTransformer's
+               [1,5000,128] by [1,5000,16], B on the backward of those with a gradient,
+               R = 80000 at C = 128 on the CSR route).
+ 20. dp      — data parallelism (``parallel/``; the other phases run on one card,
                ``trainer.num_devices=1``): NCCL over up to 4 cards, or with one card 2 ranks
                on it over gloo (``dp_plan``: 4 ranks from 4 cards, else 2). One VQ-VAE, denoiser and verifier step at that
                world size W held to the one-process step (``training/parity.py::dp_steps``,
-               ``compare``; BatchNorm statistics equal on every rank); each trainer's entry
-               for 6 steps (the first warms up) at W: steps/s and peak memory per card, the
-               VQ-VAE at global batch 8 W (the config's 64, 16 shapes a card, from 4 cards),
+               ``compare``; BatchNorm statistics equal on every rank), and one full-width
+               matcher step (one 5000-point shape a rank, ``parity.MATCHING``); each
+               trainer's entry for 6 steps (the first warms up) at W: steps/s and peak
+               memory per card, the VQ-VAE at global batch 8 W (the config's 64, 16 shapes a card, from 4 cards),
                the denoiser at 64 (16 on a shared card), the verifier at 64; the b8 engine
                batch through ``run_inference`` at W against one process, each with its
                engine built once and called twice (the second timed): per-shape
@@ -112,7 +134,9 @@ Each path's launch counts are read from its own run: reset right before phase 3'
 right before phase 6 and read right after it (the VQ-VAE training path), reset right before
 phase 9's three encodes and read right after them (the encoder-modes path), reset right
 before phase 10 and read right after it (the denoiser training path), and so for phases 13,
-14 (which runs no kernel of the port) and 16's checkpoint-loaded call; phase 17's counts are
+14 (which runs no kernel of the port), 16's checkpoint-loaded call, phase 17 (the matcher's
+training path, "train_matching") and phase 19's writer ("matching_gen") and serving run
+("matching_serve"); phase 20's counts are
 each rank's, reset in the rank right before each entry run and summed over the ranks after it
 (its parity steps are not counted). Then a ``kernels``
 line lists every kernel with its path's count, its error and its times, and the last line is
@@ -124,6 +148,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -160,11 +185,23 @@ MERGE_ONLY_KERNELS = "MP"  # launched only when a merge fires (the merge phase)
 ENCODER_MODE_KERNELS, DENOISER_KERNELS = "RSGA", "SFGNA"
 VERIFIER_GEN_KERNELS, SERVE_KERNELS = "SFGN", "SFGN"
 DP_KERNELS = "SFGNAB"  # the three trainers and the b8 engine batch, data-parallel
+# the matcher's training step, its test-mode forward in the writer, and the engine serving
+# the written matching data
+MATCHING_KERNELS, MATCHING_GEN_KERNELS, MATCHING_SERVE_KERNELS = "FGB", "FG", "SFGN"
 PATH_KERNELS = {"inference": INFERENCE_KERNELS, "train": TRAIN_KERNELS,
                 "encoder_modes": ENCODER_MODE_KERNELS, "train_denoiser": DENOISER_KERNELS,
                 "verifier_gen": VERIFIER_GEN_KERNELS, "train_verifier": "",
-                "serve": SERVE_KERNELS, "dp": DP_KERNELS}
+                "serve": SERVE_KERNELS, "dp": DP_KERNELS, "train_matching": MATCHING_KERNELS,
+                "matching_gen": MATCHING_GEN_KERNELS,
+                "matching_serve": MATCHING_SERVE_KERNELS}
 MAIN_PATH = {"A": "train", "B": "train", "R": "encoder_modes"}  # the rest: "inference"
+
+
+# the matcher's gathers at batch 1 (N, C, index shape): sa1's xyz grouping, then those with
+# a gradient (kernel B): sa2-sa4's feature groupings, fp4 and fp1, the PointTransformer's
+MATCHER_GATHERS = ((5000, 3, (1024, 32)), (1024, 96, (256, 32)), (256, 256, (64, 32)),
+                   (64, 512, (16, 32)), (16, 1024, (64, 3)), (1024, 128, (5000, 3)),
+                   (5000, 128, (5000, 16)))
 
 
 def dp_plan() -> dict:
@@ -519,6 +556,25 @@ def phase_kernels(results: dict) -> None:
                          "threads": threads},
                seconds=time.perf_counter() - t0)
 
+    # F: the matcher's four SA stages of one flat cloud (batch 1, masked by the point
+    # validity, every point valid as in a real batch; the first also 60% valid)
+    for N, npoint, share in ((5000, 1024, 1.0), (5000, 1024, 0.6), (1024, 256, 1.0),
+                             (256, 64, 1.0), (64, 16, 1.0)):
+        t0 = time.perf_counter()
+        xyz = randn(1, N, 3, scale=0.3)
+        mask = torch.rand((1, N), generator=gen, device=dev) < share
+        ref = fps.farthest_point_sample_plain(xyz, npoint, mask)
+        match = fps_check("F", fps.farthest_point_sample, 1, N, npoint, xyz, mask, ref)
+        ms = cuda_ms(lambda: fps.farthest_point_sample(xyz, npoint, mask), 5)
+        ppt, threads = fps.block_shape(N)
+        record("F", f"[1,{N}]->{npoint} masked, {share:.0%} valid", 0.0, ms,
+               cuda_ms(lambda: fps.farthest_point_sample_plain(xyz, npoint, mask), 1),
+               4 * N * 3 + N + 4 * npoint, 9.0 * N * npoint, path="train_matching",
+               indices_equal=match,
+               computed={"us_per_selection": ms * 1e3 / npoint, "points_a_thread": ppt,
+                         "threads": threads},
+               seconds=time.perf_counter() - t0)
+
     # P: the cache build's first stage, then the merge resample at the forced-merge batch's
     # pad (2 shapes x K = 4 clouds of P = 8 parts), at the b8 engine batch's pad (8 shapes x
     # K = 6 clouds of P = 12 parts, the resample that trained weights hit) and at the widest
@@ -587,6 +643,12 @@ def phase_kernels(results: dict) -> None:
         for N, S, K in ((1000, 256, 32), (256, 128, 64), (128, 25, 64)):
             gather_row("G", gather.gather_points, M, N, 3, (S, K), "dp", 50)
 
+    # G: the matcher's gathers at batch 1: sa1's ball grouping of the 5000-point cloud, the
+    # feature groupings of sa2-sa4, fp4's and fp1's 3-NN interpolation and the
+    # PointTransformer's kNN keys and values
+    for N, C, shape in MATCHER_GATHERS:
+        gather_row("G", gather.gather_points, 1, N, C, shape, "train_matching", 20)
+
     # N: part_acc clouds, the b8 engine's shape_cd clouds (engine-shaped: 12 parts of 1000
     # points, padded parts at 1e3, two poses), the widest pad's shape_cd clouds (random), then
     # a training step's chamfer loss, then verifier generation's per-part labels (20 parts),
@@ -642,14 +704,18 @@ def phase_kernels(results: dict) -> None:
             gather_row("A", gather.gather_points_approx, M, N, C, (S, K), "dp", 10)
 
     # B: the backward of those gathers and the chamfer loss's target side, at M = 160, then
-    # the chamfer case with every row to one index (listed apart from the step's sum).
+    # the chamfer case with every row to one index (listed apart from the step's sum), then
+    # the backward of the matcher's feature gathers (its R = 80000 PointTransformer case on
+    # the CSR route).
     # Tolerance 1e-5 of the largest sum: the plain version's index_add_ on the card adds
     # with atomics in no fixed order; the kernel adds in row order and is deterministic.
     step_shapes = ((1000, 3, 1000, False), (256, 128, 128 * 64, False),
                    (128, 256, 25 * 64, False))
     for M, path, (N, C, R, skewed) in (
             [(160, "train", sh) for sh in step_shapes + ((1000, 3, 1000, True),)]
-            + [(m, "dp", sh) for m in plan["train_clouds"] for sh in step_shapes]):
+            + [(m, "dp", sh) for m in plan["train_clouds"] for sh in step_shapes]
+            + [(1, "train_matching", (N, C, math.prod(shape), False))
+               for N, C, shape in MATCHER_GATHERS[1:]]):
         t0 = time.perf_counter()
         g = randn(M, R, C)
         idx = (torch.zeros((M, R), device=dev, dtype=torch.int32) if skewed else
@@ -1513,6 +1579,202 @@ def phase_serve(data_root: str, paths: dict) -> dict:
     return row
 
 
+# synthetic shapes of 3-12 parts: 7 to train on (seed 18), 1 to validate on (seed 20) and 4
+# to write matching data for (seed 19)
+MATCHING_SHAPES, MATCHING_VAL_SHAPES, MATCHING_GEN_SHAPES = 7, 1, 4
+MATCHING_POINTS = 5000  # train_matching's default: the flat cloud of every shape
+# matching_gen's points a shape, cut from 5000: random weights call most points fracture
+# points, and the host Hungarian over a near-uniform [n, n] affinity took about 17 s a shape
+# at n = 3000 (the validation pass of the first chip run); at 1500 its n stays below 1500
+MATCHING_GEN_POINTS = 1500
+
+
+def _matching_split(root: str, split: str) -> str:
+    return os.path.join(root, "pc_data", split)
+
+
+def phase_train_matching(root: str) -> dict:
+    """The matcher's entry ``matching.train.train_matching`` at its defaults (the reference
+    jigsaw_4x4_128_512_250e width: PointNet++ MSG (1024, 256, 64, 16), 128/512 features, 8
+    heads, 16 kNN samples, Sinkhorn 20 x 0.05, 5000 points, 20 parts, batch 1, Adam 1e-3
+    under cosine decay) with ``mat_epoch = rig_epoch = 0``, so all three losses run: one
+    epoch of 7 shapes (a warm-up step and 6 timed), then one validation pass over 1 shape
+    (Hungarian on the host) and a top-k checkpoint. Random weights: val ``mat_f1`` measures
+    nothing here."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from puzzlefusion_plusplus_tpu_torch import ops
+    from puzzlefusion_plusplus_tpu_torch.matching.dataset import AllPieceMatchingDataset
+    from puzzlefusion_plusplus_tpu_torch.matching.train import METRIC_KEYS, train_matching
+
+    t0 = time.perf_counter()
+    out_dir = os.path.join(REPO, ".smoke", "matching_out")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()  # the matcher's training path starts here
+    state = train_matching(_matching_split(root, "train"), out_dir=out_dir, epochs=1,
+                           mat_epoch=0, rig_epoch=0,
+                           val_data_dir=_matching_split(root, "val_train"), log_every=1,
+                           device="cuda")
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(out_dir, "metrics.jsonl")) as fh:
+        recs = [json.loads(line) for line in fh]
+    steps, val = recs[:MATCHING_SHAPES], recs[MATCHING_SHAPES:]
+    _check(state.step == MATCHING_SHAPES and len(steps) == MATCHING_SHAPES and len(val) == 1,
+           f"{state.step} steps, {len(recs)} records")
+    _check(all(np.isfinite(r[k]) for r in steps for k in METRIC_KEYS), f"non-finite: {steps}")
+    _check(all(counts[k] > 0 for k in MATCHING_KERNELS), f"a kernel never launched: {counts}")
+    _check(os.path.isfile(os.path.join(out_dir, "ckpt", "topk.json")), "no top-k checkpoint")
+    timed_s = steps[-1]["wall_s"] - steps[0]["wall_s"]
+    row = {"phase": "train_matching", "seconds": time.perf_counter() - t0,
+           "num_points": MATCHING_POINTS, "batch_shapes": 1, "timed_steps": len(steps) - 1,
+           "steps_per_s": (len(steps) - 1) / timed_s,
+           "points_per_s": MATCHING_POINTS * (len(steps) - 1) / timed_s,
+           "step_wall_s": [b["wall_s"] - a["wall_s"] for a, b in zip(steps, steps[1:])],
+           "per_step": [{k: r[k] for k in ("step", "loss", "cls_loss", "mat_loss", "rig_loss")}
+                        for r in steps],
+           "val_s": val[0]["wall_s"] - steps[-1]["wall_s"],
+           "val_mat_f1": val[0]["val_mat_f1"],
+           "val_mat_f1_note": "random weights after 7 steps: measures nothing",
+           "loader_s_per_batch": _loader_seconds(AllPieceMatchingDataset(
+               _matching_split(root, "train")), 1),
+           "max_memory_allocated_bytes": peak, "launches": counts}
+    emit(row)
+    return row
+
+
+def _matching_batch(root: str, shapes: int, num_points: int = MATCHING_POINTS) -> dict:
+    from puzzlefusion_plusplus_tpu_torch.data import Loader
+    from puzzlefusion_plusplus_tpu_torch.matching.dataset import AllPieceMatchingDataset
+
+    ds = AllPieceMatchingDataset(_matching_split(root, "train"), num_points=num_points)
+    return next(iter(Loader(ds, shapes, shuffle=False)))
+
+
+def _matching_state_dict() -> dict:
+    import torch
+
+    from puzzlefusion_plusplus_tpu_torch.matching.train import make_model
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        return make_model().state_dict()
+
+
+def phase_matching_parity(root: str) -> dict:
+    """One full-width matcher train_step on the card and one on the CPU from the same
+    weights and shape (all three losses, Adam), compared by ``training/parity.py`` with its
+    ``MATCHING`` tolerances."""
+    from puzzlefusion_plusplus_tpu_torch.matching.train import METRIC_KEYS, make_model
+    from puzzlefusion_plusplus_tpu_torch.training import parity
+
+    t0 = time.perf_counter()
+    batch = _matching_batch(root, 1)
+    sd = _matching_state_dict()
+    gpu = parity.matching_step_on(make_model, sd, batch, "cuda")
+    t_gpu = time.perf_counter() - t0
+    cpu = parity.matching_step_on(make_model, sd, batch, "cpu")
+    row = {"phase": "matching_parity", "gpu_seconds": t_gpu,
+           "cpu_seconds": time.perf_counter() - t0 - t_gpu, "num_points": MATCHING_POINTS,
+           "loss_gpu": gpu["metrics"]["loss"], "loss_cpu": cpu["metrics"]["loss"]}
+    row["errors"] = parity.compare(cpu, gpu, METRIC_KEYS, parity.MATCHING)
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+    return row
+
+
+def phase_profile_matching(root: str) -> dict:
+    """Where one full-width matcher training step's device time goes (5000 points, all
+    three losses)."""
+    import torch
+
+    from puzzlefusion_plusplus_tpu_torch.matching.train import make_model, train_step
+    from puzzlefusion_plusplus_tpu_torch.training.state import adam_cosine
+    from puzzlefusion_plusplus_tpu_torch.training.vqvae import to_device
+
+    t0 = time.perf_counter()
+    batch = to_device(_matching_batch(root, 1), "cuda")
+    model = make_model()
+    model.load_state_dict(_matching_state_dict())
+    state = adam_cosine(model.cuda(), 1e-3, 1000)
+    row = {"phase": "profile_matching", **_profile(lambda: train_step(state, batch, 1.0, 1.0))}
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+    return row
+
+
+def phase_matching_gen(root: str, trained: bool) -> dict:
+    """The eval entry ``matching.eval`` writes matching_data for the 4 val shapes at
+    ``MATCHING_GEN_POINTS`` points from the train_matching checkpoint (a saved seeded model
+    when that phase did not run), then
+    ``run_inference`` serves those shapes from it with the full-width engine (seeded
+    weights): the matcher -> matching_data -> engine round trip on the card. The oracle
+    mode runs once."""
+    import shutil
+
+    import numpy as np
+
+    from puzzlefusion_plusplus_tpu_torch import ops
+    from puzzlefusion_plusplus_tpu_torch.inference.run import build_engine_fn, run_inference
+    from puzzlefusion_plusplus_tpu_torch.matching import eval as meval
+    from puzzlefusion_plusplus_tpu_torch.matching.train import make_model
+    from puzzlefusion_plusplus_tpu_torch.training.state import adam_cosine, save_checkpoint
+
+    t0 = time.perf_counter()
+    base = os.path.join(REPO, ".smoke", "matching_gen_out")
+    shutil.rmtree(base, ignore_errors=True)
+    ckpt = os.path.join(REPO, ".smoke", "matching_out", "ckpt")
+    if not trained:
+        model = make_model()
+        model.load_state_dict(_matching_state_dict())
+        ckpt = os.path.dirname(save_checkpoint(os.path.join(base, "ckpt"),
+                                               adam_cosine(model, 1e-3, 1)))
+    val_dir, out = _matching_split(root, "val"), os.path.join(base, "matching_data")
+    ops.reset_launch_counts()  # the writer's path starts here
+    t1 = time.perf_counter()
+    results = meval.main([f"data_dir={val_dir}", f"ckpt={ckpt}", f"out_dir={out}",
+                          f"num_points={MATCHING_GEN_POINTS}"])
+    wall_gen = time.perf_counter() - t1
+    counts_gen = ops.launch_counts()
+    files = sorted(os.listdir(out))
+    _check(len(results) == len(files) == MATCHING_GEN_SHAPES, f"files written: {files}")
+    _check(all(counts_gen[k] > 0 for k in MATCHING_GEN_KERNELS),
+           f"a kernel never launched: {counts_gen}")
+    t1 = time.perf_counter()
+    oracle = meval.main([f"data_dir={val_dir}", "oracle=1"])
+    oracle_s = time.perf_counter() - t1
+    cfg = _full_config(root)
+    cfg.data.matching_data_path = out
+    cfg.trainer.output_dir = os.path.join(base, "serve")
+    engine = build_engine_fn(cfg, "cuda")
+    ops.reset_launch_counts()  # the engine's run over the written data starts here
+    t1 = time.perf_counter()
+    served = run_inference(cfg, engine=engine)
+    wall_serve = time.perf_counter() - t1
+    counts_serve = ops.launch_counts()
+    vals = [served[f"eval/{k}"] for k in ("part_acc", "shape_cd", "rmse_r", "rmse_t")]
+    _check(served["num_samples"] == MATCHING_GEN_SHAPES and all(np.isfinite(vals)),
+           f"serving the written data: {served}")
+    _check(all(counts_serve[k] > 0 for k in MATCHING_SERVE_KERNELS),
+           f"a kernel never launched: {counts_serve}")
+    row = {"phase": "matching_gen", "seconds": time.perf_counter() - t0,
+           "checkpoint": ckpt if trained else "seeded (phase train_matching not run)",
+           "shapes": len(files), "num_points": MATCHING_GEN_POINTS, "wall_s": wall_gen,
+           "seconds_per_shape": wall_gen / len(files),
+           "edges": [r["num_edges"] for r in results],
+           "critical_points": [r["n_critical_total"] for r in results],
+           "oracle": oracle, "oracle_s": oracle_s, "serve_wall_s": wall_serve,
+           "part_acc": served["eval/part_acc"], "shape_cd": served["eval/shape_cd"],
+           "n_iters": served["n_iters"], "launches": counts_gen,
+           "launches_serve": counts_serve}
+    emit(row)
+    return row
+
+
 def _dp_train(module, cfg, plan: dict, steps: int) -> dict:
     """``steps`` steps of a trainer's entry point on the dp plan's ranks -> the rank-0
     metrics records, per-rank peak memory and the launches summed over the ranks."""
@@ -1534,7 +1796,8 @@ def _dp_train(module, cfg, plan: dict, steps: int) -> dict:
     return out
 
 
-def phase_dp(train_root: str, den_root: str, ver_root: str, data_root: str) -> dict:
+def phase_dp(train_root: str, den_root: str, ver_root: str, data_root: str,
+             match_root: str) -> dict:
     """Data parallelism (``parallel/``), phase 17: one VQ-VAE, denoiser and verifier step
     and the b8 engine batch at the dp plan's world size, each held to the one-process
     result; then each trainer's entry for 6 steps (the first warms up) and the engine for
@@ -1553,6 +1816,7 @@ def phase_dp(train_root: str, den_root: str, ver_root: str, data_root: str) -> d
         VQVAEDataset,
     )
     from puzzlefusion_plusplus_tpu_torch.inference import run as R
+    from puzzlefusion_plusplus_tpu_torch.matching import train as match_train
     from puzzlefusion_plusplus_tpu_torch.parallel import launch
     from puzzlefusion_plusplus_tpu_torch.training import denoiser, parity, verifier, vqvae
 
@@ -1595,17 +1859,22 @@ def phase_dp(train_root: str, den_root: str, ver_root: str, data_root: str) -> d
                          state_dict=ver_sd,
                          batch=next(iter(Loader(VerifierDataset(ver_root, "train"),
                                                 VERIFIER_BATCH, shuffle=False)))),
+        # the full-width matcher, one 5000-point shape a rank
+        "matching": dict(kind="matching", make_model=match_train.make_model,
+                         state_dict=_matching_state_dict(), batch=_matching_batch(match_root, W)),
     }
     one = parity.dp_steps(cases, 1, "cuda")
     t1 = time.perf_counter()
     many = parity.dp_steps(cases, W, "cuda", share_card=plan["share_card"])
     row = {"phase": "dp_parity", "world_size": W, "backend": plan["backend"],
            "seconds_world": time.perf_counter() - t1}
-    for name, keys in (("vqvae", vqvae.METRIC_KEYS), ("denoiser", ("mse_loss",)),
-                       ("verifier", verifier.METRIC_KEYS)):
+    for name, keys, tol in (("vqvae", vqvae.METRIC_KEYS, parity.Tolerances()),
+                            ("denoiser", ("mse_loss",), parity.Tolerances()),
+                            ("verifier", verifier.METRIC_KEYS, parity.Tolerances()),
+                            ("matching", match_train.METRIC_KEYS, parity.MATCHING)):
         row[name] = {"loss_world": many[name]["metrics"][keys[0]],
                      "loss_one": one[name]["metrics"][keys[0]],
-                     "errors": parity.compare(one[name], many[name], keys)}
+                     "errors": parity.compare(one[name], many[name], keys, tol)}
     bufs = many["vqvae"]["rank_buffers"]
     row["bn_stats_equal_across_ranks"] = all(
         torch.equal(b[n], bufs[0][n]) for b in bufs for n in bufs[0])
@@ -1706,7 +1975,8 @@ def main() -> int:
                                         "train_parity,profile_train,encoder_modes,"
                                         "train_denoiser,denoiser_parity,profile_denoiser,"
                                         "verifier_gen,train_verifier,verifier_parity,serve,"
-                                        "dp")
+                                        "train_matching,matching_parity,profile_matching,"
+                                        "matching_gen,dp")
     phases = ap.parse_args().phases.split(",")
 
     import torch
@@ -1797,8 +2067,28 @@ def main() -> int:
         launches["serve"] = phase_serve(data_root, _serve_checkpoints(
             "train" in phases, "train_denoiser" in phases,
             "train_verifier" in phases))["launches"]
+    match_root = os.path.join(REPO, ".smoke", "chip_smoke_matching_data")
+    if {"train_matching", "matching_parity", "profile_matching", "matching_gen",
+        "dp"} & set(phases):
+        t0 = time.perf_counter()
+        for split, n, seed in (("train", MATCHING_SHAPES, 18), ("val", MATCHING_GEN_SHAPES, 19),
+                               ("val_train", MATCHING_VAL_SHAPES, 20)):
+            generate_dataset(match_root, num_shapes=n, seed=seed, split=split, min_parts=3,
+                             max_parts=12, with_matching=False, with_verifier=False)
+        emit({"phase": "matching_data", "seconds": time.perf_counter() - t0})
+        if "train_matching" in phases:
+            launches["train_matching"] = phase_train_matching(match_root)["launches"]
+        if "matching_parity" in phases:
+            phase_matching_parity(match_root)
+        if "profile_matching" in phases:
+            phase_profile_matching(match_root)
+        if "matching_gen" in phases:
+            gen = phase_matching_gen(match_root, "train_matching" in phases)
+            launches["matching_gen"] = gen["launches"]
+            launches["matching_serve"] = gen["launches_serve"]
     if "dp" in phases:
-        launches["dp"] = phase_dp(train_root, den_root, ver_root, data_root)["launches"]
+        launches["dp"] = phase_dp(train_root, den_root, ver_root, data_root,
+                                  match_root)["launches"]
 
     if results:
         rows = []

@@ -96,3 +96,38 @@ def verifier_state_dict(params: Mapping) -> dict:
         _norm(lp["norm1"], f"{pre}.norm1", sd)
         _norm(lp["norm2"], f"{pre}.norm2", sd)
     return sd
+
+
+def matching_state_dict(params: Mapping, batch_stats: Mapping) -> dict:
+    """Matcher {params, batch_stats} -> ``matching/model.py::JigsawModel`` state_dict. The
+    torch modules carry the flax names, so a key is the flax path joined by dots, with the
+    ``BatchNorm_0`` level of ``BatchNormPoints`` dropped: Dense kernel -> Linear weight
+    (transposed), BatchNorm and LayerNorm scale -> weight, mean/var -> running_mean /
+    running_var, ``affinity_layer/A`` as it is."""
+    sd: dict = {}
+
+    def walk(p: Mapping, path: tuple) -> None:
+        prefix = ".".join(k for k in path if k != "BatchNorm_0")
+        if "kernel" in p:
+            _linear(p, prefix, sd)
+        elif "scale" in p:
+            _norm(p, prefix, sd)
+        for k, v in p.items():
+            if isinstance(v, Mapping):
+                walk(v, path + (k,))
+            elif k == "A":
+                sd[f"{prefix}.A" if prefix else "A"] = _t(v)
+
+    def walk_stats(s: Mapping, path: tuple) -> None:
+        if "mean" in s:
+            prefix = ".".join(k for k in path if k != "BatchNorm_0")
+            sd[prefix + ".running_mean"] = _t(s["mean"])
+            sd[prefix + ".running_var"] = _t(s["var"])
+            sd[prefix + ".num_batches_tracked"] = torch.tensor(0)
+            return
+        for k, v in s.items():
+            walk_stats(v, path + (k,))
+
+    walk(params, ())
+    walk_stats(batch_stats, ())
+    return sd

@@ -1,7 +1,8 @@
 """Dataset readers over the pc_data / matching_data .npz schemas.
 
-Copies of ``VQVAEDataset``, ``DenoiserDataset`` (train, val and test modes) and
-``VerifierDataset`` from ``puzzlefusion_plusplus_tpu/data/datasets.py``, with the per-part augmentation done in numpy
+Copies of ``VQVAEDataset``, ``DenoiserDataset`` (train, val and test modes),
+``VerifierDataset`` and the helpers the matcher's dataset uses (``_recenter_pc``) from
+``puzzlefusion_plusplus_tpu/data/datasets.py``, with the per-part augmentation done in numpy
 (the numpy fallback of ``utils/native.py::augment_parts_cpu``). Rotations and the training
 curriculum's draws come in the reference rng order, so the same loader seed yields the same
 samples as the JAX package's datasets.
@@ -52,6 +53,11 @@ def _pad_square(g: np.ndarray, n: int) -> np.ndarray:
     m = min(n, g.shape[0])
     out[:m, :m] = g[:m, :m]
     return out
+
+
+def _recenter_pc(pc):
+    centroid = pc.mean(axis=0)
+    return pc - centroid[None], centroid
 
 
 def _rotate_pc(pc, rng):

@@ -1,0 +1,248 @@
+"""Matcher training (port of ``puzzlefusion_plusplus_tpu/matching/train.py``).
+
+``python -m puzzlefusion_plusplus_tpu_torch.matching.train data_dir=... [val_data_dir=...]
+[num_devices=N] [--cpu]`` trains on the GPU with the JAX entry's keys. Semantics (the
+reference Jigsaw's train_matching.py and model_config.py:27-31):
+
+* loss: BCE on the fracture-point logits (``cls_pos_weight`` on the positives; NLL for
+  ``cls_method='multi'``), plus the permutation loss from epoch ``mat_epoch`` and the rigid
+  loss from epoch ``rig_epoch``. The stage is a Python-level gate set per epoch: before
+  ``rig_epoch`` the rigid loss is not computed at all.
+* optimizer: Adam under a cosine decay over ``epochs`` x steps an epoch
+  (``training/state.py::adam_cosine``).
+* validation every ``val_every`` epochs and at the last: the losses and the Hungarian
+  matching F1 (``eval_step``), top-k checkpoints on ``mat_f1``; auto-resume from the latest.
+
+``num_devices`` above 1 trains data-parallel on the port's mesh (``parallel/``): every rank
+builds the same global batch and keeps its rows; the losses are local sums over global
+counts, the BatchNorm statistics are the global batch's (``JigsawModel.reduce_over``), the
+binary metrics come from summed counts and the gradients are summed, so a step equals the
+one-process step. Validation batches are held whole by every rank, as the JAX trainer
+replicates them.
+"""
+
+from __future__ import annotations
+
+import functools
+import sys
+
+import numpy as np
+import torch
+
+from puzzlefusion_plusplus_tpu_torch.data.loader import Loader, prefetch_batches
+from puzzlefusion_plusplus_tpu_torch.inference.run import resolve_device
+from puzzlefusion_plusplus_tpu_torch.matching import ops as mops
+from puzzlefusion_plusplus_tpu_torch.matching.dataset import AllPieceMatchingDataset
+from puzzlefusion_plusplus_tpu_torch.matching.model import (
+    JigsawModel,
+    global_count,
+    gt_permutation,
+    hungarian_perm,
+    permutation_loss,
+    rigid_loss_pairs,
+)
+from puzzlefusion_plusplus_tpu_torch.parallel import launch, mesh
+from puzzlefusion_plusplus_tpu_torch.training.state import (
+    MetricsLogger,
+    TopKCheckpointer,
+    TrainState,
+    adam_cosine,
+    maybe_restore,
+    save_checkpoint,
+)
+from puzzlefusion_plusplus_tpu_torch.training.verifier import binary_cls_metrics
+from puzzlefusion_plusplus_tpu_torch.training.vqvae import local_rows, to_device
+
+LOSS_KEYS = ("cls_loss", "mat_loss", "rig_loss", "loss")
+METRIC_KEYS = LOSS_KEYS + ("cls_acc", "cls_precision", "cls_recall", "cls_f1_score")
+
+
+def make_model(pc_feat_dim=128, aff_feat_dim=512, encoder="pointnet2",
+               sa_npoints=(1024, 256, 64, 16), cls_method="binary", num_classes=2,
+               canonicalize=False, max_num_part=20) -> JigsawModel:
+    return JigsawModel(pc_feat_dim=pc_feat_dim, aff_feat_dim=aff_feat_dim,
+                       encoder_type=encoder, sa_npoints=sa_npoints, cls_method=cls_method,
+                       num_classes=num_classes, canonicalize_inputs=canonicalize,
+                       max_num_part=max_num_part)
+
+
+def loss_fn(model: JigsawModel, batch: dict, w_mat: float, w_rig: float,
+            cls_pos_weight: float = 1.0, group=None):
+    """-> (this rank's share of the loss, the metrics of ``group``'s batch, the forward's
+    outputs, the GT permutation, the cross-piece mask). ``group``: the ranks whose global
+    batch the counts cover (None: this process's batch)."""
+    pid = batch["piece_id"]
+    n_valid = batch["part_valids"].sum(-1).to(torch.int32)
+    labels = mops.fracture_point_labels(batch["gt_pcs"], pid, n_valid,
+                                        batch["critical_label_thresholds"])
+    out = model(batch["part_pcs"], pid, n_valid, labels, compute_matching=True)
+    w = mops.valid_point_mask(pid, n_valid).float()
+    logits, gt = out["cls_logits"], labels.float()
+    if model.cls_method == "binary":
+        bce = logits.clamp_min(0) - logits * gt + torch.log1p(torch.exp(-logits.abs()))
+        wc = w * torch.where(gt > 0, float(cls_pos_weight), 1.0)
+        cls_loss = (bce * wc).sum() / global_count(wc.sum(), group).clamp_min(1.0)
+    else:  # NLL over the log-softmax logits
+        nll = -torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
+        cls_loss = (nll * w).sum() / global_count(w.sum(), group).clamp_min(1.0)
+
+    slot_valid, order, cross = out["crit_slot_valid"], out["crit_order"], out["s_mask"]
+    gt_crit = torch.take_along_dim(batch["gt_pcs"], order[..., None], dim=1)
+    gt_perm = gt_permutation(torch.where(slot_valid[..., None], gt_crit, 1e3), cross)
+    mat_loss = permutation_loss(out["ds_mat"], gt_perm, out["n_critical_sum"], group)
+    if w_rig > 0:  # a Python-level gate: before rig_epoch the rigid loss does not run
+        pts_crit = torch.take_along_dim(batch["part_pcs"], order[..., None], dim=1)
+        rig_loss = rigid_loss_pairs(out["ds_mat"], pts_crit, out["crit_pid"], slot_valid,
+                                    batch["part_valids"].shape[-1], group)
+    else:
+        rig_loss = torch.zeros((), device=logits.device)
+    total = cls_loss + w_mat * mat_loss + w_rig * rig_loss
+    shares = {"cls_loss": cls_loss, "mat_loss": mat_loss, "rig_loss": rig_loss, "loss": total}
+    shares = {k: v.detach() for k, v in shares.items()}
+    metrics = {**(shares if group is None else mesh.global_sums(shares, group)),
+               **binary_cls_metrics(out["cls_pred"].float(), gt, w, reduce=group is not None)}
+    return total, metrics, out, gt_perm, cross
+
+
+def train_step(state: TrainState, batch: dict, w_mat: float, w_rig: float,
+               cls_pos_weight: float = 1.0) -> dict:
+    """One Adam update on ``batch`` (this rank's rows, tensors on the model's device) with
+    the gradient summed over the ranks; returns the global batch's metrics."""
+    state.model.train()
+    state.optimizer.zero_grad(set_to_none=True)
+    loss, metrics, *_ = loss_fn(state.model, batch, w_mat, w_rig, cls_pos_weight,
+                                mesh.data_group())
+    loss.backward()
+    mesh.all_reduce_gradients(state.model)
+    state.optimizer.step()
+    state.scheduler.step()
+    state.step += 1
+    return metrics
+
+
+@torch.no_grad()
+def eval_step(model: JigsawModel, batch: dict) -> dict:
+    """Validation metrics of a batch this process holds whole, with the Hungarian-
+    discretised matching precision, recall and F1 computed on the host (the reference's
+    val/mat_f1 monitor)."""
+    model.eval()
+    _, metrics, out, gt_perm, cross = loss_fn(model, batch, 1.0, 0.0)
+    n_crit = out["n_critical_sum"].cpu().numpy()
+    perm = hungarian_perm(out["ds_mat"].cpu().numpy(), n_crit)
+    gt_perm, cross = gt_perm.cpu().numpy(), cross.cpu().numpy()
+    tp = float((perm * gt_perm * cross).sum())
+    fp = float((perm * (1.0 - gt_perm) * cross).sum())
+    fn = float(((1.0 - perm) * gt_perm * cross).sum())
+    eps = 1e-7
+    precision, recall = tp / (tp + fp + eps), tp / (tp + fn + eps)
+    return {**{k: float(v) for k, v in metrics.items()}, "mat_precision": precision,
+            "mat_recall": recall,
+            "mat_f1": 2 * precision * recall / (precision + recall + eps)}
+
+
+def _whole(batch: dict, device) -> dict:
+    """A loader batch on ``device``, every row (a replicated validation batch)."""
+    return to_device({k: v for k, v in batch.items()
+                      if isinstance(v, np.ndarray) and v.dtype != object}, device)
+
+
+def _setup(data_dir, num_points, max_num_part, batch_size, seed, val_data_dir, model,
+           epochs, lr, device):
+    """-> (train loader, val loader or None, state at its seeded init or ``model``'s)."""
+    loader = Loader(AllPieceMatchingDataset(data_dir, num_points=num_points,
+                                            max_num_part=max_num_part), batch_size, seed=seed)
+    val_loader = None
+    if val_data_dir:
+        val_loader = Loader(AllPieceMatchingDataset(val_data_dir, num_points=num_points,
+                                                    max_num_part=max_num_part),
+                            batch_size, shuffle=False, drop_last=False, seed=seed)
+    if model is None:
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            model = make_model()
+    model = model.to(device).reduce_over(mesh.data_group())
+    return loader, val_loader, adam_cosine(model, lr, epochs * max(len(loader), 1))
+
+
+def train_matching(data_dir: str, out_dir: str = "output/matching", epochs: int = 250,
+                   batch_size: int = 1, num_points: int = 5000, lr: float = 1e-3,
+                   mat_epoch: int = 10, rig_epoch: int = 200, seed: int = 123,
+                   max_steps: int | None = None, model: JigsawModel | None = None,
+                   max_num_part: int = 20, val_data_dir: str | None = None,
+                   val_every: int = 50, top_k: int = 10, cls_pos_weight: float = 1.0,
+                   num_devices: int = 1, log_every: int = 20, device=None,
+                   join_timeout_s: float | None = None) -> TrainState:
+    """Train ``model`` (default: ``make_model()`` drawn from ``seed``) and return its state;
+    ``max_steps`` stops early with a checkpoint. Runs on ``cuda`` unless ``device="cpu"``,
+    on ``num_devices`` processes (``parallel/mesh.py::world_size``; -1 every visible card):
+    above one the ranks are spawned (``join_timeout_s`` bounds them) and the state of the
+    last checkpoint they wrote comes back. A producer thread builds the next batch."""
+    device = resolve_device(device)
+    kw = dict(out_dir=out_dir, epochs=epochs, batch_size=batch_size, num_points=num_points,
+              lr=lr, mat_epoch=mat_epoch, rig_epoch=rig_epoch, seed=seed,
+              max_steps=max_steps, model=model, max_num_part=max_num_part,
+              val_data_dir=val_data_dir, val_every=val_every, top_k=top_k,
+              cls_pos_weight=cls_pos_weight, num_devices=num_devices, log_every=log_every,
+              device=device)
+    spawned = launch.entry(launch.discard_result,
+                           (functools.partial(train_matching, data_dir, **kw),),
+                           num_devices, device, batch_size, join_timeout_s)
+    setup = (data_dir, num_points, max_num_part, batch_size, seed, val_data_dir, model,
+             epochs, lr, device)
+    if spawned is not launch.HERE:
+        return maybe_restore(_setup(*setup)[2], f"{out_dir}/ckpt")
+    loader, val_loader, state = _setup(*setup)
+    logger = MetricsLogger(out_dir)
+    # top-k on val mat_f1 and auto-resume (the reference train_matching.py:41-49, 77-101)
+    topk = TopKCheckpointer(f"{out_dir}/ckpt", monitor="mat_f1", mode="max", top_k=top_k)
+    state = maybe_restore(state, f"{out_dir}/ckpt")
+    mesh.replicate(state.model)
+    steps_per_epoch = max(len(loader), 1)
+    step = state.step
+    for epoch in range(min(step // steps_per_epoch, epochs), epochs):
+        w_mat = 1.0 if epoch >= mat_epoch else 0.0
+        w_rig = 1.0 if epoch >= rig_epoch else 0.0
+        for batch in prefetch_batches(loader):
+            metrics = train_step(state, local_rows(batch, device), w_mat, w_rig,
+                                 cls_pos_weight)
+            if step % log_every == 0:
+                logger.log(step, epoch=epoch, **metrics)
+            step += 1
+            if max_steps is not None and step >= max_steps:
+                save_checkpoint(f"{out_dir}/ckpt", state, step)
+                return state
+        if (epoch + 1) % val_every == 0 or epoch + 1 == epochs:
+            if val_loader is not None:
+                accs = [eval_step(state.model, _whole(vb, device)) for vb in val_loader]
+                agg = {k: float(np.mean([a[k] for a in accs])) for k in accs[0]}
+                logger.log(step, epoch=epoch, **{f"val_{k}": v for k, v in agg.items()})
+                topk.save(state, step, agg["mat_f1"])
+            else:
+                save_checkpoint(f"{out_dir}/ckpt", state, step)
+    return state
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    args = dict(a.split("=", 1) for a in argv if "=" in a)
+    train_matching(
+        args.get("data_dir", "pc_data/everyday/train"),
+        out_dir=args.get("out_dir", "output/matching"),
+        epochs=int(args.get("epochs", 250)),
+        batch_size=int(args.get("batch_size", 1)),
+        num_points=int(args.get("num_points", 5000)),
+        lr=float(args.get("lr", 1e-3)),
+        mat_epoch=int(args.get("mat_epoch", 10)),
+        rig_epoch=int(args.get("rig_epoch", 200)),
+        max_num_part=int(args.get("max_num_part", 20)),
+        val_data_dir=args.get("val_data_dir") or None,
+        val_every=int(args.get("val_every", 50)),
+        max_steps=int(args["max_steps"]) if "max_steps" in args else None,
+        cls_pos_weight=float(args.get("cls_pos_weight", 1.0)),
+        num_devices=int(args.get("num_devices", 1)),
+        device="cpu" if "--cpu" in argv else None,
+    )
+
+
+if __name__ == "__main__":
+    main()

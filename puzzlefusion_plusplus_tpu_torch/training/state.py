@@ -4,7 +4,9 @@
 * Optimizer: ``torch.optim.AdamW`` (eps 1e-8, decay on every parameter, as optax's
   ``adamw``) with ``MultiStepLR`` stepped once per update, so update k (counting from 1)
   runs at ``lr * gamma^#{m : m <= k - 1}`` — the rate ``optax.piecewise_constant_schedule``
-  gives at optax's count k - 1. The denoiser's ``adamw_reference`` has no milestones.
+  gives at optax's count k - 1. The denoiser's ``adamw_reference`` has no milestones. The
+  matcher's ``adam_cosine`` is Adam under ``optax.cosine_decay_schedule``, a closed-form
+  ``LambdaLR`` stepped per update.
 * Checkpoints: PyTorch's own format. ``<ckpt_dir>/step_N/state.pt`` holds the model's and
   the optimizer's and scheduler's ``state_dict``s and the step; a save writes
   ``step_N.tmp`` and renames it, so an interrupted save never looks complete. Auto-resume,
@@ -18,7 +20,9 @@
 
 from __future__ import annotations
 
+import functools
 import json
+import math
 import os
 import shutil
 import time
@@ -58,6 +62,22 @@ def adamw_reference(model: torch.nn.Module, lr: float, b1: float = 0.95, b2: flo
     opt = torch.optim.AdamW(model.parameters(), lr=lr, betas=(b1, b2), eps=1e-8,
                             weight_decay=weight_decay)
     return TrainState(model, opt, torch.optim.lr_scheduler.MultiStepLR(opt, []), 0)
+
+
+def cosine_decay_factor(step: int, decay_steps: int) -> float:
+    """``optax.cosine_decay_schedule(1, decay_steps)`` at count ``step``: 0.5 (1 + cos(pi
+    min(step, decay_steps) / decay_steps)), in closed form."""
+    return 0.5 * (1.0 + math.cos(math.pi * min(step, decay_steps) / decay_steps))
+
+
+def adam_cosine(model: torch.nn.Module, lr: float, decay_steps: int) -> TrainState:
+    """The matcher's optimizer: Adam (0.9, 0.999, eps 1e-8, no weight decay, as
+    ``optax.adam``) under a cosine decay to 0 over ``decay_steps`` updates, stepped once per
+    update (update k, from 0, at ``lr * cosine_decay_factor(k)``)."""
+    opt = torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    sched = torch.optim.lr_scheduler.LambdaLR(
+        opt, functools.partial(cosine_decay_factor, decay_steps=int(decay_steps)))
+    return TrainState(model, opt, sched, 0)
 
 
 # ---------------------------------------------------------------- checkpointing
@@ -160,7 +180,7 @@ def load_model_state(path: str, kind: str | None = None) -> dict:
         raise FileNotFoundError(
             f"{path}: no {STATE_FILE} at {resolved}. An orbax checkpoint of the JAX package "
             "is converted first: python scripts/jax_ckpt_to_torch.py --kind <vqvae|denoiser|"
-            "verifier> <orbax step dir> <out ckpt dir>")
+            "verifier|matching> <orbax step dir> <out ckpt dir>")
     return load_checkpoint(resolved)["model"]
 
 

@@ -51,12 +51,16 @@ def make_model(cfg: Config, dropout: float = 0.1) -> VerifierTransformer:
                                v.num_features, dropout=dropout)
 
 
-def binary_cls_metrics(pred: torch.Tensor, gt: torch.Tensor, w: torch.Tensor) -> dict:
+def binary_cls_metrics(pred: torch.Tensor, gt: torch.Tensor, w: torch.Tensor,
+                       reduce: bool = True) -> dict:
     """Masked accuracy / precision / recall / F1 (torchmetrics' 'binary' semantics) of the
-    global batch: the ratios of the ranks' summed counts."""
-    c = mesh.global_sums({"tp": (w * pred * gt).sum(), "fp": (w * pred * (1 - gt)).sum(),
-                          "fn": (w * (1 - pred) * gt).sum(),
-                          "tn": (w * (1 - pred) * (1 - gt)).sum(), "n": w.sum()})
+    global batch: the ratios of the ranks' summed counts (of this process's batch alone
+    without ``reduce``, as for a batch every rank holds whole)."""
+    c = {"tp": (w * pred * gt).sum(), "fp": (w * pred * (1 - gt)).sum(),
+         "fn": (w * (1 - pred) * gt).sum(), "tn": (w * (1 - pred) * (1 - gt)).sum(),
+         "n": w.sum()}
+    if reduce:
+        c = mesh.global_sums(c)
     tp, fp, fn, tn = c["tp"], c["fp"], c["fn"], c["tn"]
     eps = 1e-9
     precision = tp / (tp + fp).clamp_min(eps)

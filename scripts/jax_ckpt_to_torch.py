@@ -1,6 +1,6 @@
 """Convert one orbax checkpoint of the JAX package into a checkpoint of the PyTorch port.
 
-    python scripts/jax_ckpt_to_torch.py --kind vqvae|denoiser|verifier SRC OUT_CKPT_DIR
+    python scripts/jax_ckpt_to_torch.py --kind vqvae|denoiser|verifier|matching SRC OUT_CKPT_DIR
 
 SRC is what the JAX package's ``training/state.py::load_checkpoint`` accepts (a ``step_N``
 dir, a ckpt dir for its best checkpoint, ``.../best`` or ``.../latest``). The weights go
@@ -39,7 +39,9 @@ def state_dict_of(restored: dict, kind: str) -> dict:
         return from_jax.denoiser_state_dict(tree["params"])
     if kind == "verifier":
         return from_jax.verifier_state_dict(tree["params"])
-    raise ValueError(f"kind must be vqvae, denoiser or verifier, got {kind!r}")
+    if kind == "matching":
+        return from_jax.matching_state_dict(tree["params"], tree["batch_stats"])
+    raise ValueError(f"kind must be vqvae, denoiser, verifier or matching, got {kind!r}")
 
 
 def convert(src: str, out_ckpt_dir: str, kind: str) -> str:
@@ -60,7 +62,7 @@ def convert(src: str, out_ckpt_dir: str, kind: str) -> str:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kind", required=True, choices=("vqvae", "denoiser", "verifier"))
+    ap.add_argument("--kind", required=True, choices=("vqvae", "denoiser", "verifier", "matching"))
     ap.add_argument("src")
     ap.add_argument("out_ckpt_dir")
     args = ap.parse_args(argv)

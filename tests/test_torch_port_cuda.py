@@ -559,3 +559,67 @@ def test_engine_on_card_matches_cpu(dev, tmp_path):
     for k in ("n_iters", "n_merged_pairs", "acc_per_part"):
         np.testing.assert_array_equal(gpu[k], cpu[k])
     np.testing.assert_allclose(gpu["trajectory"], cpu["trajectory"], atol=1e-3)
+
+
+# ------------------------------------------------------------------ the matcher's shapes
+
+
+@pytest.mark.parametrize("N,C,shape", [
+    (5000, 3, (1024, 32)),   # sa1's ball grouping of the flat 5000-point cloud
+    (64, 512, (16, 32)),     # sa4's feature grouping
+    (16, 1024, (64, 3)),     # fp4's 3-NN interpolation of sa4's 1024 channels
+    (1024, 128, (5000, 3)),  # fp1's interpolation up to every point
+    (5000, 128, (5000, 16)),  # the PointTransformer's kNN keys and values
+])
+def test_gather_and_scatter_add_at_the_matchers_shapes_on_card(dev, N, C, shape):
+    """Kernel G exact and kernel B (its backward) bit-equal to the CPU's in-order sum at the
+    matcher's batch-1 shapes (the PointTransformer's is B's CSR route at R = 80000)."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    pts = torch.randn((1, N, C), generator=g, device=dev, requires_grad=True)
+    idx = torch.randint(0, N, (1,) + shape, generator=g, device=dev, dtype=torch.int32)
+    up = torch.randn((1,) + shape + (C,), generator=g, device=dev)
+    ops.reset_launch_counts()
+    out = tga.gather_points(pts, idx)
+    assert torch.equal(out, tga.gather_points_plain(pts, idx))
+    out.backward(up)
+    assert ops.launch_counts()["G"] == 1 and ops.launch_counts()["B"] == 1
+    cpu = tga.scatter_add_plain(up.reshape(1, -1, C).cpu(), idx.reshape(1, -1).cpu(), N)
+    assert torch.equal(pts.grad.cpu(), cpu)
+
+
+@pytest.mark.parametrize("N,npoint,valid_share", [(5000, 1024, 1.0), (5000, 1024, 0.7),
+                                                   (1024, 256, 1.0), (256, 64, 1.0),
+                                                   (64, 16, 1.0)])
+def test_fps_at_the_matchers_shapes_on_card(dev, N, npoint, valid_share):
+    """Kernel F on the matcher's four stages of one flat cloud, masked by the point
+    validity (every point valid in a real batch), against the plain indices."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    xyz = torch.randn((1, N, 3), generator=g, device=dev)
+    mask = torch.rand((1, N), generator=g, device=dev) < valid_share
+    assert torch.equal(tfps.farthest_point_sample(xyz, npoint, mask),
+                       tfps.farthest_point_sample_plain(xyz, npoint, mask))
+
+
+def test_matching_step_on_card_matches_cpu(dev, tmp_path):
+    """One small matcher step on the card against the CPU, within
+    ``training/parity.py::MATCHING``."""
+    import functools
+
+    from puzzlefusion_plusplus_tpu_torch.matching import train as mtrain
+    from puzzlefusion_plusplus_tpu_torch.matching.dataset import AllPieceMatchingDataset
+
+    generate_dataset(str(tmp_path), num_shapes=2, seed=4, split="val", min_parts=3,
+                     max_parts=5, n_points=96, with_matching=False, with_verifier=False)
+    ds = AllPieceMatchingDataset(str(tmp_path / "pc_data" / "val"), num_points=160,
+                                 max_num_part=5)
+    batch = next(iter(Loader(ds, 2, shuffle=False)))
+    make = functools.partial(mtrain.make_model, pc_feat_dim=32, aff_feat_dim=16,
+                             sa_npoints=(32, 16, 8, 4), max_num_part=5)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        sd = make().state_dict()
+    ops.reset_launch_counts()
+    gpu = parity.matching_step_on(make, sd, batch, "cuda")
+    assert all(ops.launch_counts()[k] > 0 for k in "FGB")
+    cpu = parity.matching_step_on(make, sd, batch, "cpu")
+    parity.compare(cpu, gpu, mtrain.METRIC_KEYS, parity.MATCHING)

@@ -33,8 +33,13 @@ def test_port_imports_no_jax():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'puzzlefusion_plusplus_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'networkx', "
+        "'puzzlefusion_plusplus_tpu')]\n"
         "assert len(mods) > 20, mods\n"
+        "matching = {'alignment', 'dataset', 'encoder', 'eval', 'generate', 'layers', "
+        "'model', 'ops', 'oracle', 'sinkhorn', 'train'}\n"
+        "assert {'puzzlefusion_plusplus_tpu_torch.matching.' + m for m in matching} "
+        "<= set(mods), mods\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
