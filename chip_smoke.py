@@ -103,16 +103,19 @@ Phases, each printing one JSON object per line (with its seconds):
  18. matching_parity — one full-width matcher train_step on the card and one on the CPU
                (``training/parity.py::MATCHING``).
  18b. profile_matching — torch.profiler over one full-width matcher training step.
- 19. matching_gen — the eval entry ``matching.eval`` writes matching_data for 4 shapes
-               (seed 19) from phase 17's checkpoint (a saved seeded model without it), cut
-               to 1500 points a shape (``MATCHING_GEN_POINTS``: the host Hungarian); s a
-               shape; the oracle mode once; then ``run_inference`` serves those 4 shapes from
-               the written directory with the full-width seeded engine, finite metrics.
-               Phase 2 holds F, G and B at the matcher's batch-1 shapes (path
-               "train_matching": F on the 5000/1024/256/64-point stages, G on sa1-sa4's
-               groupings, fp4's and fp1's interpolation and the PointTransformer's
-               [1,5000,128] by [1,5000,16], B on the backward of those with a gradient,
-               R = 80000 at C = 128 on the CSR route).
+ 19. matching_gen — the eval entry ``matching.eval`` writes matching_data for 2 shapes
+               (seed 19; 2, not more: about 83 s a shape on an H100 machine's host, the
+               Hungarian over nearly every one of the 5000 points) at the configuration's 5000 points from phase
+               17's checkpoint (a saved seeded model without it); s a shape; the oracle mode
+               once; then ``run_inference`` serves those 2 shapes (5 and 9 parts, bucketed to
+               P = 12) from the written directory with the full-width seeded engine, finite
+               metrics.
+               Phase 2 holds F, G and B at the matcher's batch-1 shapes, which the writer's
+               forward shares (path "train_matching": F on the 5000/1024/256/64-point
+               stages, G on sa1-sa4's groupings, fp4's and fp1's interpolation and the
+               PointTransformer's [1,5000,128] by [1,5000,16], B on the backward of those
+               with a gradient, R = 80000 at C = 128 on the CSR route) and S, F, G and N at
+               the serving run's M = 2 x 12 = 24 clouds (path "matching_serve").
  20. dp      — data parallelism (``parallel/``; the other phases run on one card,
                ``trainer.num_devices=1``): NCCL over up to 4 cards, or with one card 2 ranks
                on it over gloo (``dp_plan``: 4 ranks from 4 cards, else 2). One VQ-VAE, denoiser and verifier step at that
@@ -202,6 +205,15 @@ MAIN_PATH = {"A": "train", "B": "train", "R": "encoder_modes"}  # the rest: "inf
 MATCHER_GATHERS = ((5000, 3, (1024, 32)), (1024, 96, (256, 32)), (256, 256, (64, 32)),
                    (64, 512, (16, 32)), (16, 1024, (64, 3)), (1024, 128, (5000, 3)),
                    (5000, 128, (5000, 16)))
+# synthetic shapes of 3-12 parts: 7 to train on (seed 18), 1 to validate on (seed 20) and 2
+# to write matching data for (seed 19: 5 and 9 parts, which the engine serves bucketed to
+# P = 12, so M = 24 clouds). Written at 5000 points, random weights call nearly every point
+# a fracture point, and the host Hungarian over [5000, 5000] (scipy) takes about 83 s a
+# shape on the host of an H100 machine.
+MATCHING_SHAPES, MATCHING_VAL_SHAPES, MATCHING_GEN_SHAPES = 7, 1, 2
+MATCHING_SERVE_PARTS = 12
+MATCHING_SERVE_CLOUDS = MATCHING_GEN_SHAPES * MATCHING_SERVE_PARTS
+MATCHING_POINTS = 5000  # train_matching's and the eval entry's default: every shape's cloud
 
 
 def dp_plan() -> dict:
@@ -429,7 +441,8 @@ def phase_kernels(results: dict) -> None:
     # S: the three SA stages of one denoise step at M = 96 clouds (b8 x P12), then of the
     # denoiser validation's frozen encode at M = 1280 (64 shapes x 20 slots) and of verifier
     # generation's denoise step at M = 20 (one shape at the 20-part pad; both listed apart
-    # from the step's sum)
+    # from the step's sum), then a data-parallel engine rank's and the engine's serving the
+    # matcher-written data
     S_STAGES = {"SA1": (256, 32, 0, 0, 64, 64, 128),
                 "SA2": (128, 64, 256, 128, 128, 128, 256),
                 "SA3": (25, 64, 128, 256, 256, 256, 512)}
@@ -437,7 +450,9 @@ def phase_kernels(results: dict) -> None:
             [(96, "inference", 20, 3, st) for st in S_STAGES.items()]
             + [(1280, "train_denoiser", 5, 1, st) for st in S_STAGES.items()]
             + [(20, "verifier_gen", 20, 3, st) for st in S_STAGES.items()]
-            + [(plan["engine_clouds"], "dp", 20, 3, st) for st in S_STAGES.items()]):
+            + [(plan["engine_clouds"], "dp", 20, 3, st) for st in S_STAGES.items()]
+            + [(MATCHING_SERVE_CLOUDS, "matching_serve", 20, 3, st)
+               for st in S_STAGES.items()]):
         t0 = time.perf_counter()
         g = randn(M, S, K, 3, scale=0.1)
         w_eff = randn(M, 3, C1, scale=3 ** -0.5)
@@ -527,7 +542,8 @@ def phase_kernels(results: dict) -> None:
     # F: the inference cache build's three stages at M = 96 clouds and the widest merge pad
     # (partial mask; the streaming variant), then the three SA stages of a training step at
     # M = 160 clouds, then verifier generation's cache build at M = 20, then a data-parallel
-    # engine rank's cache build and each training rank's stages
+    # engine rank's cache build and each training rank's stages, then the cache build of the
+    # engine serving the matcher-written data
     for B, N, npoint, masked, path in ((96, 1000, 256, False, "inference"),
                                        (96, 256, 128, False, "inference"),
                                        (96, 128, 25, False, "inference"),
@@ -540,6 +556,8 @@ def phase_kernels(results: dict) -> None:
                                        (20, 128, 25, False, "verifier_gen"),
                                        *((m, n, k, False, "dp")
                                          for m in [plan["engine_clouds"], *plan["train_clouds"]]
+                                         for n, k in ((1000, 256), (256, 128), (128, 25))),
+                                       *((MATCHING_SERVE_CLOUDS, n, k, False, "matching_serve")
                                          for n, k in ((1000, 256), (256, 128), (128, 25)))):
         t0 = time.perf_counter()
         xyz = randn(B, N, 3)
@@ -633,7 +651,8 @@ def phase_kernels(results: dict) -> None:
     # G: the largest grouping gather of the cache build (SA1 neighbourhoods), then the
     # neighbourhood xyz gathers of a training step's SA1, SA2 and SA3 at M = 160, then
     # verifier generation's SA1 neighbourhoods at M = 20, then a data-parallel engine rank's
-    # SA1 neighbourhoods and each training rank's gathers
+    # SA1 neighbourhoods and each training rank's gathers, then the SA1 neighbourhoods of the
+    # engine serving the matcher-written data
     gather_row("G", gather.gather_points, 96, 1000, 3, (256, 32), "inference", 50)
     for N, S, K in ((1000, 256, 32), (256, 128, 64), (128, 25, 64)):
         gather_row("G", gather.gather_points, 160, N, 3, (S, K), "train", 50)
@@ -642,6 +661,8 @@ def phase_kernels(results: dict) -> None:
     for M in plan["train_clouds"]:  # a data-parallel training rank's
         for N, S, K in ((1000, 256, 32), (256, 128, 64), (128, 25, 64)):
             gather_row("G", gather.gather_points, M, N, 3, (S, K), "dp", 50)
+    gather_row("G", gather.gather_points, MATCHING_SERVE_CLOUDS, 1000, 3, (256, 32),
+               "matching_serve", 50)
 
     # G: the matcher's gathers at batch 1: sa1's ball grouping of the 5000-point cloud, the
     # feature groupings of sa2-sa4, fp4's and fp1's 3-NN interpolation and the
@@ -653,7 +674,7 @@ def phase_kernels(results: dict) -> None:
     # points, padded parts at 1e3, two poses), the widest pad's shape_cd clouds (random), then
     # a training step's chamfer loss, then verifier generation's per-part labels (20 parts),
     # then a data-parallel engine rank's part_acc and shape_cd clouds and each training rank's
-    # chamfer loss
+    # chamfer loss, then those of the engine serving the matcher-written data
     sms, clock_mhz = torch.cuda.get_device_properties(0).multi_processor_count, sm_clock_mhz()
 
     def issue(pairs, ms):
@@ -670,7 +691,9 @@ def phase_kernels(results: dict) -> None:
                                       (20, 1000, "verifier_gen", False),
                                       (plan["engine_clouds"], 1000, "dp", False),
                                       (8 // plan["world"], 12000, "dp", True),
-                                      *((m, 1000, "dp", False) for m in plan["train_clouds"])):
+                                      *((m, 1000, "dp", False) for m in plan["train_clouds"]),
+                                      (MATCHING_SERVE_CLOUDS, 1000, "matching_serve", False),
+                                      (MATCHING_GEN_SHAPES, 12000, "matching_serve", True)):
         t0 = time.perf_counter()
         x, y = (nn_engine_clouds(gen, B, N // 1000) if engine_shaped
                 else (randn(B, N, 3), randn(B, N, 3)))
@@ -1579,14 +1602,6 @@ def phase_serve(data_root: str, paths: dict) -> dict:
     return row
 
 
-# synthetic shapes of 3-12 parts: 7 to train on (seed 18), 1 to validate on (seed 20) and 4
-# to write matching data for (seed 19)
-MATCHING_SHAPES, MATCHING_VAL_SHAPES, MATCHING_GEN_SHAPES = 7, 1, 4
-MATCHING_POINTS = 5000  # train_matching's default: the flat cloud of every shape
-# matching_gen's points a shape, cut from 5000: random weights call most points fracture
-# points, and the host Hungarian over a near-uniform [n, n] affinity took about 17 s a shape
-# at n = 3000 (the validation pass of the first chip run); at 1500 its n stays below 1500
-MATCHING_GEN_POINTS = 1500
 
 
 def _matching_split(root: str, split: str) -> str:
@@ -1708,17 +1723,17 @@ def phase_profile_matching(root: str) -> dict:
 
 
 def phase_matching_gen(root: str, trained: bool) -> dict:
-    """The eval entry ``matching.eval`` writes matching_data for the 4 val shapes at
-    ``MATCHING_GEN_POINTS`` points from the train_matching checkpoint (a saved seeded model
-    when that phase did not run), then
-    ``run_inference`` serves those shapes from it with the full-width engine (seeded
-    weights): the matcher -> matching_data -> engine round trip on the card. The oracle
-    mode runs once."""
+    """The eval entry ``matching.eval`` writes matching_data for the 2 val shapes at its
+    default 5000 points from the train_matching checkpoint (a saved seeded model when that
+    phase did not run), then ``run_inference`` serves those shapes from it with the
+    full-width engine (seeded weights): the matcher -> matching_data -> engine round trip on
+    the card. The oracle mode runs once."""
     import shutil
 
     import numpy as np
 
     from puzzlefusion_plusplus_tpu_torch import ops
+    from puzzlefusion_plusplus_tpu_torch.data.bucketing import part_bucket
     from puzzlefusion_plusplus_tpu_torch.inference.run import build_engine_fn, run_inference
     from puzzlefusion_plusplus_tpu_torch.matching import eval as meval
     from puzzlefusion_plusplus_tpu_torch.matching.train import make_model
@@ -1736,8 +1751,7 @@ def phase_matching_gen(root: str, trained: bool) -> dict:
     val_dir, out = _matching_split(root, "val"), os.path.join(base, "matching_data")
     ops.reset_launch_counts()  # the writer's path starts here
     t1 = time.perf_counter()
-    results = meval.main([f"data_dir={val_dir}", f"ckpt={ckpt}", f"out_dir={out}",
-                          f"num_points={MATCHING_GEN_POINTS}"])
+    results = meval.main([f"data_dir={val_dir}", f"ckpt={ckpt}", f"out_dir={out}"])
     wall_gen = time.perf_counter() - t1
     counts_gen = ops.launch_counts()
     files = sorted(os.listdir(out))
@@ -1750,6 +1764,9 @@ def phase_matching_gen(root: str, trained: bool) -> dict:
     cfg = _full_config(root)
     cfg.data.matching_data_path = out
     cfg.trainer.output_dir = os.path.join(base, "serve")
+    parts = max(len(r["global_transforms"]) for r in results)
+    _check(part_bucket(parts, cfg.inference.part_bucket_multiple, cfg.data.max_num_part)
+           == MATCHING_SERVE_PARTS, f"the served batch is not the kernels phase's: {parts}")
     engine = build_engine_fn(cfg, "cuda")
     ops.reset_launch_counts()  # the engine's run over the written data starts here
     t1 = time.perf_counter()
@@ -1763,7 +1780,7 @@ def phase_matching_gen(root: str, trained: bool) -> dict:
            f"a kernel never launched: {counts_serve}")
     row = {"phase": "matching_gen", "seconds": time.perf_counter() - t0,
            "checkpoint": ckpt if trained else "seeded (phase train_matching not run)",
-           "shapes": len(files), "num_points": MATCHING_GEN_POINTS, "wall_s": wall_gen,
+           "shapes": len(files), "num_points": MATCHING_POINTS, "wall_s": wall_gen,
            "seconds_per_shape": wall_gen / len(files),
            "edges": [r["num_edges"] for r in results],
            "critical_points": [r["n_critical_total"] for r in results],

@@ -7,8 +7,7 @@
 a ckpt dir for its best, ``.../best``, ``.../latest``); a JAX orbax checkpoint is converted
 first (``scripts/jax_ckpt_to_torch.py --kind matching``). ``oracle=1`` runs no model and
 prints the matching-F1 ceiling of the data (``matching/oracle.py``). Keys: ``num_points``,
-``max_num_part``, ``max_samples``, ``pc_feat_dim``, ``aff_feat_dim`` as in the JAX entry,
-and ``sa_npoints`` (comma-separated, default 1024,256,64,16) for a cut-down model.
+``max_num_part``, ``max_samples``, ``pc_feat_dim``, ``aff_feat_dim`` as in the JAX entry.
 """
 
 from __future__ import annotations
@@ -39,7 +38,6 @@ def main(argv=None) -> list | dict:
     model = make_model(
         pc_feat_dim=int(args.get("pc_feat_dim", 128)),
         aff_feat_dim=int(args.get("aff_feat_dim", 512)),
-        sa_npoints=tuple(int(x) for x in args.get("sa_npoints", "1024,256,64,16").split(",")),
     )
     model.load_state_dict(load_model_state(args["ckpt"]))
     results = generate_matching_data(

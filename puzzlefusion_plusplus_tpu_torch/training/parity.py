@@ -33,8 +33,9 @@ smallest code margin so a caller can check that no code sat within float error o
 The verifier step (``verifier_step_on``) is held to them too, with dropout off: its loss
 1e-5 relative, every gradient elementwise. The matcher's step (``matching_step_on``, all
 three losses on, kernels F, G and B) is held to ``MATCHING``: its whole step is
-ill-conditioned, so every gradient is held in relative L2 norm, the biases with true
-gradient 0 to float noise, and the losses to 2e-3 relative (see ``MATCHING``).
+ill-conditioned, so every gradient is held in relative L2 norm and the biases with true
+gradient 0 to float noise; its losses are held to 1e-5 relative as the other steps' are
+(see ``MATCHING``).
 
 ``dp_steps`` runs the same steps data-parallel: each case's global batch split over
 ``world`` ranks (``parallel/``), the result rank 0's, plus every rank's buffers under
@@ -284,34 +285,42 @@ def _block_scale(grads: dict, name: str) -> float:
 class Tolerances:
     """What ``compare`` holds a step to. ``l2_grad``: the parameters whose gradients are
     compared in relative L2 norm (the rest elementwise); ``zero_grad``: those whose true
-    gradient is 0, held to float noise below ``noise`` of ``zero_scale``'s entry."""
+    gradient is 0, held to float noise below ``NOISE`` of ``zero_scale``'s entry;
+    ``signed_clear``: an entry of a gradient held in L2 norm counts as clear of 0 for the
+    step check only from ``CLEAR_FLOOR`` and where both gradients share its sign."""
 
     metric_rel: float = 1e-5
     metric_floor: float = 1e-30
     l2_grad: Callable[[str], bool] = lambda n: n.startswith("pn2.sa")
     zero_grad: Callable[[str], bool] = _pre_bn_bias
     zero_scale: Callable[[dict, str], float] = _kernel_scale
-    noise: float = 1e-3
-    clear_floor: float = 0.0  # an entry is clear of 0 only above this too
-    # an entry is clear only where both gradients share its sign: the step then checks the
-    # optimizer alone, and the gradients' own disagreement is the relative L2 check's
-    clear_same_sign: bool = False
+    signed_clear: bool = False
+
+
+NOISE, CLEAR_FLOOR = 1e-3, 1e-5
 
 
 # The matcher's step is ill-conditioned as a whole: its train-mode BatchNorms sit over few
 # distinct rows in the encoder (the ball query repeats its first hit) and feed one another
 # down to the Sinkhorn loss. On the CPU alone a relative perturbation of 1e-6 of the weights
-# moves the gradients by up to 1.2e-2 in relative L2 norm and the losses by up to 2e-4
-# relative (tests/test_torch_port_matching_training.py measures it), so every gradient is
-# held in relative L2 norm, as the VQ-VAE's SA stages are, and the losses to 2e-3 relative
-# (the rigid loss, which is 0 wherever a pair's matches fit exactly, against a floor of
-# 1e-6). Adam's first update, lr g / (|g| + 1e-8), is lr
-# sign(g) only where |g| is well above its epsilon: an entry counts as clear of 0 from 1e-5,
-# and only where both gradients share its sign (at full width a few entries above 0.1 of
-# their tensor's largest flip between one process and two ranks, within the L2 bound).
-MATCHING = Tolerances(metric_rel=2e-3, metric_floor=1e-6, l2_grad=lambda n: True,
+# moves the gradients by up to 1.2e-2 in relative L2 norm
+# (tests/test_torch_port_matching_training.py measures it), so every gradient is held in
+# relative L2 norm, as the VQ-VAE's SA stages are. The losses are held to 1e-5 relative, as
+# the other steps' (the rigid loss, which is 0 wherever a pair's matches fit exactly,
+# against a floor of 1e-6). Adam's first update, lr g / (|g| + 1e-8), is lr sign(g) only
+# where |g| is well above its epsilon, and at full width a few entries above 0.1 of their
+# tensor's largest flip sign between one process and two ranks, within the L2 bound: so
+# ``signed_clear``.
+MATCHING = Tolerances(metric_floor=1e-6, l2_grad=lambda n: True,
                       zero_grad=lambda n: bool(_MATCHING_ZERO.search(n)),
-                      zero_scale=_block_scale, clear_floor=1e-5, clear_same_sign=True)
+                      zero_scale=_block_scale, signed_clear=True)
+# The tests' small matchers (128-320 points, sa_npoints (32, 16, 8, 4)) are worse
+# conditioned: there a 1e-6 perturbation of the weights moves the losses by up to 1e-4
+# relative, two ranks and one process are up to 3e-5 apart and the JAX package's step and
+# the port's 5e-4, so their losses are held to 2e-3
+# (tests/test_torch_port_matching_training.py measures each, and shows that a planted fault
+# still fails).
+MATCHING_SMALL = dataclasses.replace(MATCHING, metric_rel=2e-3)
 
 
 GRAD_REL, GRAD_ATOL, SA_GRAD_REL_L2 = 1e-3, 1e-5, 5e-2
@@ -336,7 +345,7 @@ def compare(ref: dict, out: dict, metric_keys=METRIC_KEYS, tol: Tolerances = Tol
             scale = tol.zero_scale(ref["grads"], n)
             noise = max(g.abs().max().item(), o.abs().max().item()) / max(scale, 1e-30)
             errs[f"bias_noise/{n}"] = noise
-            if noise > tol.noise:
+            if noise > NOISE:
                 bad.append(f"{n}: gradient {noise} of its scale, should be float noise")
             clear[n] = torch.zeros_like(g, dtype=torch.bool)
             continue
@@ -347,17 +356,18 @@ def compare(ref: dict, out: dict, metric_keys=METRIC_KEYS, tol: Tolerances = Tol
             sa_l2, sa_max = max(sa_l2, l2), max(sa_max, e / max(gmax, 1e-30))
             if l2 > SA_GRAD_REL_L2:
                 bad.append(f"grad {n}: relative L2 error {l2} > {SA_GRAD_REL_L2}")
-            clear[n] = (g.abs() > 0.1 * gmax) & (g.abs() > tol.clear_floor)
-            flips = clear[n] & (g * o <= 0)
-            errs["clear_sign_flips"] = errs.get("clear_sign_flips", 0) + int(flips.sum())
-            if tol.clear_same_sign:
+            clear[n] = g.abs() > 0.1 * gmax
+            if tol.signed_clear:
+                clear[n] &= g.abs() > CLEAR_FLOOR
+                flips = clear[n] & (g * o <= 0)
+                errs["clear_sign_flips"] = errs.get("clear_sign_flips", 0) + int(flips.sum())
                 clear[n] &= ~flips
             continue
         grad_rel = max(grad_rel, e / max(gmax, 1e-30))
         tol_n = GRAD_REL * gmax + GRAD_ATOL
         if e > tol_n:
             bad.append(f"grad {n}: max err {e} > {tol_n}")
-        clear[n] = (g.abs() > 2 * tol_n) & (g.abs() > tol.clear_floor)
+        clear[n] = g.abs() > 2 * tol_n
     errs["grad_max_rel"] = grad_rel
     errs["sa_grad_rel_l2"], errs["sa_grad_max_rel"] = sa_l2, sa_max
     for n, b in ref["buffers"].items():

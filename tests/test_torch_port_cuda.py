@@ -602,7 +602,8 @@ def test_fps_at_the_matchers_shapes_on_card(dev, N, npoint, valid_share):
 
 def test_matching_step_on_card_matches_cpu(dev, tmp_path):
     """One small matcher step on the card against the CPU, within
-    ``training/parity.py::MATCHING``."""
+    ``training/parity.py::MATCHING_SMALL`` (the small sizes' losses 2e-3 relative;
+    ``chip_smoke.py``'s matching_parity holds the full-width step to ``MATCHING``)."""
     import functools
 
     from puzzlefusion_plusplus_tpu_torch.matching import train as mtrain
@@ -622,4 +623,4 @@ def test_matching_step_on_card_matches_cpu(dev, tmp_path):
     gpu = parity.matching_step_on(make, sd, batch, "cuda")
     assert all(ops.launch_counts()[k] > 0 for k in "FGB")
     cpu = parity.matching_step_on(make, sd, batch, "cpu")
-    parity.compare(cpu, gpu, mtrain.METRIC_KEYS, parity.MATCHING)
+    parity.compare(cpu, gpu, mtrain.METRIC_KEYS, parity.MATCHING_SMALL)

@@ -4,9 +4,11 @@ One matcher step at world size 2 on a global batch of 2 shapes is held to the on
 step on the same batch (``training/parity.py::dp_steps``), and the training entry runs at
 ``num_devices=2``.
 
-Tolerances: ``training/parity.py::MATCHING`` (the one-device parity tolerances of the
-matcher's step, see ``tests/test_torch_port_matching_training.py``); BatchNorm's running
-statistics bit-equal on the two ranks. Each spawned group is bounded by ``join_timeout_s``.
+Tolerances: ``training/parity.py::MATCHING_SMALL`` (the one-device parity tolerances of the
+small matcher's step, see ``tests/test_torch_port_matching_training.py``: its losses 2e-3
+relative, where the two sides read up to 3e-5 apart; ``chip_smoke.py``'s dp phase holds the
+full-width step to ``MATCHING``); BatchNorm's running statistics bit-equal on the two
+ranks. Each spawned group is bounded by ``join_timeout_s``.
 """
 
 import functools
@@ -39,7 +41,7 @@ def test_matching_step_at_world_2_equals_one_process_step(tmp_path):
     cases = {"matching": dict(kind="matching", make_model=make, state_dict=sd, batch=batch)}
     one = parity.dp_steps(cases, 1, "cpu")["matching"]
     two = parity.dp_steps(cases, 2, "cpu", join_timeout_s=JOIN_S)["matching"]
-    errs = parity.compare(one, two, ttrain.METRIC_KEYS, parity.MATCHING)
+    errs = parity.compare(one, two, ttrain.METRIC_KEYS, parity.MATCHING_SMALL)
     print(errs)
     # the ranks hold shapes of other part and critical counts: the step is the global one
     assert batch["num_parts"][0] != batch["num_parts"][1]

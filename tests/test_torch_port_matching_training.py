@@ -9,12 +9,14 @@ near the 5e-2 bound; at 320 they are 1.3e-2 apart.
 
 Tolerances and why:
   * one train step (all three losses on, Adam under the cosine schedule):
-    ``training/parity.py::MATCHING``: the losses and metrics 2e-3 relative, every gradient
-    5e-2 in relative L2 norm, the biases whose true gradient is 0 float noise, BatchNorm's
-    running statistics 1e-4 relative, the parameters after the step within 1e-6 where the
-    gradient is clear of 0 (elsewhere 2 lr). The step is ill-conditioned at this size:
-    ``test_step_is_ill_conditioned_on_one_device`` measures how far a 1e-6 perturbation of
-    the weights moves it on the CPU alone.
+    ``training/parity.py::MATCHING_SMALL``: the losses and metrics 2e-3 relative, every
+    gradient 5e-2 in relative L2 norm, the biases whose true gradient is 0 float noise,
+    BatchNorm's running statistics 1e-4 relative, the parameters after the step within 1e-6
+    where the gradient is clear of 0 (elsewhere 2 lr). The step is ill-conditioned at this
+    size: ``test_step_is_ill_conditioned_on_one_device`` measures how far a 1e-6
+    perturbation of the weights moves it on the CPU alone, and
+    ``test_matching_tolerances_fail_a_planted_fault`` shows that a wrong gradient, a missing
+    shard or a missing loss still fails them.
   * the host writer fed the JAX forward's outputs: every array of every npz equal, dtype
     included (the same numpy on the same inputs). The two forwards themselves (``ds_mat``
     1e-5 of its largest entry; ``cls_pred`` and ``crit_pid`` exact in eval mode): the
@@ -54,6 +56,7 @@ from puzzlefusion_plusplus_tpu_torch.matching import train as ttrain
 from puzzlefusion_plusplus_tpu_torch.matching.dataset import AllPieceMatchingDataset as TDS
 from puzzlefusion_plusplus_tpu_torch.matching.oracle import oracle_matching_stats
 from puzzlefusion_plusplus_tpu_torch.models.vqvae import VQVAE
+from puzzlefusion_plusplus_tpu_torch.ops import gather
 from puzzlefusion_plusplus_tpu_torch.training import parity
 from puzzlefusion_plusplus_tpu_torch.training import state as tstate
 
@@ -134,15 +137,15 @@ def steps(jax_model):
 def test_train_step_matches_jax(steps):
     ref, out = steps[:2]
     assert sorted(out["grads"]) == sorted(ref["grads"])
-    errs = parity.compare(ref, out, ttrain.METRIC_KEYS, parity.MATCHING)
+    errs = parity.compare(ref, out, ttrain.METRIC_KEYS, parity.MATCHING_SMALL)
     print(errs)
     assert out["metrics"]["mat_loss"] > 0 and out["metrics"]["cls_loss"] > 0
 
 
 def test_step_is_ill_conditioned_on_one_device(steps):
-    """What ``parity.MATCHING`` rests on: a relative perturbation of 1e-6 of every weight
-    moves the port's own CPU gradients by up to about 1e-2 in relative L2 norm (a wrong
-    gradient is off by about 1) and its losses by far less than 2e-3."""
+    """What ``parity.MATCHING_SMALL`` rests on: a relative perturbation of 1e-6 of every
+    weight moves the port's own CPU gradients by up to about 1e-2 in relative L2 norm (a
+    wrong gradient is off by about 1) and its losses by far less than 2e-3."""
     _, out, make, sd, batch = steps
     gen = torch.Generator().manual_seed(1)
     bent = {k: x * (1 + 1e-6 * torch.randn(x.shape, generator=gen))
@@ -154,7 +157,34 @@ def test_step_is_ill_conditioned_on_one_device(steps):
             for k in ttrain.LOSS_KEYS}
     print(min(l2.values()), max(l2.values()), loss)
     assert 1e-3 < max(l2.values()) < parity.SA_GRAD_REL_L2
-    assert max(loss.values()) < parity.MATCHING.metric_rel / 4
+    assert max(loss.values()) < parity.MATCHING_SMALL.metric_rel / 4
+
+
+@pytest.mark.parametrize("fault", ["scatter_drops_rows", "shard_left_out", "rigid_loss_off"])
+def test_matching_tolerances_fail_a_planted_fault(steps, fault, monkeypatch):
+    """A step with a planted fault fails ``parity.MATCHING_SMALL`` (and so ``MATCHING``)
+    against the sound step, on its gradients: kernel B's plain version dropping the last
+    quarter of its rows (the forward, and so the losses, unchanged), one of two ranks'
+    shards left out of the global step, and the rigid loss off."""
+    _, out, make, sd, batch = steps
+    if fault == "scatter_drops_rows":
+        plain = gather.scatter_add_plain
+
+        def dropping(g, idx, n):
+            keep = g.shape[1] - g.shape[1] // 4
+            return plain(g[:, :keep], idx[:, :keep], n)
+
+        monkeypatch.setattr(gather, "scatter_add_plain", dropping)
+        bad = parity.matching_step_on(make, sd, batch, "cpu")
+    elif fault == "shard_left_out":
+        bad = parity.matching_step_on(make, sd, {k: v[:1] for k, v in batch.items()}, "cpu")
+    else:
+        bad = parity.matching_step_on(make, sd, batch, "cpu", w_rig=0.0)
+    for tol in (parity.MATCHING_SMALL, parity.MATCHING):
+        with pytest.raises(AssertionError, match="grad .*relative L2 error") as err:
+            parity.compare(out, bad, ttrain.METRIC_KEYS, tol)
+    lines = str(err.value).splitlines()[1:]
+    print(fault, len(lines), "quantities outside:", *lines[:3])
 
 
 # ------------------------------------------------------------------ the writer
@@ -323,11 +353,16 @@ def test_engine_serves_the_port_written_matching_data(root, roundtrip, tmp_path)
         assert np.isfinite(agg[f"eval/{k}"]), k
 
 
-def test_eval_entry_writes_the_same_files_from_the_checkpoint(root, roundtrip, tmp_path):
+def test_eval_entry_writes_the_same_files_from_the_checkpoint(root, roundtrip, tmp_path,
+                                                            monkeypatch):
+    """The entry loads the trained checkpoint and writes what ``generate_matching_data``
+    wrote from the trained model. The entry builds the reference's sa_npoints (1024, 256,
+    64, 16), which a 160-point cloud cannot take, so the test hands it the small model's."""
     out = roundtrip[0]
+    monkeypatch.setattr(ttrain, "make_model", functools.partial(ttrain.make_model, **SMALL))
     meval.main([f"data_dir={root}/pc_data/val", f"ckpt={out}/train/ckpt/best",
                 f"out_dir={tmp_path}/m", "pc_feat_dim=32", "aff_feat_dim=16",
-                "sa_npoints=32,16,8,4", f"num_points={RT_PTS}", f"max_num_part={P}", "--cpu"])
+                f"num_points={RT_PTS}", f"max_num_part={P}", "--cpu"])
     for name in sorted(os.listdir(out + "/matching_data")):
         a = np.load(os.path.join(out, "matching_data", name), allow_pickle=True)
         b = np.load(os.path.join(str(tmp_path), "m", name), allow_pickle=True)
