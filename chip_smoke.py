@@ -3,7 +3,8 @@
 
 Phases, each printing one JSON object per line (with its seconds):
   1. build   — compiles the port's CUDA kernels (``puzzlefusion_plusplus_tpu_torch/csrc``)
-               for sm_90a; prints the card's name and power limit from nvidia-smi.
+               for sm_90a and the native host core (``utils/native.py``, g++; fails if it
+               does not build); prints the card's name and power limit from nvidia-smi.
   2. kernels — every kernel (S, F, G, N, M, P of inference; F, G, N, A, B of training; R
                of the 'always' encoder mode) at the shapes each path gives it (training's at
                M = 160 clouds), on seeded inputs, against its plain PyTorch version on the card
@@ -132,6 +133,17 @@ Phases, each printing one JSON object per line (with its seconds):
                engine's per-rank shapes (M = 8/W x 12 clouds, N also on the engine-shaped
                [8/W, 12000] shape_cd clouds) and F, G, N, A, B at each training rank's M
                where no other path gives them (path "dp").
+ 21. bench   — the port's benchmark entry ``python -m puzzlefusion_plusplus_tpu_torch.bench``
+               in a subprocess: fp32, ``PFPP_BENCH_PRECISION=bf16``, and ``--serving`` with
+               ``PFPP_BENCH_REPEATS=1`` (its 32 shapes made in a background process from the
+               start): every line parses, no ``timing_suspect``; the fp32 value beside the
+               engine phase's assemblies/s on the same b8 seed-7 batch.
+ 22. bf16    — ``trainer.precision=bf16``: the full-width denoiser trained 6 steps at batch 64
+               (the first warms up; steps/s and peak memory beside phase 10's fp32), one bf16
+               train_step on the card held to the CPU (``training/parity.py::BF16``), and the
+               b8 engine batch served under bf16 (kernel S keeps its fp32 weights) with finite
+               metrics; phase 2 holds G and A on bf16 rows at the denoiser's SA2 and SA3
+               feature gathers (M = 1280, path "bf16").
 Each path's launch counts are read from its own run: reset right before phase 3's second
 (counted) engine call and read right after phase 4's GPU run (the inference path), reset
 right before phase 6 and read right after it (the VQ-VAE training path), reset right before
@@ -141,7 +153,8 @@ before phase 10 and read right after it (the denoiser training path), and so for
 training path, "train_matching") and phase 19's writer ("matching_gen") and serving run
 ("matching_serve"); phase 20's counts are
 each rank's, reset in the rank right before each entry run and summed over the ranks after it
-(its parity steps are not counted). Then a ``kernels``
+(its parity steps are not counted); phase 22's are reset right before its training run and
+read right after its engine call (path "bf16"). Then a ``kernels``
 line lists every kernel with its path's count, its error and its times, and the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and the script exits non-zero without
 that line. Needs one CUDA card; ``--phases`` picks phases.
@@ -150,6 +163,7 @@ that line. Needs one CUDA card; ``--phases`` picks phases.
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
 import math
 import os
@@ -188,6 +202,7 @@ MERGE_ONLY_KERNELS = "MP"  # launched only when a merge fires (the merge phase)
 ENCODER_MODE_KERNELS, DENOISER_KERNELS = "RSGA", "SFGNA"
 VERIFIER_GEN_KERNELS, SERVE_KERNELS = "SFGN", "SFGN"
 DP_KERNELS = "SFGNAB"  # the three trainers and the b8 engine batch, data-parallel
+BF16_KERNELS = "SFGNA"  # bf16 denoiser training (F, G, A) and the bf16 engine (S, F, G, N)
 # the matcher's training step, its test-mode forward in the writer, and the engine serving
 # the written matching data
 MATCHING_KERNELS, MATCHING_GEN_KERNELS, MATCHING_SERVE_KERNELS = "FGB", "FG", "SFGN"
@@ -196,7 +211,7 @@ PATH_KERNELS = {"inference": INFERENCE_KERNELS, "train": TRAIN_KERNELS,
                 "verifier_gen": VERIFIER_GEN_KERNELS, "train_verifier": "",
                 "serve": SERVE_KERNELS, "dp": DP_KERNELS, "train_matching": MATCHING_KERNELS,
                 "matching_gen": MATCHING_GEN_KERNELS,
-                "matching_serve": MATCHING_SERVE_KERNELS}
+                "matching_serve": MATCHING_SERVE_KERNELS, "bf16": BF16_KERNELS}
 MAIN_PATH = {"A": "train", "B": "train", "R": "encoder_modes"}  # the rest: "inference"
 
 
@@ -366,11 +381,13 @@ def sass_inner_loops(lib_path: str) -> dict:
 
 def phase_build() -> None:
     from puzzlefusion_plusplus_tpu_torch.ops import cuda_build
+    from puzzlefusion_plusplus_tpu_torch.utils import native
 
     t0 = time.perf_counter()
     cuda_build.build_all()
     for name in cuda_build.SIGNATURES:
         cuda_build.library(name)
+    _check(native.available(), f"the native host core did not build: {native.build_error}")
     ptxas = {}
     for name in cuda_build.SIGNATURES:
         path = os.path.join(cuda_build.BUILD_DIR, f"{name}.log")
@@ -381,6 +398,7 @@ def phase_build() -> None:
     print(card, flush=True)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_seconds": cuda_build.build_seconds, "card": card, "ptxas": ptxas,
+          "native_route": native.route(), "native_threads": native.get_lib().pfpp_num_threads(),
           "nn_sass": sass_inner_loops(os.path.join(cuda_build.BUILD_DIR, "libnn.so"))})
 
 
@@ -622,31 +640,34 @@ def phase_kernels(results: dict) -> None:
                          "points_a_thread": ppt, "threads": threads},
                seconds=time.perf_counter() - t0)
 
-    def gather_row(name, fn, B, N, C, idx_shape, path, reps):
+    def gather_row(name, fn, B, N, C, idx_shape, path, reps, dtype=torch.float32):
         """G or A against the plain version; bytes: the source read once, idx read, the
         output written; the library call is one torch.gather on int64 indices. ``ms`` is the
         call as callers make it, ``kernel_ms`` the bare launch on int32 indices into an
         output made beforehand."""
         t0 = time.perf_counter()
-        pts = randn(B, N, C)
+        pts = randn(B, N, C).to(dtype)
         idx = torch.randint(0, N, (B,) + idx_shape, generator=gen, device=dev,
                             dtype=torch.int32)
         match = bool(torch.equal(fn(pts, idx), gather.gather_points_plain(pts, idx)))
         _check(match, f"{name} [{B},{N},{C}] by {idx_shape}: gathered values differ")
         idx64 = idx.reshape(B, -1).long()[..., None].expand(-1, -1, C)
         flat = idx.reshape(B, -1)
-        out = torch.empty((B, flat.shape[1], C), device=dev)
+        out = torch.empty((B, flat.shape[1], C), dtype=dtype, device=dev)
         bare = lambda: gather._launch_gather(pts, flat, out)  # noqa: E731
         library = lambda: torch.gather(pts, 1, idx64)  # noqa: E731
-        record(name, f"[{B},{N},{C}] by [{B},{','.join(map(str, idx_shape))}]", 0.0,
+        es = pts.element_size()
+        dt = "" if dtype == torch.float32 else " bf16"
+        record(name, f"[{B},{N},{C}]{dt} by [{B},{','.join(map(str, idx_shape))}]", 0.0,
                cuda_ms(lambda: fn(pts, idx), reps),
                cuda_ms(lambda: gather.gather_points_plain(pts, idx), reps),
-               4 * (pts.numel() + idx.numel() + idx.numel() * C), 0.0,
+               es * pts.numel() + 4 * idx.numel() + es * idx.numel() * C, 0.0,
                library_ms=cuda_ms(library, reps), path=path,
                kernel_ms=cuda_ms(bare, reps), kernel_graph_ms=graph_ms(bare, reps),
                library_graph_ms=graph_ms(library, reps),
-               unit_floats=gather.gather_width(C, pts.data_ptr()), values_equal=match,
+               unit_values=gather.gather_width(C, pts.data_ptr(), es), values_equal=match,
                seconds=time.perf_counter() - t0)
+        del out
 
     # G: the largest grouping gather of the cache build (SA1 neighbourhoods), then the
     # neighbourhood xyz gathers of a training step's SA1, SA2 and SA3 at M = 160, then
@@ -725,6 +746,11 @@ def phase_kernels(results: dict) -> None:
     for M in plan["train_clouds"]:
         for N, C, S, K in ((256, 128, 128, 64), (128, 256, 25, 64)):
             gather_row("A", gather.gather_points_approx, M, N, C, (S, K), "dp", 10)
+    # G and A on bf16 rows (trainer.precision=bf16): the denoiser step's frozen encode, SA2's
+    # and SA3's feature gathers at M = 1280
+    for name, fn in (("G", gather.gather_points), ("A", gather.gather_points_approx)):
+        for N, C, S, K in ((256, 128, 128, 64), (128, 256, 25, 64)):
+            gather_row(name, fn, 1280, N, C, (S, K), "bf16", 5, torch.bfloat16)
 
     # B: the backward of those gathers and the chamfer loss's target side, at M = 160, then
     # the chamfer case with every row to one index (listed apart from the step's sum), then
@@ -981,6 +1007,7 @@ def phase_train(data_root: str) -> dict:
     from puzzlefusion_plusplus_tpu_torch import ops
     from puzzlefusion_plusplus_tpu_torch.data import VQVAEDataset
     from puzzlefusion_plusplus_tpu_torch.training.vqvae import METRIC_KEYS, train
+    from puzzlefusion_plusplus_tpu_torch.utils import native
 
     t0 = time.perf_counter()
     out_dir = os.path.join(REPO, ".smoke", "train_out")
@@ -1002,6 +1029,7 @@ def phase_train(data_root: str) -> dict:
     row = {"phase": "train", "seconds": time.perf_counter() - t0, "batch_shapes": 8,
            "steps_per_epoch": TRAIN_SHAPES // 8,
            "loader_s_per_batch": _loader_seconds(VQVAEDataset(cfg.data.data_dir), 8),
+           "loader_route": native.route(),  # "native" or "numpy"
            "clouds_per_step": 8 * cfg.data.max_num_part, "timed_steps": steps - 1,
            "steps_per_s": (steps - 1) / timed_s,
            "valid_parts_per_s": sum(r["valid_parts"] for r in recs[1:]) / timed_s,
@@ -1222,6 +1250,7 @@ def phase_train_denoiser(data_root: str, vqvae_trained: bool) -> dict:
     from puzzlefusion_plusplus_tpu_torch import ops
     from puzzlefusion_plusplus_tpu_torch.data import DenoiserDataset
     from puzzlefusion_plusplus_tpu_torch.training.denoiser import EVAL_KEYS, train
+    from puzzlefusion_plusplus_tpu_torch.utils import native
 
     t0 = time.perf_counter()
     out_dir = os.path.join(REPO, ".smoke", "denoiser_out")
@@ -1252,6 +1281,7 @@ def phase_train_denoiser(data_root: str, vqvae_trained: bool) -> dict:
                                DENOISER_BATCH)
     row = {"phase": "train_denoiser", "seconds": time.perf_counter() - t0,
            "steps_per_epoch": DENOISER_SHAPES // DENOISER_BATCH, "loader_s_per_batch": loader_s,
+           "loader_route": native.route(),  # "native" or "numpy"
            "encoder_ckpt": cfg.denoiser.encoder_ckpt_path or "seeded (phase train not run)",
            "batch_shapes": DENOISER_BATCH, "clouds_per_step": DENOISER_BATCH * 20,
            "timed_steps": 5, "steps_per_s": 5 / timed_s,
@@ -1268,7 +1298,16 @@ def phase_train_denoiser(data_root: str, vqvae_trained: bool) -> dict:
     return row
 
 
-def _denoiser_parts(data_root: str, n: int):
+def _make_ae(cfg):
+    """The stage-1 model in ``trainer.precision``'s compute dtype, as the denoiser trainer's
+    frozen encoder builds it."""
+    from puzzlefusion_plusplus_tpu_torch.models.denoiser import compute_dtype
+    from puzzlefusion_plusplus_tpu_torch.training.vqvae import make_model
+
+    return make_model(cfg).with_dtype(compute_dtype(cfg))
+
+
+def _denoiser_parts(data_root: str, n: int, precision: str = "fp32"):
     """(config without dropout, a batch of n train shapes, the frozen-encoder maker). The
     encoder is the seeded one with its codebook spread to unit scale, so that no code sits
     within float error of a tie (``training/parity.py``)."""
@@ -1277,15 +1316,15 @@ def _denoiser_parts(data_root: str, n: int):
     from puzzlefusion_plusplus_tpu_torch.data import DenoiserDataset, Loader
     from puzzlefusion_plusplus_tpu_torch.training import parity
     from puzzlefusion_plusplus_tpu_torch.training.denoiser import load_frozen_encoder
-    from puzzlefusion_plusplus_tpu_torch.training.vqvae import make_model as make_ae
 
     cfg = _denoiser_config(data_root, os.path.join(REPO, ".smoke", "denoiser_out"), "")
     cfg.denoiser.dropout = cfg.denoiser.pe_dropout = 0.0
+    cfg.trainer.precision = precision
     batch = next(iter(Loader(DenoiserDataset(cfg.data.data_dir, mode="train"), n,
                              shuffle=False)))
     ae = load_frozen_encoder(cfg, "cpu").model
     parity.spread_codebook(ae)
-    return cfg, batch, parity.encoder_maker(functools.partial(make_ae, cfg), ae.state_dict())
+    return cfg, batch, parity.encoder_maker(functools.partial(_make_ae, cfg), ae.state_dict())
 
 
 def phase_denoiser_parity(data_root: str) -> dict:
@@ -1986,6 +2025,121 @@ def phase_dp(train_root: str, den_root: str, ver_root: str, data_root: str,
     return {"launches": launches}
 
 
+BENCH_DATA = os.path.join(REPO, ".smoke", "bench_data")
+
+
+def start_bench_data():
+    """Make the bench's 32 shapes in a background process, so that phase 21 finds them."""
+    code = ("from puzzlefusion_plusplus_tpu_torch import bench; "
+            f"bench.ensure_data({BENCH_DATA!r})")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=REPO)
+
+
+def phase_bench(data_proc, engine_row: dict | None) -> dict:
+    """The port's benchmark entry in a subprocess at fp32, at bf16 and with --serving
+    (phase 21): one JSON line each, parsed, none suspect."""
+    import torch
+
+    t0 = time.perf_counter()
+    _check(data_proc.wait() == 0, "making the bench data failed")
+    torch.cuda.empty_cache()  # the bench runs in its own process on the same card
+    runs = {}
+    for name, env, args in (("fp32", {}, []), ("bf16", {"PFPP_BENCH_PRECISION": "bf16"}, []),
+                            ("serving", {"PFPP_BENCH_REPEATS": "1"}, ["--serving"])):
+        t1 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "puzzlefusion_plusplus_tpu_torch.bench", *args],
+            cwd=REPO, env={**os.environ, "PFPP_BENCH_DATA": BENCH_DATA, **env},
+            capture_output=True, text=True, timeout=600)
+        _check(out.returncode == 0, f"bench {name} failed:\n{out.stderr[-3000:]}")
+        line = json.loads(out.stdout.strip().splitlines()[-1])
+        _check(line["value"] > 0 and not line["extra"]["timing_suspect"],
+               f"bench {name}: {line}")
+        runs[name] = {**line, "process_s": time.perf_counter() - t1}
+    row = {"phase": "bench", "seconds": time.perf_counter() - t0, "runs": runs,
+           "fp32_assemblies_per_s": runs["fp32"]["value"],
+           "engine_phase_assemblies_per_s": engine_row and engine_row["assemblies_per_s"]}
+    emit(row)
+    return row
+
+
+def phase_bf16(den_root: str, data_root: str, vqvae_trained: bool,
+               fp32_row: dict | None, engine_row: dict | None) -> dict:
+    """trainer.precision=bf16 (phase 22): the full-width denoiser trainer for 6 steps, one
+    step on the card held to the CPU, the b8 engine batch; launch counts of the path."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from puzzlefusion_plusplus_tpu_torch import ops
+    from puzzlefusion_plusplus_tpu_torch.inference.run import build_engine_fn, run_inference
+    from puzzlefusion_plusplus_tpu_torch.training import parity
+    from puzzlefusion_plusplus_tpu_torch.training.denoiser import make_model, train
+
+    t0 = time.perf_counter()
+    out_dir = os.path.join(REPO, ".smoke", "denoiser_bf16_out")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cfg = _denoiser_config(den_root, out_dir, _vqvae_checkpoint(vqvae_trained))
+    cfg.trainer.precision = "bf16"
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()  # the bf16 path's run starts here
+    state = train(cfg, max_steps=6, device="cuda")
+    peak = torch.cuda.max_memory_allocated()
+    _check(state.model.dtype is torch.bfloat16, "the denoiser does not compute in bf16")
+    with open(os.path.join(out_dir, cfg.trainer.experiment_name, "denoiser",
+                           "metrics.jsonl")) as fh:
+        steps = [json.loads(line) for line in fh]
+    _check(len(steps) == 6 and all(np.isfinite(r["mse_loss"]) for r in steps),
+           f"bf16 steps: {steps}")
+    timed_s = steps[5]["wall_s"] - steps[0]["wall_s"]
+
+    ecfg = _full_config(data_root)
+    ecfg.trainer.precision = "bf16"
+    engine = build_engine_fn(ecfg, "cuda")
+    walls = []
+    for _ in range(2):  # the first warms up
+        t1 = time.perf_counter()
+        agg = run_inference(ecfg, engine=engine)
+        walls.append(time.perf_counter() - t1)
+    counts = ops.launch_counts()
+    _check(all(np.isfinite([agg[f"eval/{k}"] for k in ("part_acc", "shape_cd", "rmse_r",
+                                                         "rmse_t")])), f"bf16 engine: {agg}")
+    _check(all(counts[k] > 0 for k in BF16_KERNELS), f"a kernel never launched: {counts}")
+
+    t1 = time.perf_counter()
+    pcfg, batch, make_encoder = _denoiser_parts(den_root, 2, "bf16")
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(pcfg.trainer.seed)
+        sd = make_model(pcfg).state_dict()
+    gen = torch.Generator().manual_seed(2)
+    timesteps = torch.randint(0, 1000, (2,), generator=gen)
+    noise = torch.randn(batch["part_trans"].shape[:2] + (7,), generator=gen)
+    args = (lambda: make_model(pcfg), sd, make_encoder, batch)
+    gpu = parity.denoiser_step_on(*args, "cuda", timesteps, noise)
+    cpu = parity.denoiser_step_on(*args, "cpu", timesteps, noise)
+    errors = parity.compare(cpu, gpu, ("mse_loss",), parity.BF16)
+    row = {"phase": "bf16", "seconds": time.perf_counter() - t0,
+           "train": {"batch_shapes": DENOISER_BATCH, "timed_steps": 5,
+                     "steps_per_s": 5 / timed_s,
+                     "step_wall_s": [b["wall_s"] - a["wall_s"]
+                                     for a, b in zip(steps[:5], steps[1:])],
+                     "mse_loss": [r["mse_loss"] for r in steps],
+                     "max_memory_allocated_bytes": peak,
+                     "fp32_steps_per_s": fp32_row and fp32_row["steps_per_s"],
+                     "fp32_max_memory_allocated_bytes":
+                         fp32_row and fp32_row["max_memory_allocated_bytes"]},
+           "engine": {"wall_s_per_call": walls, "assemblies_per_s": agg["num_samples"] / walls[-1],
+                      "fp32_assemblies_per_s": engine_row and engine_row["assemblies_per_s"],
+                      **{k: agg[f"eval/{k}"] for k in ("part_acc", "shape_cd", "rmse_r",
+                                                        "rmse_t")}},
+           "parity": {"seconds": time.perf_counter() - t1, "loss_gpu": gpu["metrics"]["mse_loss"],
+                      "loss_cpu": cpu["metrics"]["mse_loss"], "errors": errors},
+           "launches": counts}
+    emit(row)
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,fps_shapes,engine,merge,profile,train,"
@@ -1993,7 +2147,7 @@ def main() -> int:
                                         "train_denoiser,denoiser_parity,profile_denoiser,"
                                         "verifier_gen,train_verifier,verifier_parity,serve,"
                                         "train_matching,matching_parity,profile_matching,"
-                                        "matching_gen,dp")
+                                        "matching_gen,dp,bench,bf16")
     phases = ap.parse_args().phases.split(",")
 
     import torch
@@ -2009,6 +2163,10 @@ def main() -> int:
     resolve_device("cuda")  # also turns TF32 off for the comparisons
     t_start = time.perf_counter()
     results: dict = {}
+    bench_data = start_bench_data() if "bench" in phases else None
+    if bench_data is not None:  # stopped if a phase fails before phase 21 waits for it
+        atexit.register(lambda: bench_data.poll() is None and bench_data.kill())
+    rows: dict = {}  # phases whose numbers later phases print beside their own
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
@@ -2017,7 +2175,7 @@ def main() -> int:
         phase_fps_shapes()
     launches = {}  # per path: the counts of its own run
     data_root = os.path.join(REPO, ".smoke", "chip_smoke_data")
-    if {"engine", "merge", "profile", "encoder_modes", "serve", "dp"} & set(phases):
+    if {"engine", "merge", "profile", "encoder_modes", "serve", "dp", "bf16"} & set(phases):
         t0 = time.perf_counter()
         generate_dataset(data_root, num_shapes=8, seed=7, split="val", min_parts=3,
                          max_parts=12)
@@ -2025,7 +2183,7 @@ def main() -> int:
     if "engine" in phases or "merge" in phases:
         ops.reset_launch_counts()  # phase_engine resets again after its warm-up call
         if "engine" in phases:
-            phase_engine(data_root)
+            rows["engine"] = phase_engine(data_root)
         if "merge" in phases:
             phase_merge(data_root)  # its GPU run closes the main path's run
         launches["inference"] = ops.launch_counts()
@@ -2050,15 +2208,15 @@ def main() -> int:
     if "encoder_modes" in phases:
         launches["encoder_modes"] = phase_encoder_modes(data_root)["launches"]
     den_root = os.path.join(REPO, ".smoke", "chip_smoke_denoiser_data")
-    if {"train_denoiser", "denoiser_parity", "profile_denoiser", "dp"} & set(phases):
+    if {"train_denoiser", "denoiser_parity", "profile_denoiser", "dp", "bf16"} & set(phases):
         t0 = time.perf_counter()
         for split, seed in (("train", 13), ("val", 14)):
             generate_dataset(den_root, num_shapes=DENOISER_SHAPES, seed=seed, split=split,
                              min_parts=3, max_parts=12)
         emit({"phase": "denoiser_data", "seconds": time.perf_counter() - t0})
         if "train_denoiser" in phases:
-            launches["train_denoiser"] = phase_train_denoiser(
-                den_root, "train" in phases)["launches"]
+            rows["train_denoiser"] = phase_train_denoiser(den_root, "train" in phases)
+            launches["train_denoiser"] = rows["train_denoiser"]["launches"]
         if "denoiser_parity" in phases:
             phase_denoiser_parity(den_root)
         if "profile_denoiser" in phases:
@@ -2106,6 +2264,11 @@ def main() -> int:
     if "dp" in phases:
         launches["dp"] = phase_dp(train_root, den_root, ver_root, data_root,
                                   match_root)["launches"]
+    if "bench" in phases:
+        phase_bench(bench_data, rows.get("engine"))
+    if "bf16" in phases:
+        launches["bf16"] = phase_bf16(den_root, data_root, "train" in phases,
+                                      rows.get("train_denoiser"), rows.get("engine"))["launches"]
 
     if results:
         rows = []

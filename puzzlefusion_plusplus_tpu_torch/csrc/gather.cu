@@ -35,6 +35,12 @@
 // there (fewer where the grid would leave SMs idle), because a warp's scattered 4-byte loads
 // of 12-byte rows cost L1 about one pass per row touched, and shared memory one bank access:
 // through L1 this path ran slower on the H100 than torch.gather, staged it runs faster.
+//
+// bfloat16 rows (the composable encode under trainer.precision=bf16 gathers bf16 features):
+// the copy needs no arithmetic, so pfpp_gather_bf16 launches the same rows kernel on
+// 16-byte units (8 bf16 values, the float4 instantiation) when C % 8 == 0 and both bases
+// are 16-byte aligned, else on 2-byte units (its unsigned short instantiation). No upcast:
+// the kernel moves the bf16 bytes and nothing more.
 #include <limits.h>
 
 #include "common.cuh"
@@ -196,6 +202,23 @@ PFPP_EXPORT int pfpp_gather(const float* points, const int* idx, float* out, int
   pfpp_gather_staged_kernel<<<grid, kWarps * 32, N * C * 4, (cudaStream_t)stream>>>(
       points, idx, out, B, N, R, V, reciprocal(V), span);
   return (int)cudaGetLastError();
+}
+
+// bf16 rows: vec != 0: 16-byte units of 8 values (C % 8 == 0 and 16-byte aligned bases,
+// else cudaErrorInvalidValue), else one 2-byte unit a value.
+PFPP_EXPORT int pfpp_gather_bf16(const void* points, const int* idx, void* out, int B, int N,
+                                 int R, int C, int vec, void* stream) {
+  if ((long long)B * R * C == 0) return 0;
+  const int V = vec ? C / 8 : C;
+  if (V > kMaxUnits) return (int)cudaErrorInvalidValue;
+  if (vec) {
+    if (C % 8 != 0 || ((uintptr_t)points | (uintptr_t)out) % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    return launch((const float4*)points, idx, (float4*)out, B, N, R, V,
+                  (cudaStream_t)stream);
+  }
+  return launch((const unsigned short*)points, idx, (unsigned short*)out, B, N, R, V,
+                (cudaStream_t)stream);
 }
 
 PFPP_EXPORT const char* pfpp_error_string(int code) {

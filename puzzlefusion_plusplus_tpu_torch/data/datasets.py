@@ -2,10 +2,11 @@
 
 Copies of ``VQVAEDataset``, ``DenoiserDataset`` (train, val and test modes),
 ``VerifierDataset`` and the helpers the matcher's dataset uses (``_recenter_pc``) from
-``puzzlefusion_plusplus_tpu/data/datasets.py``, with the per-part augmentation done in numpy
-(the numpy fallback of ``utils/native.py::augment_parts_cpu``). Rotations and the training
+``puzzlefusion_plusplus_tpu/data/datasets.py``, with the per-part augmentation in the native
+host core, as there (``utils/native.py::augment_parts_cpu``: the port's own build of the same
+C++ source, or its numpy fallback without a compiler). Rotations and the training
 curriculum's draws come in the reference rng order, so the same loader seed yields the same
-samples as the JAX package's datasets.
+samples as the JAX package's datasets, bit for bit when both run the native library.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 from scipy.spatial.transform import Rotation as R
 
 from puzzlefusion_plusplus_tpu_torch.models.scheduler import piecewise_betas
+from puzzlefusion_plusplus_tpu_torch.utils import native
 
 MAX_EDGES = 190  # 20 * 19 / 2: the upper triangle of the 20-part pad
 
@@ -30,15 +32,6 @@ def _draw_rotations(num: int, rng: np.random.Generator) -> tuple[np.ndarray, np.
         mats[i] = m
         quats[i] = R.from_matrix(m.T).as_quat()[[3, 0, 1, 2]]
     return mats, quats
-
-
-def _augment_parts(pcs: np.ndarray, rots: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """Recenter + rotate every part: [P, N, 3], [P, 3, 3] -> (out [P, N, 3], centroids)."""
-    pcs = np.ascontiguousarray(pcs, np.float32)
-    rots = np.ascontiguousarray(rots, np.float32)
-    centroids = pcs.mean(axis=1)
-    out = np.einsum("pij,pnj->pni", rots, pcs - centroids[:, None, :])
-    return out.astype(np.float32), centroids.astype(np.float32)
 
 
 def _pad(data: np.ndarray, n: int) -> np.ndarray:
@@ -102,7 +95,8 @@ class VQVAEDataset:
         s = self.data_list[idx]
         num_parts = int(s["num_parts"])
         rot_mats, _ = _draw_rotations(num_parts, rng)
-        pts, _ = _augment_parts(s["part_pcs_gt"][:num_parts], rot_mats)
+        pts, _, _ = native.augment_parts_cpu(s["part_pcs_gt"][:num_parts], rot_mats,
+                                            normalize=False)
         cur = _pad(pts, self.max_num_part)
         scale = np.max(np.abs(cur), axis=(1, 2), keepdims=True)
         scale[scale == 0] = 1
@@ -257,7 +251,8 @@ class DenoiserDataset:
 
         # per-part recenter + random rotation -> the GT 7-DoF pose
         rot_mats, quats = _draw_rotations(num_parts, rng)
-        pts, centroids = _augment_parts(part_pcs_final[:num_parts], rot_mats)
+        pts, centroids, _ = native.augment_parts_cpu(part_pcs_final[:num_parts], rot_mats,
+                                                     normalize=False)
         P = self.max_num_part
         cur_pts = _pad(pts, P)
         cur_quat = _pad(quats, P)

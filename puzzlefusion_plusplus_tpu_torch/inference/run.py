@@ -40,7 +40,7 @@ from puzzlefusion_plusplus_tpu_torch.inference.engine import (
     draw_noise,
 )
 from puzzlefusion_plusplus_tpu_torch.inference.sampler import FrozenEncoder
-from puzzlefusion_plusplus_tpu_torch.models.denoiser import make_denoiser
+from puzzlefusion_plusplus_tpu_torch.models.denoiser import compute_dtype, make_denoiser
 from puzzlefusion_plusplus_tpu_torch.models.scheduler import DDPMParams
 from puzzlefusion_plusplus_tpu_torch.models.verifier import VerifierTransformer
 from puzzlefusion_plusplus_tpu_torch.models.vqvae import VQVAE
@@ -60,23 +60,28 @@ METRIC_KEYS = ("part_acc", "part_acc_nonref", "shape_cd", "rmse_r", "rmse_t")
 def resolve_device(device: str | torch.device | None) -> torch.device:
     """``cuda`` unless the caller asks for the CPU; raises when CUDA is absent. Also turns
     TF32 off: the part_acc CD < 0.01 bar and the 1e-3 interpenetration cutoff sit close to
-    TF32's error, and the JAX reference computes in full float32."""
+    TF32's error, and the JAX reference computes in full float32. bf16 products accumulate
+    in fp32 (no reduced-precision split-K), as the JAX package's do."""
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' (--cpu on the "
                            "command line) to run on the CPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return device
 
 
 def make_models(cfg: Config):
     """(vqvae, denoiser, verifier) at cfg's widths, with weights drawn from trainer.seed and
-    then loaded from each checkpoint that cfg names (``load_model_state``)."""
+    then loaded from each checkpoint that cfg names (``load_model_state``). Under
+    ``trainer.precision=bf16`` the denoiser and the VQ-VAE's composable encode compute in
+    bf16 with fp32 parameters, as the JAX entry builds them; the engine's cached encode
+    (kernel S) keeps its fp32 folded weights, as on the TPU."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.trainer.seed)
         vqvae = VQVAE(cfg.ae.n_embeddings, cfg.ae.embedding_dim, cfg.ae.num_point,
-                      cfg.ae.num_dim, cfg.ae.local_decode_pts)
+                      cfg.ae.num_dim, cfg.ae.local_decode_pts).with_dtype(compute_dtype(cfg))
         denoiser = make_denoiser(cfg)
         verifier = VerifierTransformer(cfg.verifier.embed_dim, cfg.verifier.num_layers,
                                        cfg.verifier.num_heads, cfg.verifier.max_nodes,

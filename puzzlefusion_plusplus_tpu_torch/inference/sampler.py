@@ -13,6 +13,9 @@
 
 The JAX package honours the fused modes on a TPU only; here each kernel wrapper picks its
 kernel or its plain version by device, so every mode computes the same function on both.
+Under ``trainer.precision=bf16`` the VQ-VAE computes in bf16 (``VQVAE.with_dtype``), which
+reaches the composable encode only: kernels S and R take the fp32 folded weights, as the JAX
+package's fused encodes do.
 Per engine iteration ``build_feature_cache`` builds the rotation-invariant indices and
 grouped geometry once; ``extract_features`` encodes per step, from the cache or (training's
 single-shot encode) by rotating the clouds. ``ddpm_sample`` is the 20-step reverse loop.

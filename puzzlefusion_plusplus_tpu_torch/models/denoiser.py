@@ -9,6 +9,18 @@ Parameters carry the original repo's keys (``transformer_layers.{i}.norm1.emb``,
 ``convert/torch_ckpt.py::convert_denoiser`` reads. The attention masks are additive -1e9
 biases applied before a plain softmax, exactly as the JAX package builds them; a boolean
 mask through ``scaled_dot_product_attention`` would treat fully masked rows differently.
+
+``dtype=torch.bfloat16`` (``trainer.precision=bf16``) computes as the JAX model with
+``dtype=jnp.bfloat16`` does, module by module, with flax's casts and not autocast's op lists:
+every Dense and Embed casts its input and its fp32 parameters to bf16 and rounds the product
+and then the bias add to bf16; the LayerNorms and the softmax compute in fp32; the reference
+part's table and the last layer of each pose head have no dtype and stay fp32, so the
+residual stream stays fp32 while every Dense takes bf16 inputs (torch promotes bf16 + fp32 to
+fp32 as jnp does). Where the JAX model promotes a bf16 op's result to fp32 right away, XLA
+computes that op in fp32 and never rounds it (the scores q k^T, the bias add of a Dense whose
+output joins the residual stream, ``1 + scale`` of the AdaLN): the port does the same
+(``dense(..., promoted=True)``), and computes silu and gelu in bf16 op by op as XLA lowers
+them. The parameters, their gradients and the optimizer's state stay fp32.
 """
 
 from __future__ import annotations
@@ -22,32 +34,71 @@ from torch import nn
 from puzzlefusion_plusplus_tpu_torch.models.embeddings import nerf_embed, sinusoidal_table
 
 NEG_INF = -1e9
+SQRT_HALF_BF16 = 0.70703125  # sqrt(1/2) rounded to bf16, as jax.nn.gelu casts it
+
+
+def silu(x: torch.Tensor, promoted: bool = False) -> torch.Tensor:
+    """``F.silu``; in bf16 as XLA computes ``jax.nn.silu`` there, each op rounded to bf16:
+    x * (1 / (1 + exp(-x))), the last product in fp32 and returned so when ``promoted``."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    sig = 1 / (1 + torch.exp(-x))
+    return x.float() * sig.float() if promoted else x * sig
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact ``F.gelu``; in bf16 as XLA computes ``jax.nn.gelu(approximate=False)`` there:
+    (0.5 x) rounded, times erfc(-x sqrt(1/2)) evaluated in fp32 and rounded."""
+    if x.dtype == torch.float32:
+        return F.gelu(x)
+    return (0.5 * x) * torch.erfc(x.float() * -SQRT_HALF_BF16).to(x.dtype)
+
+
+def dense(x, layer: nn.Module, dtype: torch.dtype | None = None, promoted: bool = False):
+    """``layer(x)``, or with ``dtype`` as flax's ``nn.Dense(dtype=dtype)`` computes it over the
+    last axis: the input, kernel (an ``nn.Linear``'s, or a 1x1 conv's) and bias cast to
+    ``dtype``, the product rounded, then the bias added and rounded. ``promoted``: the JAX
+    model promotes the output to fp32 at once, so XLA adds the bias in fp32 and the result
+    stays fp32 (see the module note)."""
+    if dtype is None:
+        return layer(x)  # through the module, whose hooks tensor parallelism installs
+    y = F.linear(x.to(dtype), layer.weight.flatten(1).to(dtype))
+    if layer.bias is None:
+        return y.float() if promoted else y
+    b = layer.bias.to(dtype)
+    return y.float() + b.float() if promoted else y + b
 
 
 class AdaLayerNorm(nn.Module):
     """LayerNorm modulated by a learned per-timestep scale/shift."""
 
-    def __init__(self, dim: int, num_embeddings: int):
+    def __init__(self, dim: int, num_embeddings: int, dtype: torch.dtype | None = None):
         super().__init__()
+        self.dtype = dtype
         self.emb = nn.Embedding(num_embeddings, dim)
         self.linear = nn.Linear(dim, 2 * dim)
 
     def forward(self, x, timestep):
-        scale, shift = self.linear(F.silu(self.emb(timestep))).chunk(2, dim=-1)
-        x = F.layer_norm(x, x.shape[-1:], eps=1e-5)
-        return x * (1.0 + scale[:, None, :]) + shift[:, None, :]
+        dt = self.dtype
+        emb = self.emb(timestep) if dt is None else self.emb.weight.to(dt)[timestep]
+        scale, shift = dense(silu(emb), self.linear, dt).chunk(2, dim=-1)
+        x = F.layer_norm(x, x.shape[-1:], eps=1e-5)  # fp32 statistics, as flax's
+        return x * (1.0 + scale.float()[:, None, :]) + shift[:, None, :]
 
 
 def attention(q, k, v, heads: int, bias, dropout: float = 0.0):
     """q/k/v [B, T, C] -> [B, T, C]: softmax(q k^T / sqrt(hd) + bias) v per head, with
-    dropout of rate ``dropout`` on the probabilities (callers pass 0 outside training)."""
+    dropout of rate ``dropout`` on the probabilities (callers pass 0 outside training). The
+    scores and the softmax are fp32 whatever the inputs' dtype (XLA folds the JAX model's
+    upcast of its bf16 q k^T into the product, so the scores are never rounded to bf16); the
+    probabilities return to the inputs' dtype before the product with v."""
     B, T, C = q.shape
     hd = C // heads
     q, k, v = (t.reshape(B, T, heads, hd).transpose(1, 2) for t in (q, k, v))
-    scores = q @ k.transpose(-1, -2) / math.sqrt(hd)
+    scores = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(hd)
     if bias is not None:
         scores = scores + bias
-    probs = torch.softmax(scores, dim=-1)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
     if dropout:
         probs = F.dropout(probs, dropout, training=True)
     out = probs @ v
@@ -57,50 +108,56 @@ def attention(q, k, v, heads: int, bias, dropout: float = 0.0):
 class Attention(nn.Module):
     """diffusers-style attention: biasless q/k/v, biased out-projection ``to_out.0``."""
 
-    def __init__(self, dim: int, heads: int, dropout: float = 0.0):
+    def __init__(self, dim: int, heads: int, dropout: float = 0.0,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.heads = heads
+        self.heads, self.dtype = heads, dtype
         self.to_q = nn.Linear(dim, dim, bias=False)
         self.to_k = nn.Linear(dim, dim, bias=False)
         self.to_v = nn.Linear(dim, dim, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(dim, dim), nn.Dropout(dropout)])
 
     def forward(self, x, bias):
-        out = attention(self.to_q(x), self.to_k(x), self.to_v(x), self.heads, bias)
-        return self.to_out[1](self.to_out[0](out))
+        q, k, v = (dense(x, lin, self.dtype) for lin in (self.to_q, self.to_k, self.to_v))
+        out = attention(q, k, v, self.heads, bias)
+        return self.to_out[1](dense(out, self.to_out[0], self.dtype, promoted=True))
 
 
 class GEGLU(nn.Module):
-    def __init__(self, dim: int, inner: int):
+    def __init__(self, dim: int, inner: int, dtype: torch.dtype | None = None):
         super().__init__()
+        self.dtype = dtype
         self.proj = nn.Linear(dim, 2 * inner)
 
     def forward(self, x):
-        h, gate = self.proj(x).chunk(2, dim=-1)
-        return h * F.gelu(gate)
+        h, gate = dense(x, self.proj, self.dtype).chunk(2, dim=-1)
+        return h * gelu(gate)
 
 
 class FeedForward(nn.Module):
-    def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0):
+    def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Dropout(dropout),
+        self.dtype = dtype
+        self.net = nn.ModuleList([GEGLU(dim, dim * mult, dtype), nn.Dropout(dropout),
                                   nn.Linear(dim * mult, dim)])
 
     def forward(self, x):
-        return self.net[2](self.net[1](self.net[0](x)))
+        return dense(self.net[1](self.net[0](x)), self.net[2], self.dtype, promoted=True)
 
 
 class EncoderLayer(nn.Module):
     """AdaLN -> part-local attention -> AdaLN -> global attention -> LN -> GEGLU FF."""
 
-    def __init__(self, dim: int, heads: int, num_ada: int, dropout: float = 0.0):
+    def __init__(self, dim: int, heads: int, num_ada: int, dropout: float = 0.0,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.norm1 = AdaLayerNorm(dim, num_ada)
-        self.self_attn = Attention(dim, heads, dropout)
-        self.norm2 = AdaLayerNorm(dim, num_ada)
-        self.global_attn = Attention(dim, heads, dropout)
+        self.norm1 = AdaLayerNorm(dim, num_ada, dtype)
+        self.self_attn = Attention(dim, heads, dropout, dtype)
+        self.norm2 = AdaLayerNorm(dim, num_ada, dtype)
+        self.global_attn = Attention(dim, heads, dropout, dtype)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
-        self.ff = FeedForward(dim, dropout=dropout)
+        self.ff = FeedForward(dim, dropout=dropout, dtype=dtype)
 
     def forward(self, x, self_bias, gen_bias, timestep):
         x = x + self.self_attn(self.norm1(x, timestep), self_bias)
@@ -125,13 +182,17 @@ class DenoiserTransformer(nn.Module):
         num_ada_embeds: int = 3072,
         dropout: float = 0.2,
         pe_dropout: float = 0.1,
+        dtype: torch.dtype | None = None,
     ):
+        """``dtype``: the compute dtype (``torch.bfloat16`` for ``trainer.precision=bf16``,
+        None for fp32); the parameters stay fp32 either way."""
         super().__init__()
         self.embed_dim = embed_dim
         self.multires = multires
-        self.ref_part_emb = nn.Embedding(2, embed_dim)
+        self.dtype = dtype
+        self.ref_part_emb = nn.Embedding(2, embed_dim)  # no dtype in the JAX model: fp32
         self.transformer_layers = nn.ModuleList(
-            [EncoderLayer(embed_dim, num_heads, num_ada_embeds, dropout)
+            [EncoderLayer(embed_dim, num_heads, num_ada_embeds, dropout, dtype)
              for _ in range(num_layers)]
         )
         self.pe_dropout = nn.Dropout(pe_dropout)
@@ -151,9 +212,11 @@ class DenoiserTransformer(nn.Module):
         C, T = self.embed_dim, P * L
         scale_emb = nerf_embed(scale, self.multires)[:, :, None, :].expand(B, P, L, -1)
         xyz_emb = nerf_embed(xyz, self.multires)
-        shape_emb = self.shape_embedding(torch.cat([latent, xyz_emb, scale_emb], dim=-1))
-        x_emb = self.param_fc(nerf_embed(x, self.multires))
-        x_emb = x_emb + self.ref_part_emb.weight[ref_part.long()]
+        dt = self.dtype
+        shape_emb = dense(torch.cat([latent, xyz_emb, scale_emb], dim=-1), self.shape_embedding,
+                          dt, promoted=True)
+        x_emb = dense(nerf_embed(x, self.multires), self.param_fc, dt, promoted=True)
+        x_emb = x_emb + self.ref_part_emb.weight[ref_part.long()]  # fp32 from here on
         data = x_emb[:, :, None, :] + shape_emb + self.pe[:P][None, :, None, :]
         data = self.pe_dropout(data).reshape(B, T, C)
 
@@ -166,17 +229,33 @@ class DenoiserTransformer(nn.Module):
         for layer in self.transformer_layers:
             data = layer(data, self_bias, gen_bias, timesteps)
 
-        out = data.reshape(B, P, L, C).mean(dim=2)
-        return torch.cat([self.mlp_out_trans(out), self.mlp_out_rot(out)], dim=-1)
+        out = data.reshape(B, P, L, C).mean(dim=2).float()
+        return torch.cat([self._head(self.mlp_out_trans, out), self._head(self.mlp_out_rot, out)],
+                         dim=-1)
+
+    def _head(self, head: nn.Sequential, x):
+        """A pose head; with a compute dtype its first two layers run in it and the last in
+        fp32 (it has no dtype in the JAX model), so the poses come out fp32."""
+        if self.dtype is None:
+            return head(x)
+        x = silu(dense(silu(dense(x, head[0], self.dtype)), head[2], self.dtype), promoted=True)
+        return head[4](x)
+
+
+def compute_dtype(cfg) -> torch.dtype | None:
+    """The denoiser's and the frozen encoder's compute dtype under ``trainer.precision``:
+    bfloat16 for "bf16", else None (fp32), as the JAX package reads the key."""
+    return torch.bfloat16 if cfg.trainer.precision == "bf16" else None
 
 
 def make_denoiser(cfg) -> DenoiserTransformer:
-    """The denoiser at a ``Config``'s widths. The AdaLN tables have the reference's
-    6 * embed_dim rows (3072 at width 512, the released checkpoints' size), and at least one
-    per training timestep, so that small test widths still index every timestep."""
+    """The denoiser at a ``Config``'s widths and ``trainer.precision``. The AdaLN tables have
+    the reference's 6 * embed_dim rows (3072 at width 512, the released checkpoints' size),
+    and at least one per training timestep, so that small test widths still index every
+    timestep."""
     d = cfg.denoiser
     return DenoiserTransformer(
         d.embed_dim, d.num_layers, d.num_heads, d.num_dim, cfg.data.max_num_part, d.multires,
         num_ada_embeds=max(6 * d.embed_dim, d.ddpm_train_steps), dropout=d.dropout,
-        pe_dropout=d.pe_dropout,
+        pe_dropout=d.pe_dropout, dtype=compute_dtype(cfg),
     )

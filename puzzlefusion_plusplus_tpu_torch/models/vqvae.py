@@ -9,6 +9,14 @@ channel-last, [M, S, K, C], as in the JAX package; each 1x1 conv runs as a linea
 Two uses: ``forward`` is the training model (train-mode ``MaskedBatchNorm``, the quantizer's
 losses, the decoder), and ``folded_weights`` feeds the inference encoder
 (``inference/sampler.py::FrozenEncoder``), which folds eval-mode BatchNorm into the weights.
+
+``with_dtype(torch.bfloat16)`` is the JAX package's ``ae.clone(dtype=jnp.bfloat16)``, the
+frozen encoder of ``trainer.precision=bf16``: each SA conv, conv6, fc1 and fc2 computes as
+flax's ``nn.Dense(dtype=bf16)`` (``models/denoiser.py::dense``; the convs' outputs go straight
+into fp32, into BatchNorm or the code selection, so they are ``promoted``), each BatchNorm in
+fp32 returning bf16, fc3 in fp32; the code selection stays fp32. It
+reaches the composable encode only: kernels S and R take the fp32 folded weights, as the JAX
+package's fused encodes do.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from puzzlefusion_plusplus_tpu_torch.models.denoiser import dense
 from puzzlefusion_plusplus_tpu_torch.ops.fps import farthest_point_sample
 from puzzlefusion_plusplus_tpu_torch.ops.grouping import (
     index_points,
@@ -93,12 +102,16 @@ class MaskedBatchNorm(nn.BatchNorm2d):
     optional per-sample weights for the batch statistics (``MaskedBatchNorm`` of the JAX
     package): compaction repeats get weight 0, so the statistics are those of the valid
     parts. The running statistics move as ``0.9 old + 0.1 batch`` with the biased batch
-    variance. Keeps BatchNorm2d's parameters and buffers under their names."""
+    variance. Keeps BatchNorm2d's parameters and buffers under their names. It computes in
+    fp32 and returns ``dtype`` (the compute dtype), or the input's dtype when that is None."""
 
     update_stats = True  # off while a checkpointed stage recomputes its forward
     group = None  # the ranks whose batch the statistics cover (``VQVAE.reduce_over``)
+    dtype = None
 
     def forward(self, x: torch.Tensor, weights: torch.Tensor | None = None) -> torch.Tensor:
+        out_dtype = self.dtype or x.dtype
+        x = x.float()
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
@@ -121,12 +134,22 @@ class MaskedBatchNorm(nn.BatchNorm2d):
                     self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
                     self.num_batches_tracked.add_(1)
         y = (x - mean) * torch.rsqrt(var + self.eps)
-        return y * self.weight + self.bias
+        return (y * self.weight + self.bias).to(out_dtype)
+
+
+def _conv(x: torch.Tensor, conv: nn.Module, dtype: torch.dtype | None) -> torch.Tensor:
+    """A 1x1 conv as a linear layer over the last axis; with ``dtype`` as ``dense`` computes
+    it, promoted (a BatchNorm or the code selection takes the output in fp32)."""
+    if dtype is None:
+        return F.linear(x, conv.weight.flatten(1), conv.bias)
+    return dense(x, conv, dtype, promoted=True)
 
 
 class SetAbstraction(nn.Module):
     """One PointNet++ SSG stage: FPS, ball query, recentred grouping (features through
     kernel A), three 1x1 convs each with BatchNorm and ReLU, max over the neighbourhood."""
+
+    dtype = None  # the compute dtype (``VQVAE.with_dtype``)
 
     def __init__(self, cin: int, mlp: Sequence[int], npoint: int, radius: float, nsample: int):
         super().__init__()
@@ -160,18 +183,27 @@ class SetAbstraction(nn.Module):
             grouped_xyz = index_points(xyz, group_idx) - new_xyz[:, :, None, :]
         # conv0 sees cat(grouped_xyz, grouped_feats); the features go through kernel A
         feats = None if points is None else index_points_matmul_safe(points, group_idx)
-        conv0 = self.mlp_convs[0]
+        conv0, dt = self.mlp_convs[0], self.dtype
         w0 = conv0.weight.flatten(1)  # [C, 3 + D]
-        if geom is not None and rot is not None:
+        if geom is not None and rot is not None and dt is None:
             w_eff = torch.einsum("bed,ce->bdc", rot, w0[:, :3])  # R^T K_xyz, [B, 3, C]
             h = torch.einsum("bskd,bdc->bskc", grouped_xyz, w_eff)
             h = h + (conv0.bias if feats is None else F.linear(feats, w0[:, 3:], conv0.bias))
+        elif geom is not None and rot is not None:
+            # as the JAX module: R^T K_xyz = conv0(R^T rows) - conv0(0) (conv0 in dt, the
+            # difference promoted by the fp32 product with the geometry), plus conv0 of the
+            # features (promoted)
+            b = conv0.bias.to(dt)
+            w_eff = torch.einsum("bed,ce->bdc", rot.to(dt), w0[:, :3].to(dt)) + b
+            h = torch.einsum("bskd,bdc->bskc", grouped_xyz, w_eff.float() - b.float())
+            h = h + (b.float() if feats is None else
+                     F.linear(feats.to(dt), w0[:, 3:].to(dt)).float() + b.float())
         else:
             h = grouped_xyz if feats is None else torch.cat([grouped_xyz, feats], dim=-1)
-            h = F.linear(h, w0, conv0.bias)
+            h = _conv(h, conv0, dt)
         for j, (conv, bn) in enumerate(zip(self.mlp_convs, self.mlp_bns)):
             if j:
-                h = F.linear(h, conv.weight.flatten(1), conv.bias)
+                h = _conv(h, conv, dt)
             h = torch.relu(bn(h, bn_mask))
         return new_xyz, h.amax(dim=2)
 
@@ -186,6 +218,7 @@ class PN2(nn.Module):
                  sa_nsamples: Sequence[int] = (32, 64, 64), remat: bool = True):
         super().__init__()
         self.num_point, self.local_decode_pts, self.remat = num_point, local_decode_pts, remat
+        self.dtype = None
         npoints = (sa_npoints[0], sa_npoints[1], num_point)
         cins = (3, SA_MLPS[0][-1] + 3, SA_MLPS[1][-1] + 3)
         for i, name in enumerate(("sa1", "sa2", "sa3")):
@@ -212,12 +245,12 @@ class PN2(nn.Module):
         l1_xyz, l1 = self._stage(self.sa1, xyz, None, bn_mask, i1, g1, rot)
         l2_xyz, l2 = self._stage(self.sa2, l1_xyz, l1, bn_mask, i2, g2, rot)
         l3_xyz, l3 = self._stage(self.sa3, l2_xyz, l2, bn_mask, i3, g3, rot)
-        return F.linear(l3, self.conv6.weight.flatten(1), self.conv6.bias), l3_xyz
+        return _conv(l3, self.conv6, self.dtype), l3_xyz
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
-        """[B, L, C] -> per-token point offsets [B, L, local_decode_pts, 3]."""
-        x = torch.relu(self.fc2(torch.relu(self.fc1(z))))
-        return self.fc3(x).reshape(z.shape[0], self.num_point, self.local_decode_pts, 3)
+        """[B, L, C] -> per-token point offsets [B, L, local_decode_pts, 3] (fc3 in fp32)."""
+        x = torch.relu(dense(torch.relu(dense(z, self.fc1, self.dtype)), self.fc2, self.dtype))
+        return self.fc3(x.float()).reshape(z.shape[0], self.num_point, self.local_decode_pts, 3)
 
 
 class VectorQuantizer(nn.Module):
@@ -281,6 +314,14 @@ class VQVAE(nn.Module):
         self.pn2 = PN2(num_point, num_dim, local_decode_pts, sa_npoints, sa_nsamples, remat)
         self.vector_quantization = VectorQuantizer(n_embeddings, embedding_dim, beta)
 
+    def with_dtype(self, dtype: torch.dtype | None) -> "VQVAE":
+        """Compute in ``dtype`` (None: fp32), the parameters kept fp32 (the module note)."""
+        self.pn2.dtype = dtype
+        for m in self.modules():
+            if isinstance(m, (SetAbstraction, MaskedBatchNorm)):
+                m.dtype = dtype
+        return self
+
     def reduce_over(self, group) -> "VQVAE":
         """Compute the batch statistics (train-mode BatchNorm's, the quantizer's loss count
         and perplexity) over the batch of ``group``'s ranks, as a data-parallel trainer asks
@@ -295,6 +336,7 @@ class VQVAE(nn.Module):
         {0,1}: sample validity for the quantizer losses and, in training mode, the
         BatchNorm statistics (compaction repeats carry weight 0)."""
         z_e, xyz = self.pn2.encode(part_pcs, mask if self.training else None)
+        z_e = z_e.float()  # the code selection does not depend on the compute dtype
         B, L, _ = z_e.shape
         loss, z_q, perplexity, codes = self.vector_quantization(z_e.reshape(B, 4 * L, -1), mask)
         z_q = z_q.reshape(B, L, -1)
@@ -308,8 +350,9 @@ class VQVAE(nn.Module):
         in fp32), token centres xyz [B, L, 3] and the unquantized z_e. The cached arguments
         are ``PN2.encode``'s."""
         z_e, xyz = self.pn2.encode(part_pcs, None, cached_idx, cached_geom, rot)
+        z_e = z_e.float()  # the code selection does not depend on the compute dtype
         B, L, _ = z_e.shape
-        codes = self.vector_quantization.nearest(z_e.float().reshape(B, 4 * L, -1))
+        codes = self.vector_quantization.nearest(z_e.reshape(B, 4 * L, -1))
         z_q = self.vector_quantization.embedding.weight[codes].reshape(B, L, -1)
         return {"z_q": z_q, "xyz": xyz, "z_e": z_e}
 

@@ -27,6 +27,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "gather": {
         "pfpp_gather": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "pfpp_gather_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
         "pfpp_error_string": [_I],
     },
     "fps": {

@@ -18,6 +18,10 @@ forward and backward code on both devices: the kernels on CUDA tensors, the plai
 on CPU tensors. Where no gradient can flow (grad mode off, or points that need none, as in
 the engine and the frozen encoder) the gathers launch without ``autograd.Function``.
 
+G and A take float32 or bfloat16 points (the frozen encoder's composable encode under
+``trainer.precision=bf16`` gathers bf16 features): the kernel copies bytes, so bf16 rows go
+through the same kernel on 16-byte or 2-byte units, never upcast. B takes float32 only.
+
 The wrappers choose G's unit width (``gather_width``) and B's route (``scatter_fused``),
 both pure functions tested on the CPU; ``_launch_gather`` and ``_launch_scatter_add`` are
 the bare launches on buffers made beforehand, which ``chip_smoke.py`` times apart from the
@@ -52,11 +56,15 @@ SCATTER_MAX_N = 58112  # kernel B counts a cloud's n keys in 227 KB of shared me
 SCATTER_FUSED_FLOATS = 8192  # a cloud's g up to this size takes kernel B's one-launch route
 
 
-def gather_width(C: int, points_ptr: int) -> int:
-    """Floats a unit of kernel G moves: 4 (float4 loads and stores) when a row is whole
-    float4s and the source is 16-byte aligned (outputs come from ``torch.empty``, which
-    aligns them), else 1 (a view at an odd storage offset takes the scalar path)."""
-    return 4 if C % 4 == 0 and points_ptr % 16 == 0 else 1
+GATHER_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def gather_width(C: int, points_ptr: int, elem_bytes: int = 4) -> int:
+    """Values a unit of kernel G moves: a 16-byte unit (4 floats, or 8 bf16 values) when a row
+    is whole units and the source is 16-byte aligned (outputs come from ``torch.empty``,
+    which aligns them), else 1 (a view at an odd storage offset takes the scalar path)."""
+    per_unit = 16 // elem_bytes
+    return per_unit if C % per_unit == 0 and points_ptr % 16 == 0 else 1
 
 
 def _flat_idx(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -66,17 +74,18 @@ def _flat_idx(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _launch_gather(points: torch.Tensor, flat: torch.Tensor, out: torch.Tensor) -> None:
-    """Kernel G's bare launch: points [B, N, C] f32, flat [B, R] int32, out [B, R, C], all
-    contiguous on the card (checked by the caller)."""
+    """Kernel G's bare launch: points [B, N, C] f32 or bf16, flat [B, R] int32, out
+    [B, R, C] of the points' dtype, all contiguous on the card (checked by the caller)."""
     B, N, C = points.shape
-    width = gather_width(C, points.data_ptr())
+    width = gather_width(C, points.data_ptr(), points.element_size())
     if C // width > GATHER_MAX_ROW_UNITS:
         raise ValueError(f"kernel G takes rows of at most {GATHER_MAX_ROW_UNITS} units, "
                          f"got C = {C}")
+    fn = "pfpp_gather" if points.dtype == torch.float32 else "pfpp_gather_bf16"
     cuda_build.check(
-        cuda_build.function("gather", "pfpp_gather")(
+        cuda_build.function("gather", fn)(
             points.data_ptr(), flat.data_ptr(), out.data_ptr(), B, N, flat.shape[1], C,
-            width == 4, cuda_build.stream_ptr(points)),
+            width > 1, cuda_build.stream_ptr(points)),
         "gather_points",
     )
 
@@ -87,7 +96,9 @@ def _gather_forward(points: torch.Tensor, idx: torch.Tensor, approx: bool) -> to
     if points.device.type == "cpu":
         return gather_points_plain(points, idx)
     flat = _flat_idx(points, idx)
-    cuda_build.require(points, "points", torch.float32, 3)
+    if points.dtype not in GATHER_DTYPES:
+        raise TypeError(f"points must be float32 or bfloat16, got {points.dtype}")
+    cuda_build.require(points, "points", points.dtype, 3)
     B, N, C = points.shape
     out = torch.empty((B, flat.shape[1], C), dtype=points.dtype, device=points.device)
     _launch_gather(points, flat, out)
@@ -174,7 +185,7 @@ def _gather(points: torch.Tensor, idx: torch.Tensor, approx: bool) -> torch.Tens
 
 
 def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """points [B, N, C] f32, idx [B, ...] int -> [B, ..., C]; kernel G on CUDA tensors,
+    """points [B, N, C] f32 or bf16, idx [B, ...] int -> [B, ..., C]; kernel G on CUDA tensors,
     differentiable in ``points`` (kernel B). Indices must lie in [0, N): the kernel does not
     check them (that would cost a sync)."""
     return _gather(points, idx, False)

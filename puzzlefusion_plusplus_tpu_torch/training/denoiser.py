@@ -15,6 +15,11 @@ denoiser/model/denoiser.py):
 * validation: the 20-step reverse loop (kernel S) and the assembly metrics; top-k
   checkpoints on ``eval_part_acc`` ranked on a trailing mean (``trainer.ckpt_smooth_k``).
 * optimizer: AdamW lr 2e-4, betas (0.95, 0.999), weight decay 1e-6.
+* ``trainer.precision=bf16``: the denoiser computes in bf16 (``models/denoiser.py``) and the
+  frozen encoder's composable encode too (``models/vqvae.py``); with
+  ``denoiser.train_encode_cached`` and in validation, kernel S keeps its fp32 weights, as the
+  JAX package's fused-cached encode does on a TPU. Parameters, gradients and AdamW's state
+  stay fp32.
 
 The stage-1 encoder comes from a checkpoint of ``training.vqvae`` (the port's format), or is
 untrained and seeded when no path is given.
@@ -44,7 +49,7 @@ from puzzlefusion_plusplus_tpu_torch.inference.sampler import (
     extract_features,
     make_frozen_encoder,
 )
-from puzzlefusion_plusplus_tpu_torch.models.denoiser import DenoiserTransformer
+from puzzlefusion_plusplus_tpu_torch.models.denoiser import DenoiserTransformer, compute_dtype
 from puzzlefusion_plusplus_tpu_torch.models.denoiser import make_denoiser as make_model
 from puzzlefusion_plusplus_tpu_torch.models.scheduler import (
     DDPMParams,
@@ -168,23 +173,16 @@ def eval_metrics(final: torch.Tensor, batch: dict) -> dict:
     return {k: m[k] for k in EVAL_KEYS}
 
 
-def require_fp32(cfg: Config) -> None:
-    """The port trains in fp32 only: refuse ``trainer.precision`` rather than ignore it."""
-    if cfg.trainer.precision != "fp32":
-        raise NotImplementedError(
-            f"trainer.precision={cfg.trainer.precision!r} is not supported by the port yet; "
-            "only trainer.precision=fp32 trains")
-
-
 def load_frozen_encoder(cfg: Config, device) -> FrozenEncoder:
     """The stage-1 VQ-VAE from ``denoiser.encoder_ckpt_path`` (a ``training.vqvae``
     checkpoint: a ``step_N`` dir, a ckpt dir for its best, or ``.../best`` / ``.../latest``;
     or an original-repo Lightning file, ``training/state.py::load_model_state``), or
-    untrained from seed 0 when no path is given. fp32 only (``require_fp32``)."""
-    require_fp32(cfg)
+    untrained from seed 0 when no path is given. Under ``trainer.precision=bf16`` it
+    computes in bf16 (``VQVAE.with_dtype``: the composable encode; kernels S and R keep
+    their fp32 folded weights, as the JAX package's fused encodes do)."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
-        ae = make_ae_model(cfg)
+        ae = make_ae_model(cfg).with_dtype(compute_dtype(cfg))
     if cfg.denoiser.encoder_ckpt_path:
         ae.load_state_dict(load_model_state(cfg.denoiser.encoder_ckpt_path, "vqvae"))
     return make_frozen_encoder(ae.to(device))
@@ -235,10 +233,9 @@ def train(cfg: Config, max_steps: int | None = None, device=None,
           join_timeout_s: float | None = None) -> TrainState:
     """Train from a seeded init (or resume), validating every ``denoiser.val_every`` epochs
     and keeping the top-k checkpoints by eval part accuracy; ``max_steps`` stops early with
-    a checkpoint. Runs on ``cuda`` unless ``device="cpu"``, fp32 only (``require_fp32``),
-    on ``trainer.num_devices`` (``training.vqvae.train`` says how); a producer thread builds
-    the next batch meanwhile."""
-    require_fp32(cfg)
+    a checkpoint. Runs on ``cuda`` unless ``device="cpu"``, in ``trainer.precision``
+    (``models/denoiser.py::compute_dtype``), on ``trainer.num_devices``
+    (``training.vqvae.train`` says how); a producer thread builds the next batch meanwhile."""
     device = resolve_device(device)
     out_dir = f"{cfg.trainer.output_dir}/{cfg.trainer.experiment_name}/denoiser"
     spawned = launch.entry(launch.discard_result, (train, cfg, max_steps, device),

@@ -12,7 +12,8 @@ trains on the GPU (``--cpu`` for the CPU), with the JAX package's config keys. S
   checkpoints on ``val_cls_acc`` (mode max), validation every ``trainer.ckpt_every_epochs``
   and at the last epoch; auto-resume from ``verifier.ckpt_path`` or the latest checkpoint.
 
-fp32 only (``trainer.precision`` set otherwise raises). ``trainer.num_devices`` above 1
+In fp32 under any ``trainer.precision``: the JAX verifier trainer reads no precision key.
+``trainer.num_devices`` above 1
 trains data-parallel (``parallel/``, as ``training.vqvae``): the loss is normalised by the
 global count of valid edges, and accuracy, precision, recall and F1 come from the ranks'
 summed tp/fp/fn/tn counts.
@@ -29,7 +30,6 @@ from puzzlefusion_plusplus_tpu_torch.data.datasets import VerifierDataset
 from puzzlefusion_plusplus_tpu_torch.data.loader import Loader, prefetch_batches
 from puzzlefusion_plusplus_tpu_torch.inference.run import resolve_device
 from puzzlefusion_plusplus_tpu_torch.models.verifier import VerifierTransformer
-from puzzlefusion_plusplus_tpu_torch.training.denoiser import require_fp32
 from puzzlefusion_plusplus_tpu_torch.parallel import launch, mesh
 from puzzlefusion_plusplus_tpu_torch.training.state import (
     MetricsLogger,
@@ -129,7 +129,6 @@ def train(cfg: Config, max_steps: int | None = None, device=None,
     val cls_acc; ``max_steps`` stops early with a checkpoint. Runs on ``cuda`` unless
     ``device="cpu"``, on ``trainer.num_devices`` (``training.vqvae.train`` says how); a
     producer thread builds the next batch meanwhile."""
-    require_fp32(cfg)
     device = resolve_device(device)
     out_dir = f"{cfg.trainer.output_dir}/{cfg.trainer.experiment_name}/verifier"
     spawned = launch.entry(launch.discard_result, (train, cfg, max_steps, device),

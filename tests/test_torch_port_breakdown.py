@@ -1,10 +1,11 @@
-"""The port's inference breakdown records and its refusal of a training precision it lacks.
+"""The port's inference breakdown records, and its denoiser trainer under bf16.
 
 ``inference.save_breakdown`` writes one ``breakdown.jsonl`` record per shape; the records
 must equal the JAX package's on the same batch and results: ``data_id``, ``num_parts``,
 ``acc_per_part``, ``ref_part``, ``n_merged_pairs`` and ``n_iters`` exact, ``part_acc`` and
 ``part_acc_nonref`` within 1e-4, ``part_scale`` rounded to 5 digits by both.
-``trainer.precision`` other than fp32 raises in the denoiser trainer until bf16 is ported."""
+The denoiser trainer once refused ``trainer.precision`` other than fp32; it now trains under
+bf16 as the JAX package does (``tests/test_torch_port_bf16.py`` holds the numbers)."""
 
 import json
 import os
@@ -109,12 +110,27 @@ def test_run_inference_writes_one_breakdown_record_per_shape(tmp_path):
 
 
 @pytest.mark.parametrize("entry", ["train", "load_frozen_encoder"])
-def test_denoiser_trainer_refuses_precision_other_than_fp32(entry):
+def test_denoiser_trainer_refuses_precision_other_than_fp32(entry, tmp_path):
+    """(Named from when it refused.) Under ``trainer.precision=bf16`` the denoiser trainer
+    builds the bf16 denoiser and the bf16 frozen encoder and trains, the parameters fp32;
+    the encoder's kernel-S weights stay fp32. Under fp32 both compute in fp32."""
     cfg = R.Config()
     cfg.trainer.precision = "bf16"
-    call = {"train": lambda: ttrain.train(cfg, device="cpu"),
-            "load_frozen_encoder": lambda: ttrain.load_frozen_encoder(cfg, "cpu")}[entry]
-    with pytest.raises(NotImplementedError, match="trainer.precision"):
-        call()
-    cfg.trainer.precision = "fp32"
-    ttrain.require_fp32(cfg)  # the fp32 path goes on
+    if entry == "load_frozen_encoder":
+        enc = ttrain.load_frozen_encoder(cfg, "cpu")
+        assert enc.model.pn2.dtype is torch.bfloat16
+        assert all(p.dtype == torch.float32 for p in enc.model.parameters())
+        assert all(w.dtype == torch.float32 for layer in enc.w["sa1"] for w in layer)
+        cfg.trainer.precision = "fp32"
+        assert ttrain.load_frozen_encoder(cfg, "cpu").model.pn2.dtype is None
+        return
+    root = str(tmp_path)
+    generate_dataset(root, num_shapes=2, seed=11, split="train", min_parts=2, max_parts=4,
+                     n_points=1000)
+    cfg.data.data_dir = cfg.data.data_val_dir = root + "/pc_data/train"
+    cfg.data.batch_size, cfg.data.max_num_part = 2, 4
+    cfg.denoiser.embed_dim, cfg.denoiser.num_layers, cfg.denoiser.num_heads = 32, 1, 2
+    cfg.trainer.output_dir = root + "/out"
+    state = ttrain.train(cfg, max_steps=1, device="cpu")
+    assert state.step == 1 and state.model.dtype is torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in state.model.parameters())

@@ -146,6 +146,28 @@ def test_gather_kernel_paths_on_card(dev, B, N, C, shape):
     assert ops.launch_counts()["G"] == 2
 
 
+@pytest.mark.parametrize("B,N,C,shape", [
+    (3, 50, 1, (37,)),          # one-value rows: 2-byte units
+    (3, 40, 12, (7, 5)),        # rows that are not whole 16-byte units
+    (2, 30, 8, (35,)),          # one 16-byte unit a row
+    (4, 256, 128, (128, 64)),   # SA2's feature gather at M = 4
+    (4, 128, 256, (25, 64)),    # SA3's
+])
+def test_gather_kernel_takes_bf16_rows_on_card(dev, B, N, C, shape):
+    """Kernels G and A on bf16 points: the same kernel on 16-byte units (8 values) where a
+    row is whole units, else 2-byte units; exact against the plain version, counted."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    pts = torch.randn((B, N, C), generator=g, device=dev).bfloat16()
+    idx = torch.randint(0, N, (B,) + shape, generator=g, device=dev, dtype=torch.int32)
+    assert tga.gather_width(C, pts.data_ptr(), 2) == (8 if C % 8 == 0 else 1)
+    ops.reset_launch_counts()
+    for fn in (tga.gather_points, tga.gather_points_approx):
+        out = fn(pts, idx)
+        assert out.dtype == torch.bfloat16
+        assert torch.equal(out, tga.gather_points_plain(pts, idx))
+    assert ops.launch_counts()["G"] == 1 and ops.launch_counts()["A"] == 1
+
+
 def test_gather_of_an_unaligned_view_takes_the_scalar_path(dev):
     """A points view one float into its storage is not 16-byte aligned: the wrapper picks
     one-float units, and the launch refuses a float4 request on it."""

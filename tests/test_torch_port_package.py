@@ -40,6 +40,11 @@ def test_port_imports_no_jax():
         "'model', 'ops', 'oracle', 'sinkhorn', 'train'}\n"
         "assert {'puzzlefusion_plusplus_tpu_torch.matching.' + m for m in matching} "
         "<= set(mods), mods\n"
+        "tools = {'bench', 'render_results', 'utils.native', 'utils.profiling', "
+        "'utils.sanitize', 'data.meshio', 'data.preprocess', 'data.generate_pc_data', "
+        "'renderer', 'renderer.artifacts', 'renderer.blender', 'renderer.matching_vis', "
+        "'renderer.pc_renderer', 'renderer.rasterizer'}\n"
+        "assert {'puzzlefusion_plusplus_tpu_torch.' + m for m in tools} <= set(mods), mods\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -444,9 +444,11 @@ def test_trainer_runs_on_cpu_and_needs_cuda_otherwise(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         ttrain.main([f"data.verifier_data_path={root}/verifier_data"])
+    # the JAX verifier trainer reads no precision key: under bf16 it trains in fp32
     cfg.trainer.precision = "bf16"
-    with pytest.raises(NotImplementedError, match="trainer.precision"):
-        ttrain.train(cfg, device="cpu")
+    state = ttrain.train(cfg, max_steps=6, device="cpu")  # resumed at step 5
+    assert state.step == 6
+    assert all(p.dtype == torch.float32 for p in state.model.parameters())
 
 
 @pytest.mark.parametrize("trainer", ["vqvae", "denoiser", "verifier"])
