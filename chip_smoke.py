@@ -144,6 +144,18 @@ Phases, each printing one JSON object per line (with its seconds):
                b8 engine batch served under bf16 (kernel S keeps its fp32 weights) with finite
                metrics; phase 2 holds G and A on bf16 rows at the denoiser's SA2 and SA3
                feature gathers (M = 1280, path "bf16").
+ 23. int8    — kernel S's int8 gather mode (``PFPP_SA_GATHER=int8``): the quantize kernel
+               (``S int8 quantize``) bit-equal to its plain version at the engine's SA2
+               [96,256,128] and SA3 [96,128,256] projections, each with an all-zero column;
+               S's int8 instantiation (``S int8``) within 1e-4 relative of its plain version
+               at the engine's SA2 and SA3 shapes (M = 96) and bit-equal across two launches,
+               beside the exact S on the same inputs (``exact_kernel_ms``, and the whole
+               stage, matmul and quantize included, ``stage_ms`` and ``exact_stage_ms``); its
+               bound counts the codes as one byte each; then the b8 engine batch built under
+               the variable (metrics finite, assemblies/s beside phase 3's exact call, SA1
+               exact and SA2, SA3 int8 in every step), z_e of the int8 encode against the
+               exact one on the engine batch's 96 clouds, and the bench entry under the
+               variable (``sa_gather`` in its line).
 Each path's launch counts are read from its own run: reset right before phase 3's second
 (counted) engine call and read right after phase 4's GPU run (the inference path), reset
 right before phase 6 and read right after it (the VQ-VAE training path), reset right before
@@ -154,7 +166,8 @@ training path, "train_matching") and phase 19's writer ("matching_gen") and serv
 ("matching_serve"); phase 20's counts are
 each rank's, reset in the rank right before each entry run and summed over the ranks after it
 (its parity steps are not counted); phase 22's are reset right before its training run and
-read right after its engine call (path "bf16"). Then a ``kernels``
+read right after its engine call (path "bf16"); phase 23's are reset right before its
+counted engine call and read right after it (path "int8"). Then a ``kernels``
 line lists every kernel with its path's count, its error and its times, and the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and the script exits non-zero without
 that line. Needs one CUDA card; ``--phases`` picks phases.
@@ -196,6 +209,11 @@ REPLACES = {
           "puzzlefusion_plusplus_tpu/ops/sa_fused_pallas.py:123"),
     "P": ("puzzlefusion_plusplus_tpu_torch/csrc/fps.cu",
           "puzzlefusion_plusplus_tpu/ops/fps.py:167"),
+    # S's 'int8' gather mode, and the quantization the JAX package runs outside its kernel
+    "S int8": ("puzzlefusion_plusplus_tpu_torch/csrc/sa_cached.cu",
+               "puzzlefusion_plusplus_tpu/ops/sa_fused_pallas.py:271"),
+    "S int8 quantize": ("puzzlefusion_plusplus_tpu_torch/csrc/sa_cached.cu",
+                        "puzzlefusion_plusplus_tpu/ops/sa_fused_pallas.py:317"),
 }
 INFERENCE_KERNELS, TRAIN_KERNELS = "SFGNMP", "FGNAB"
 MERGE_ONLY_KERNELS = "MP"  # launched only when a merge fires (the merge phase)
@@ -211,8 +229,13 @@ PATH_KERNELS = {"inference": INFERENCE_KERNELS, "train": TRAIN_KERNELS,
                 "verifier_gen": VERIFIER_GEN_KERNELS, "train_verifier": "",
                 "serve": SERVE_KERNELS, "dp": DP_KERNELS, "train_matching": MATCHING_KERNELS,
                 "matching_gen": MATCHING_GEN_KERNELS,
-                "matching_serve": MATCHING_SERVE_KERNELS, "bf16": BF16_KERNELS}
-MAIN_PATH = {"A": "train", "B": "train", "R": "encoder_modes"}  # the rest: "inference"
+                "matching_serve": MATCHING_SERVE_KERNELS, "bf16": BF16_KERNELS,
+                "int8": ("S", "S int8", "S int8 quantize", "F", "G", "N")}
+MAIN_PATH = {"A": "train", "B": "train", "R": "encoder_modes", "S int8": "int8",
+             "S int8 quantize": "int8"}  # the rest: "inference"
+SUMMED = ("S", "R", "A", "B", "S int8", "S int8 quantize")  # one step's shapes, summed
+# the int8 S's other times at each shape, kept in the kernels line's per_shape
+INT8_EXTRA = ("exact_kernel_ms", "stage_ms", "exact_stage_ms")
 
 
 # the matcher's gathers at batch 1 (N, C, index shape): sa1's xyz grouping, then those with
@@ -338,6 +361,42 @@ def bound_3xtf32(nbytes: float, flops: float) -> tuple[float, str]:
     return bound(nbytes, 3 * flops, H100_TF32_FLOPS)
 
 
+# kernel S's three stages at the full VQ-VAE width: S, K, N2, D (the features' width),
+# C1, C2, C3
+S_STAGES = {"SA1": (256, 32, 0, 0, 64, 64, 128),
+            "SA2": (128, 64, 256, 128, 128, 128, 256),
+            "SA3": (25, 64, 128, 256, 256, 256, 512)}
+
+
+def record_kernel(results: dict, phase: str, name, shape, err, ms, plain_ms, nbytes, flops,
+                  library_ms=None, path="inference", tensor_cores=False, computed=None,
+                  **extra) -> None:
+    """One kernel's line at one shape: its error against the plain version, its times and
+    its bound from the bytes and operations of the work; kept in ``results`` for the final
+    kernels line."""
+    b_ms, b_by = (bound_3xtf32 if tensor_cores else bound)(nbytes, flops)
+    row = {"phase": phase, "kernel": name, "path": path, "shape": shape,
+           "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": library_ms, **extra}
+    if tensor_cores:  # worked out, not measured; kept out of the final kernels line
+        fp32_ms, fp32_by = bound(nbytes, flops)  # the same work on the CUDA cores
+        computed = {"bound_fp32_ms": fp32_ms, "bound_fp32_by": fp32_by, **(computed or {})}
+    if computed:
+        row["computed"] = computed
+    emit(row)
+    results.setdefault(name, []).append(row)
+
+
+def l2_weights(rows_per_block, M, S, K, weight_floats):
+    """Rows per block and the weight bytes the blocks of one launch read from L2, worked
+    out from the block count (every block streams all of its layers' weights once)."""
+    def nbytes(rows):
+        return 4 * weight_floats * M * -(-S // (rows // K))
+    return {"rows_per_block": rows_per_block, "l2_weight_bytes": nbytes(rows_per_block),
+            "l2_weight_bytes_64_rows": nbytes(64)}
+
+
 # ------------------------------------------------------------------------------- phases
 
 
@@ -420,28 +479,8 @@ def phase_kernels(results: dict) -> None:
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
 
-    def record(name, shape, err, ms, plain_ms, nbytes, flops, library_ms=None,
-               path="inference", tensor_cores=False, computed=None, **extra):
-        b_ms, b_by = (bound_3xtf32 if tensor_cores else bound)(nbytes, flops)
-        row = {"phase": "kernels", "kernel": name, "path": path, "shape": shape,
-               "max_abs_err": err,
-               "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": library_ms, **extra}
-        if tensor_cores:  # worked out, not measured; kept out of the final kernels line
-            fp32_ms, fp32_by = bound(nbytes, flops)  # the same work on the CUDA cores
-            computed = {"bound_fp32_ms": fp32_ms, "bound_fp32_by": fp32_by, **(computed or {})}
-        if computed:
-            row["computed"] = computed
-        emit(row)
-        results.setdefault(name, []).append(row)
-
-    def l2_weights(rows_per_block, M, S, K, weight_floats):
-        """Rows per block and the weight bytes the blocks of one launch read from L2, worked
-        out from the block count (every block streams all of its layers' weights once)."""
-        def nbytes(rows):
-            return 4 * weight_floats * M * -(-S // (rows // K))
-        return {"rows_per_block": rows_per_block, "l2_weight_bytes": nbytes(rows_per_block),
-                "l2_weight_bytes_64_rows": nbytes(64)}
+    def record(*args, **kwargs):
+        record_kernel(results, "kernels", *args, **kwargs)
 
     def emit_l2_step(name):
         """The L2 weight bytes of each path's step (worked out, not measured)."""
@@ -461,9 +500,6 @@ def phase_kernels(results: dict) -> None:
     # generation's denoise step at M = 20 (one shape at the 20-part pad; both listed apart
     # from the step's sum), then a data-parallel engine rank's and the engine's serving the
     # matcher-written data
-    S_STAGES = {"SA1": (256, 32, 0, 0, 64, 64, 128),
-                "SA2": (128, 64, 256, 128, 128, 128, 256),
-                "SA3": (25, 64, 128, 256, 256, 256, 512)}
     for M, path, reps, plain_reps, (stage, (S, K, N2, D, C1, C2, C3)) in (
             [(96, "inference", 20, 3, st) for st in S_STAGES.items()]
             + [(1280, "train_denoiser", 5, 1, st) for st in S_STAGES.items()]
@@ -503,7 +539,7 @@ def phase_kernels(results: dict) -> None:
                    g, w_eff, None if feats is None else torch.matmul(feats, k1f), gidx, b1,
                    w2, b2, w3, b3), plain_reps),
                nbytes, flops, path=path, tensor_cores=True, max_rel_err=rel,
-               computed=l2_weights(sa_rows(K, C1, C2), M, S, K, C1 * C2 + C2 * C3),
+               computed=l2_weights(sa_rows(K, C1, C2, 0), M, S, K, C1 * C2 + C2 * C3),
                seconds=time.perf_counter() - t0)
     emit_l2_step("S")
 
@@ -2140,6 +2176,186 @@ def phase_bf16(den_root: str, data_root: str, vqvae_trained: bool,
     return row
 
 
+def phase_int8(results: dict, data_root: str, data_proc, engine_row: dict | None) -> dict:
+    """Kernel S's int8 gather mode, ``PFPP_SA_GATHER=int8`` (phase 23): the quantize kernel
+    bit-equal to its plain version and S's int8 instantiation within 1e-4 relative of its
+    plain version at the engine's SA2 and SA3 shapes (M = 96), then the b8 engine under the
+    variable (launch counts of its counted call: path "int8"), z_e of the int8 encode against
+    the exact one on the engine batch, and the bench entry under the variable."""
+    import numpy as np
+    import torch
+
+    from puzzlefusion_plusplus_tpu_torch import ops
+    from puzzlefusion_plusplus_tpu_torch.data.bucketing import part_bucket, slice_batch_parts
+    from puzzlefusion_plusplus_tpu_torch.data.datasets import DenoiserDataset
+    from puzzlefusion_plusplus_tpu_torch.data.loader import Loader
+    from puzzlefusion_plusplus_tpu_torch.inference.run import (
+        build_engine_fn,
+        make_models,
+        run_inference,
+    )
+    from puzzlefusion_plusplus_tpu_torch.inference.sampler import make_frozen_encoder
+    from puzzlefusion_plusplus_tpu_torch.ops import cuda_build, sa_fused
+    from puzzlefusion_plusplus_tpu_torch.utils.masking import compact_parts, compaction_indices
+    from puzzlefusion_plusplus_tpu_torch.utils.transforms import quat_normalize, quat_to_matrix
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    sa_rows = cuda_build.function("sa_cached", "pfpp_sa_cached_rows")
+    int8_launch = cuda_build.function("sa_cached", "pfpp_sa_cached_int8")
+    exact_launch = cuda_build.function("sa_cached", "pfpp_sa_cached")
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    M = 96
+    for stage in ("SA2", "SA3"):
+        S, K, N2, D, C1, C2, C3 = S_STAGES[stage]
+        t1 = time.perf_counter()
+        feats = randn(M, N2, D).relu()
+        k1f = randn(D, C1, scale=D ** -0.5)
+        k1f[:, 3] = 0  # an all-zero column of every cloud's projection
+        proj = torch.matmul(feats, k1f)
+        q, scale = sa_fused.sa_quantize(proj)
+        q_ref, scale_ref = sa_fused.sa_quantize_plain(proj)
+        equal = bool(torch.equal(q, q_ref)) and bool(torch.equal(scale, scale_ref))
+        _check(equal, f"S int8 quantize {stage}: codes or scales differ from the plain version")
+        _check(bool((q[:, :, 3] == 0).all()) and bool((scale[:, 3] == np.float32(1e-30)).all()),
+               f"S int8 quantize {stage}: the all-zero column")
+        _check(int(q.abs().max()) == 127, f"S int8 quantize {stage}: no code at 127")
+        n = M * N2 * C1
+        record_kernel(results, "int8", "S int8 quantize", f"{stage} [{M},{N2},{C1}]", 0.0,
+                      cuda_ms(lambda: sa_fused.sa_quantize(proj), 20),
+                      cuda_ms(lambda: sa_fused.sa_quantize_plain(proj), 20),
+                      4 * n + n + 4 * M * C1, 3.0 * n, path="int8", bit_equal=equal,
+                      seconds=time.perf_counter() - t1)
+
+        t1 = time.perf_counter()
+        g = randn(M, S, K, 3, scale=0.1)
+        w_eff = randn(M, 3, C1, scale=3 ** -0.5)
+        gidx = torch.randint(0, N2, (M, S, K), generator=gen, device=dev, dtype=torch.int32)
+        b1, b2, b3 = randn(C1, scale=0.1), randn(C2, scale=0.1), randn(C3, scale=0.1)
+        w2, w3 = randn(C1, C2, scale=C1 ** -0.5), randn(C2, C3, scale=C2 ** -0.5)
+        tail = (gidx, b1, w2, b2, w3, b3)
+        out = sa_fused.sa_stage_cached_int8(g, w_eff, q, scale, *tail)
+        table = q.float() * scale[:, None, :]
+        ref = sa_fused.sa_stage_plain(g, w_eff, table, *tail)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        rel = err / max(ref.abs().max().item(), 1e-30)
+        _check(rel <= 1e-4, f"S int8 {stage}: relative error {rel}")
+        _check(torch.equal(out, sa_fused.sa_stage_cached_int8(g, w_eff, q, scale, *tail)),
+               f"S int8 {stage}: two launches differ")
+        exact = sa_fused.sa_stage_plain(g, w_eff, proj, gidx, b1, w2, b2, w3, b3)
+        quant_err = (ref - exact).abs().max().item()  # what the 8-bit codes move
+        buf = torch.empty_like(out)
+        dims = (M, S, K, N2, C1, C2, C3)
+        ptrs = [t.data_ptr() for t in (gidx, b1, w2, b2, w3, b3, buf)]
+        stream = cuda_build.stream_ptr(g)
+        bare = lambda: int8_launch(g.data_ptr(), w_eff.data_ptr(), q.data_ptr(),  # noqa: E731
+                                   scale.data_ptr(), *ptrs, *dims, stream)
+        bare_exact = lambda: exact_launch(g.data_ptr(), w_eff.data_ptr(),  # noqa: E731
+                                          proj.data_ptr(), *ptrs, *dims, stream)
+        flops = 2 * M * S * K * (3 * C1 + C1 * C2 + C2 * C3)
+        nbytes = (4 * (g.numel() + w_eff.numel() + scale.numel() + gidx.numel() + C1
+                       + C1 * C2 + C2 + C2 * C3 + C3 + M * S * C3) + q.numel())
+        stage_args = (g, w_eff, feats, gidx, k1f, b1, w2, b2, w3, b3)
+        record_kernel(
+            results, "int8", "S int8", f"{stage} M={M}", err,
+            cuda_ms(lambda: sa_fused.sa_stage_cached_int8(g, w_eff, q, scale, *tail), 20),
+            cuda_ms(lambda: sa_fused.sa_stage_plain(g, w_eff, q.float() * scale[:, None, :],
+                                                    *tail), 3),
+            nbytes, flops, path="int8", tensor_cores=True, max_rel_err=rel,
+            kernel_ms=cuda_ms(bare, 20), exact_kernel_ms=cuda_ms(bare_exact, 20),
+            stage_ms=cuda_ms(lambda: sa_fused.sa_stage_fused_cached(
+                *stage_args, gather_impl="int8"), 20),
+            exact_stage_ms=cuda_ms(lambda: sa_fused.sa_stage_fused_cached(
+                *stage_args, gather_impl="onehot"), 20),
+            quantization_max_abs=quant_err,
+            computed=l2_weights(sa_rows(K, C1, C2, 1), M, S, K, C1 * C2 + C2 * C3),
+            seconds=time.perf_counter() - t1)
+        del out, ref, exact, table, buf
+
+    # the b8 engine under the variable, which the engine reads when it is built
+    t1 = time.perf_counter()
+    cfg = _full_config(data_root)
+    os.environ["PFPP_SA_GATHER"] = "int8"
+    try:
+        engine = build_engine_fn(cfg, "cuda")
+    finally:
+        del os.environ["PFPP_SA_GATHER"]
+    _check(engine.sa_gather == "int8", f"the engine's gather mode is {engine.sa_gather}")
+    walls = []
+    for call in range(2):  # call 0 warms up; call 1 is counted
+        if call == 1:
+            ops.reset_launch_counts()  # the int8 path's run starts here
+        t2 = time.perf_counter()
+        agg = run_inference(cfg, engine=engine)
+        walls.append(time.perf_counter() - t2)
+    counts = ops.launch_counts()
+    vals = [agg[f"eval/{k}"] for k in ("part_acc", "shape_cd", "rmse_r", "rmse_t")]
+    _check(all(np.isfinite(vals)), f"int8 engine: non-finite metrics {agg}")
+    _check(all(counts[k] > 0 for k in PATH_KERNELS["int8"]),
+           f"a kernel never launched: {counts}")
+    _check(counts["S int8"] == counts["S int8 quantize"] == 2 * counts["S"],
+           f"int8 engine: SA1 exact, SA2 and SA3 int8 a step: {counts}")
+    engine_s = time.perf_counter() - t1
+
+    # z_e of the int8 encode against the exact one on the engine batch's clouds
+    vq = make_models(cfg)[0].cuda()
+    encs = {m: make_frozen_encoder(vq, "cached", m) for m in ("onehot", "int8")}
+    ds = DenoiserDataset(cfg.data.data_val_dir, mode="test",
+                         matching_data_path=cfg.data.matching_data_path)
+    batch = next(iter(Loader(ds, 8, shuffle=False, drop_last=False)))
+    batch = slice_batch_parts(batch, part_bucket(int(np.max(batch["num_parts"]))))
+    pcs = torch.from_numpy(batch["part_pcs"]).cuda()
+    B, P, N, _ = pcs.shape
+    _, src, _ = compaction_indices(torch.from_numpy(batch["part_valids"]).cuda())
+    flat = compact_parts(pcs, src).reshape(B * P, N, 3)
+    rot = quat_to_matrix(quat_normalize(torch.randn((B * P, 4), generator=gen, device=dev)))
+    with torch.no_grad():
+        idx, geom = encs["onehot"].grouping(flat)
+        z = {m: enc.apply(flat, idx, geom, rot) for m, enc in encs.items()}
+    z_err = (z["int8"]["z_e"] - z["onehot"]["z_e"]).abs().max().item()
+    z_scale = z["onehot"]["z_e"].abs().max().item()
+    same_codes = (z["int8"]["z_q"] == z["onehot"]["z_q"]).all(-1).float().mean().item()
+
+    # the bench entry under the variable
+    t1 = time.perf_counter()
+    if data_proc is not None:
+        _check(data_proc.wait() == 0, "making the bench data failed")
+    else:
+        from puzzlefusion_plusplus_tpu_torch import bench
+
+        bench.ensure_data(BENCH_DATA)
+    torch.cuda.empty_cache()  # the bench runs in its own process on the same card
+    out = subprocess.run(
+        [sys.executable, "-m", "puzzlefusion_plusplus_tpu_torch.bench"], cwd=REPO,
+        env={**os.environ, "PFPP_BENCH_DATA": BENCH_DATA, "PFPP_SA_GATHER": "int8"},
+        capture_output=True, text=True, timeout=600)
+    _check(out.returncode == 0, f"bench under int8 failed:\n{out.stderr[-3000:]}")
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    _check(line["value"] > 0 and not line["extra"]["timing_suspect"]
+           and line["extra"]["sa_gather"] == "int8", f"bench under int8: {line}")
+    row = {"phase": "int8", "seconds": time.perf_counter() - t0,
+           "engine": {"seconds": engine_s, "wall_s_per_call": walls,
+                      "assemblies_per_s": agg["num_samples"] / walls[-1],
+                      "exact_assemblies_per_s": engine_row and engine_row["assemblies_per_s"],
+                      **{k: agg[f"eval/{k}"] for k in ("part_acc", "shape_cd", "rmse_r",
+                                                        "rmse_t")},
+                      "n_iters": agg["n_iters"]},
+           "z_e": {"clouds": B * P, "max_abs_dev_vs_exact": z_err,
+                   "max_rel_dev_vs_exact": z_err / z_scale,
+                   "codes_equal_share": same_codes},
+           "bench": {"value": line["value"], "sa_gather": line["extra"]["sa_gather"],
+                     "runs_s": line["extra"]["runs_s"],
+                     "process_s": time.perf_counter() - t1},
+           "launches": counts}
+    emit(row)
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,fps_shapes,engine,merge,profile,train,"
@@ -2147,7 +2363,7 @@ def main() -> int:
                                         "train_denoiser,denoiser_parity,profile_denoiser,"
                                         "verifier_gen,train_verifier,verifier_parity,serve,"
                                         "train_matching,matching_parity,profile_matching,"
-                                        "matching_gen,dp,bench,bf16")
+                                        "matching_gen,dp,bench,bf16,int8")
     phases = ap.parse_args().phases.split(",")
 
     import torch
@@ -2163,7 +2379,7 @@ def main() -> int:
     resolve_device("cuda")  # also turns TF32 off for the comparisons
     t_start = time.perf_counter()
     results: dict = {}
-    bench_data = start_bench_data() if "bench" in phases else None
+    bench_data = start_bench_data() if {"bench", "int8"} & set(phases) else None
     if bench_data is not None:  # stopped if a phase fails before phase 21 waits for it
         atexit.register(lambda: bench_data.poll() is None and bench_data.kill())
     rows: dict = {}  # phases whose numbers later phases print beside their own
@@ -2175,7 +2391,8 @@ def main() -> int:
         phase_fps_shapes()
     launches = {}  # per path: the counts of its own run
     data_root = os.path.join(REPO, ".smoke", "chip_smoke_data")
-    if {"engine", "merge", "profile", "encoder_modes", "serve", "dp", "bf16"} & set(phases):
+    if {"engine", "merge", "profile", "encoder_modes", "serve", "dp", "bf16",
+        "int8"} & set(phases):
         t0 = time.perf_counter()
         generate_dataset(data_root, num_shapes=8, seed=7, split="val", min_parts=3,
                          max_parts=12)
@@ -2269,6 +2486,9 @@ def main() -> int:
     if "bf16" in phases:
         launches["bf16"] = phase_bf16(den_root, data_root, "train" in phases,
                                       rows.get("train_denoiser"), rows.get("engine"))["launches"]
+    if "int8" in phases:
+        launches["int8"] = phase_int8(results, data_root, bench_data,
+                                      rows.get("engine"))["launches"]
 
     if results:
         rows = []
@@ -2278,7 +2498,7 @@ def main() -> int:
             # "per_shape"
             step = [r for r in recs if r["path"] == recs[0]["path"] and not r.get("skewed")]
             main_rec = step[-1]
-            agg = (lambda key: sum(r[key] for r in step)) if name in "SRAB" else (
+            agg = (lambda key: sum(r[key] for r in step)) if name in SUMMED else (
                 lambda key: main_rec[key])
             timed = tuple(k for k in ("ms", "kernel_ms", "kernel_graph_ms",
                                       "library_graph_ms") if k in main_rec)
@@ -2299,11 +2519,15 @@ def main() -> int:
                 "shape": {"S": "SA1+SA2+SA3 of one denoise step at M=96",
                           "R": "SA1+SA2+SA3 of one 'always' encode",
                           "A": "SA2+SA3 feature gathers of one VQ-VAE training step",
-                          "B": "chamfer + SA2 + SA3 backward of one training step"}.get(
+                          "B": "chamfer + SA2 + SA3 backward of one training step",
+                          "S int8": "SA2+SA3 of one int8 denoise step at M=96",
+                          "S int8 quantize": "SA2+SA3 projections of one int8 denoise step "
+                                             "at M=96"}.get(
                               name, main_rec["shape"]),
                 "per_shape": [{k: r[k] for k in ("path", "shape", "max_abs_err", *timed,
                                                  "plain_ms", "bound_ms", "library_ms")
-                               + (("f_ms",) if name == "P" else ())}
+                               + (("f_ms",) if name == "P" else ())
+                               + (INT8_EXTRA if name == "S int8" else ())}
                               for r in recs],
             }
             if name == "P":

@@ -23,7 +23,10 @@ denoising steps cannot: the measurement is then broken, not fast.
 
 Environment: ``PFPP_BENCH_BATCH``, ``PFPP_BENCH_REPEATS``, ``PFPP_BENCH_DATA`` (the data
 directory, default ``<tmp>/pfpp_bench_data_torch``: the port's own, never the JAX bench's),
-``PFPP_BENCH_PRECISION`` (``trainer.precision``: fp32 or bf16), ``PFPP_BENCH_BUCKET``.
+``PFPP_BENCH_PRECISION`` (``trainer.precision``: fp32 or bf16), ``PFPP_BENCH_BUCKET``, and
+``PFPP_SA_GATHER`` (kernel S's gather mode: ``onehot``, the default, is exact; ``int8``
+quantizes the encoder's SA2 and SA3 projections, as in the JAX package), which the line
+reports as ``extra.sa_gather``.
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ import time
 
 USAGE = ("usage: python -m puzzlefusion_plusplus_tpu_torch.bench "
          "[--serving | --full-range | --cpu-baseline]  # env: PFPP_BENCH_BATCH, "
-         "PFPP_BENCH_REPEATS, PFPP_BENCH_DATA, PFPP_BENCH_PRECISION, PFPP_BENCH_BUCKET")
+         "PFPP_BENCH_REPEATS, PFPP_BENCH_DATA, PFPP_BENCH_PRECISION, PFPP_BENCH_BUCKET, "
+         "PFPP_SA_GATHER")
 
 # Measured with ``python -m puzzlefusion_plusplus_tpu_torch.bench --cpu-baseline`` (the port's
 # engine at Config() widths, batch 1 at the 8-part pad, fp32) on the host CPU of an NVIDIA
@@ -139,7 +143,7 @@ def _timed_calls(engine, samples: list, repeats: int) -> list[float]:
     return times
 
 
-def _result(metric: str, n: int, calls: int, times: list, cfg, device, extra: dict) -> dict:
+def _result(metric: str, n: int, calls: int, times: list, cfg, engine, extra: dict) -> dict:
     """The JSON line: ``n`` shapes served by ``calls`` engine calls a pass."""
     import numpy as np
 
@@ -149,7 +153,8 @@ def _result(metric: str, n: int, calls: int, times: list, cfg, device, extra: di
         "metric": metric, "value": round(value, 4), "unit": "assemblies/s",
         "vs_baseline": round(value / base, 2) if base else None,
         "extra": {
-            "device": _device_name(device), "precision": cfg.trainer.precision, **extra,
+            "device": _device_name(engine.device), "precision": cfg.trainer.precision,
+            "sa_gather": engine.sa_gather, **extra,
             "p50_denoise_verify_iter_latency_s":
                 round(float(np.median(times)) / (n * cfg.verifier.max_iters), 6),
             "runs_s": [round(t, 4) for t in times],
@@ -178,7 +183,7 @@ def measure(cfg, device, data_dir: str, batch: int = 8, repeats: int = 3,
     _timed_calls(engine, [sample], 1)  # warm-up: builds the kernels
     build_s = time.perf_counter() - t0
     times = _timed_calls(engine, [sample], repeats)
-    return _result("assemblies_per_sec_per_chip", n, 1, times, cfg, engine.device,
+    return _result("assemblies_per_sec_per_chip", n, 1, times, cfg, engine,
                    {"batch": n, "part_pad": P, "build_s": round(build_s, 3)})
 
 
@@ -214,7 +219,7 @@ def measure_serving(cfg, device, data_dir: str, batch: int = 8, repeats: int = 3
     counts = ds.num_parts_list()
     return _result(
         "serving_assemblies_per_sec_3to20_parts" if full_range
-        else "serving_assemblies_per_sec_full_set", n, len(samples), times, cfg, engine.device,
+        else "serving_assemblies_per_sec_full_set", n, len(samples), times, cfg, engine,
         {"batch": batch, "part_pad": max(p for _, p in pads), "build_s": round(build_s, 3),
          "n_shapes": n, "pads": [list(p) for p in pads],
          "part_counts": {"min": int(counts.min()), "max": int(counts.max()),

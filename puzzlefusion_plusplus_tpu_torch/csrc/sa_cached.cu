@@ -1,12 +1,16 @@
 // Kernel S: one fused PointNet++ set-abstraction stage over cached grouped geometry.
 //
 // Replaces puzzlefusion_plusplus_tpu/ops/sa_fused_pallas.py::sa_stage_fused_cached
-// (_sa_cached_kernel, 'onehot' semantics). Per cloud m and centre s, over its K neighbours:
+// (_sa_cached_kernel). Per cloud m and centre s, over its K neighbours:
 //   h1 = relu(g_rel[m,s,k] @ W_eff[m] + proj[m, gidx[m,s,k]] + b1)      [K, C1]
 //   h2 = relu(h1 @ W2 + b2)                                             [K, C2]
 //   out[m, s] = max_k relu(h2 @ W3 + b3)                                [C3]
 // with BatchNorm folded into W2/W3 and the rotation into W_eff on the host. The TPU kernel
-// gathers proj rows with a one-hot matmul; here the gather is a plain load.
+// gathers proj rows with a one-hot matmul; here the gather is a plain load. Two
+// instantiations: the exact gather of f32 proj rows (the 'onehot' and 'dynamic' modes), and
+// the 'int8' mode, where proj arrives as int8 codes q [M, N2, C1] with a scale per cloud and
+// column [M, C1] and layer 1 adds float(q[m, gidx]) * scale[m] in place of the proj row.
+// pfpp_sa_quantize makes those codes, as the JAX package does outside its kernel.
 //
 // Bound: the two products (2*rows*(C1*C2 + C2*C3) FLOP per stage, ~157 GFLOP per denoise
 // step at 96 clouds), FP32-accurate on the tensor cores as 3xTF32 (three TF32 MMAs per
@@ -15,10 +19,10 @@
 // (sa::with_block_shape: two blocks an SM at SA1 and SA2, one at SA3, where h1 and h2 of
 // 128 rows would need 266 KB), so each W2/W3 byte read from L2 serves that many rows.
 // Layer 1 (the 3-term xyz product, the gathered proj row and the bias) is FP32 elementwise
-// work: the block's proj rows land in h1 by cp.async, all in flight at once, while the
-// ring's first weight tiles load. Layers 2 and 3 run as mma.sync 3xTF32 passes from the
-// ring, and the max over K is fused into layer 3's epilogue. h1 and h2 never leave shared
-// memory.
+// work: the block's proj rows land in h1 by cp.async (int8: its codes in a [BM][C1] byte
+// buffer, 16 codes a copy), all in flight at once, while the ring's first weight tiles load.
+// Layers 2 and 3 run as mma.sync 3xTF32 passes from the ring, and the max over K is fused
+// into layer 3's epilogue. h1 and h2 never leave shared memory.
 #include "sa_common.cuh"
 
 namespace {
@@ -26,18 +30,20 @@ namespace {
 using sa::kThreads;
 using sa::ld_act;
 
-size_t smem_bytes(int BM, int stages, int K, int C1, int C2) {
+size_t smem_bytes(int BM, int stages, int K, int C1, int C2, bool int8) {
   return sizeof(float) *
-         (sa::base_floats(BM, stages, K) + (size_t)BM * (ld_act(C1) + ld_act(C2)));
+             (sa::base_floats(BM, stages, K) + (size_t)BM * (ld_act(C1) + ld_act(C2))) +
+         (int8 ? (size_t)BM * C1 : 0);
 }
 
-template <int BM, int kStages>
+// kInt8: `proj` holds int8 codes and `scale` [M, C1] their dequantization scales.
+template <int BM, int kStages, bool kInt8>
 __global__ void __launch_bounds__(kThreads, 2) sa_cached_kernel(
     const float* __restrict__ g, const float* __restrict__ weff,
-    const float* __restrict__ proj, const int* __restrict__ gidx,
-    const float* __restrict__ b1, const float* __restrict__ w2, const float* __restrict__ b2,
-    const float* __restrict__ w3, const float* __restrict__ b3, float* __restrict__ out,
-    int S, int K, int N2, int C1, int C2, int C3) {
+    const void* __restrict__ proj, const float* __restrict__ scale,
+    const int* __restrict__ gidx, const float* __restrict__ b1, const float* __restrict__ w2,
+    const float* __restrict__ b2, const float* __restrict__ w3, const float* __restrict__ b3,
+    float* __restrict__ out, int S, int K, int N2, int C1, int C2, int C3) {
   extern __shared__ float4 smem4[];
   float* ring = reinterpret_cast<float*>(smem4);   // [kStages][kKT][kLDW]
   float* h1 = ring + kStages * sa::kTileFloats;     // [BM][C1 + 4]
@@ -45,6 +51,7 @@ __global__ void __launch_bounds__(kThreads, 2) sa_cached_kernel(
   float* red = h2 + (size_t)BM * ld_act(C2);        // [BM / min(K, 32)][kBN]
   float* gs = red + (BM / (K < 32 ? K : 32)) * sa::kBN;  // [BM][3]
   int* gi = reinterpret_cast<int*>(gs + BM * 3);
+  int8_t* codes = reinterpret_cast<int8_t*>(gi + BM);  // kInt8: [BM][C1], 16-byte aligned
 
   const int m = blockIdx.y;
   const int s0 = blockIdx.x * (BM / K);
@@ -67,12 +74,20 @@ __global__ void __launch_bounds__(kThreads, 2) sa_cached_kernel(
   }
   __syncthreads();
 
-  // the rows' proj vectors straight into h1 (cp.async: all of them in flight at once)
+  // the rows' proj vectors (or codes) straight into shared memory, one warp a row (cp.async:
+  // all of them in flight at once)
   const int lane = tid & 31, warp = tid >> 5, ld1 = ld_act(C1);
-  if (proj != nullptr) {  // one warp a row
+  if (proj != nullptr) {
     for (int r = warp; r < BM; r += kThreads / 32) {
-      const float* src = proj + ((size_t)m * N2 + gi[r]) * C1;
-      for (int c = lane * 4; c < C1; c += 128) sa::cp_async16(h1 + r * ld1 + c, src + c);
+      if constexpr (kInt8) {
+        const int8_t* src = static_cast<const int8_t*>(proj) + ((size_t)m * N2 + gi[r]) * C1;
+        for (int c = lane * 16; c < C1; c += 512)
+          sa::cp_async16(reinterpret_cast<float*>(codes + r * C1 + c),
+                         reinterpret_cast<const float*>(src + c));
+      } else {
+        const float* src = static_cast<const float*>(proj) + ((size_t)m * N2 + gi[r]) * C1;
+        for (int c = lane * 4; c < C1; c += 128) sa::cp_async16(h1 + r * ld1 + c, src + c);
+      }
     }
   }
   sa::cp_async_commit();
@@ -80,34 +95,94 @@ __global__ void __launch_bounds__(kThreads, 2) sa_cached_kernel(
   __syncthreads();
 
   // layer 1: rotation-folded xyz term + gathered feature projection + bias, ReLU
-  sa::xyz_layer<BM>(gs, weff + (size_t)m * 3 * C1, b1, h1, C1, proj != nullptr);
+  if constexpr (kInt8)
+    sa::xyz_layer<BM>(gs, weff + (size_t)m * 3 * C1, b1, h1, C1, false, codes,
+                      scale + (size_t)m * C1);
+  else
+    sa::xyz_layer<BM>(gs, weff + (size_t)m * 3 * C1, b1, h1, C1, proj != nullptr);
 
   int t = 0;  // the first tile barrier of layer 2 publishes h1
   sa::mlp_tail<BM>(ws, t, h1, h2, red, b2, b3, out, m, S, K, s0, C1, C2, C3);
 }
 
-template <int BM, int kStages>
-int launch(const float* g, const float* weff, const float* proj, const int* gidx,
-           const float* b1, const float* w2, const float* b2, const float* w3, const float* b3,
-           float* out, int M, int S, int K, int N2, int C1, int C2, int C3,
+template <int BM, int kStages, bool kInt8>
+int launch(const float* g, const float* weff, const void* proj, const float* scale,
+           const int* gidx, const float* b1, const float* w2, const float* b2, const float* w3,
+           const float* b3, float* out, int M, int S, int K, int N2, int C1, int C2, int C3,
            cudaStream_t stream) {
-  const size_t smem = smem_bytes(BM, kStages, K, C1, C2);
-  cudaError_t err = cudaFuncSetAttribute(sa_cached_kernel<BM, kStages>,
+  const size_t smem = smem_bytes(BM, kStages, K, C1, C2, kInt8);
+  cudaError_t err = cudaFuncSetAttribute(sa_cached_kernel<BM, kStages, kInt8>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int cpb = BM / K;
   const dim3 grid((S + cpb - 1) / cpb, M);
-  sa_cached_kernel<BM, kStages><<<grid, kThreads, smem, stream>>>(
-      g, weff, proj, gidx, b1, w2, b2, w3, b3, out, S, K, N2, C1, C2, C3);
+  sa_cached_kernel<BM, kStages, kInt8><<<grid, kThreads, smem, stream>>>(
+      g, weff, proj, scale, gidx, b1, w2, b2, w3, b3, out, S, K, N2, C1, C2, C3);
   return (int)cudaGetLastError();
+}
+
+template <bool kInt8>
+int dispatch(const float* g, const float* weff, const void* proj, const float* scale,
+             const int* gidx, const float* b1, const float* w2, const float* b2,
+             const float* w3, const float* b3, float* out, int M, int S, int K, int N2, int C1,
+             int C2, int C3, void* stream) {
+  if (M == 0 || S == 0) return 0;
+  return sa::with_block_shape(
+      K, [&](int BM, int stages) { return smem_bytes(BM, stages, K, C1, C2, kInt8); },
+      [&](auto shape) {
+        using Sh = decltype(shape);
+        return launch<Sh::BM, Sh::kStages, kInt8>(g, weff, proj, scale, gidx, b1, w2, b2, w3,
+                                                  b3, out, M, S, K, N2, C1, C2, C3,
+                                                  (cudaStream_t)stream);
+      },
+      (int)cudaErrorInvalidValue);
+}
+
+// The 'int8' mode's codes (sa_fused_pallas.py:318-323): per cloud m and column c,
+//   scale[m, c] = max(max_n |proj[m, n, c]| / 127, 1e-30)
+//   q[m, n, c] = clamp(rint(proj[m, n, c] / scale[m, c]), -127, 127)
+// in IEEE arithmetic (the division correctly rounded, rint to nearest even), so the codes are
+// bit-equal to the plain version's. A block of 32 columns x 8 row lanes owns one cloud's
+// column tile: the 8 lanes reduce the max over their rows, the first combines them, then all
+// write the tile's codes. Bound: bytes (proj read twice, here counted once, codes written).
+constexpr int kQCols = 32, kQRows = kThreads / kQCols;
+
+__global__ void __launch_bounds__(kThreads) sa_quantize_kernel(
+    const float* __restrict__ proj, float* __restrict__ scale, int8_t* __restrict__ q, int N2,
+    int C1) {
+  __shared__ float red[kQRows][kQCols];
+  const int m = blockIdx.y, tx = threadIdx.x % kQCols, ty = threadIdx.x / kQCols;
+  const int c = blockIdx.x * kQCols + tx;
+  const bool ok = c < C1;
+  const float* col = proj + (size_t)m * N2 * C1 + c;
+  float amax = 0.f;
+  if (ok)
+    for (int n = ty; n < N2; n += kQRows) amax = fmaxf(amax, fabsf(col[(size_t)n * C1]));
+  red[ty][tx] = amax;
+  __syncthreads();
+  if (ty == 0) {
+    for (int k = 1; k < kQRows; ++k) amax = fmaxf(amax, red[k][tx]);
+    const float s = fmaxf(__fdiv_rn(amax, 127.f), 1e-30f);
+    red[0][tx] = s;
+    if (ok) scale[(size_t)m * C1 + c] = s;
+  }
+  __syncthreads();
+  const float s = red[0][tx];
+  if (!ok) return;
+  int8_t* qc = q + (size_t)m * N2 * C1 + c;
+  for (int n = ty; n < N2; n += kQRows) {
+    const float v = rintf(__fdiv_rn(col[(size_t)n * C1], s));
+    qc[(size_t)n * C1] = (int8_t)fminf(fmaxf(v, -127.f), 127.f);
+  }
 }
 
 }  // namespace
 
-// Rows of one block at these widths (128 or 64; 0: the layers do not fit shared memory).
-PFPP_EXPORT int pfpp_sa_cached_rows(int K, int C1, int C2) {
+// Rows of one block at these widths (128 or 64; 0: the layers do not fit shared memory), of
+// the exact instantiation or (int8 != 0) the int8 one.
+PFPP_EXPORT int pfpp_sa_cached_rows(int K, int C1, int C2, int int8) {
   return sa::with_block_shape(
-      K, [&](int BM, int stages) { return smem_bytes(BM, stages, K, C1, C2); },
+      K, [&](int BM, int stages) { return smem_bytes(BM, stages, K, C1, C2, int8 != 0); },
       [](auto shape) { return decltype(shape)::BM; }, 0);
 }
 
@@ -120,13 +195,26 @@ PFPP_EXPORT int pfpp_sa_cached(const float* g, const float* weff, const float* p
                                const float* b2, const float* w3, const float* b3, float* out,
                                int M, int S, int K, int N2, int C1, int C2, int C3,
                                void* stream) {
-  if (M == 0 || S == 0) return 0;
-  return sa::with_block_shape(
-      K, [&](int BM, int stages) { return smem_bytes(BM, stages, K, C1, C2); },
-      [&](auto shape) {
-        using Sh = decltype(shape);
-        return launch<Sh::BM, Sh::kStages>(g, weff, proj, gidx, b1, w2, b2, w3, b3, out, M, S,
-                                           K, N2, C1, C2, C3, (cudaStream_t)stream);
-      },
-      (int)cudaErrorInvalidValue);
+  return dispatch<false>(g, weff, proj, nullptr, gidx, b1, w2, b2, w3, b3, out, M, S, K, N2,
+                         C1, C2, C3, stream);
+}
+
+// The 'int8' mode: as pfpp_sa_cached with the codes q [M,N2,C1] int8 and their scales
+// [M,C1] f32 (both 16-byte aligned) in place of proj; gidx is required.
+PFPP_EXPORT int pfpp_sa_cached_int8(const float* g, const float* weff, const int8_t* q,
+                                    const float* scale, const int* gidx, const float* b1,
+                                    const float* w2, const float* b2, const float* w3,
+                                    const float* b3, float* out, int M, int S, int K, int N2,
+                                    int C1, int C2, int C3, void* stream) {
+  return dispatch<true>(g, weff, q, scale, gidx, b1, w2, b2, w3, b3, out, M, S, K, N2, C1,
+                        C2, C3, stream);
+}
+
+// proj [M,N2,C1] f32 -> scale [M,C1] f32, q [M,N2,C1] int8 (see sa_quantize_kernel).
+PFPP_EXPORT int pfpp_sa_quantize(const float* proj, float* scale, int8_t* q, int M, int N2,
+                                 int C1, void* stream) {
+  if (M == 0 || C1 == 0) return 0;
+  const dim3 grid((C1 + kQCols - 1) / kQCols, M);
+  sa_quantize_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(proj, scale, q, N2, C1);
+  return (int)cudaGetLastError();
 }

@@ -312,23 +312,33 @@ __device__ __forceinline__ void max_over_k(float (&acc)[2][Geom<BM>::kNT][4], in
 }
 
 // Layer 1's xyz term, h[r][c] = relu(x_r * w[c] + y_r * w[C1 + c] + z_r * w[2 * C1 + c]
-// + (h[r][c] if acc) + b[c]) for the block's rows, with (x, y, z)_r = xyz[3r..3r+2]: one
-// warp a row, each lane 4 channels at a time, w and b held in registers across the rows
-// (w [3][C1] and b 16-byte aligned, C1 % 4 == 0; h row stride ld_act(C1)).
+// + p[r][c] + b[c]) for the block's rows, with (x, y, z)_r = xyz[3r..3r+2] and p the
+// gathered feature term: h[r][c] itself if acc, float(codes[r * C1 + c]) * scale[c] if codes
+// (int8 codes [BM][C1] in shared memory, dequantized by their column's scale), else 0. One
+// warp a row, each lane 4 channels at a time, w, b and scale held in registers across the
+// rows (w [3][C1], b and scale 16-byte aligned, C1 % 4 == 0; h row stride ld_act(C1)).
 template <int BM>
 __device__ __forceinline__ void xyz_layer(const float* xyz, const float* __restrict__ w,
                                           const float* __restrict__ b, float* h, int C1,
-                                          bool acc) {
+                                          bool acc, const int8_t* codes = nullptr,
+                                          const float* __restrict__ scale = nullptr) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, ld = ld_act(C1);
   for (int c = lane * 4; c < C1; c += 128) {
     const float4 wx = *reinterpret_cast<const float4*>(w + c);
     const float4 wy = *reinterpret_cast<const float4*>(w + C1 + c);
     const float4 wz = *reinterpret_cast<const float4*>(w + 2 * C1 + c);
     const float4 bb = *reinterpret_cast<const float4*>(b + c);
+    const float4 sc = codes != nullptr ? *reinterpret_cast<const float4*>(scale + c)
+                                       : make_float4(0.f, 0.f, 0.f, 0.f);
     for (int r = warp; r < BM; r += kThreads / 32) {
       const float x = xyz[r * 3 + 0], y = xyz[r * 3 + 1], z = xyz[r * 3 + 2];
       float4* hp = reinterpret_cast<float4*>(h + r * ld + c);
-      const float4 p = acc ? *hp : make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 p = acc ? *hp : make_float4(0.f, 0.f, 0.f, 0.f);
+      if (codes != nullptr) {
+        const char4 q = *reinterpret_cast<const char4*>(codes + r * C1 + c);
+        p = make_float4((float)q.x * sc.x, (float)q.y * sc.y, (float)q.z * sc.z,
+                        (float)q.w * sc.w);
+      }
       *hp = make_float4(fmaxf(x * wx.x + y * wy.x + z * wz.x + p.x + bb.x, 0.f),
                         fmaxf(x * wx.y + y * wy.y + z * wz.y + p.y + bb.y, 0.f),
                         fmaxf(x * wx.z + y * wy.z + z * wz.z + p.z + bb.z, 0.f),

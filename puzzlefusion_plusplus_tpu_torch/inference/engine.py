@@ -433,3 +433,29 @@ def auto_agglomerate_batch(
         "final_state": state,
         "n_iters": it,
     }
+
+
+def auto_agglomerate(
+    denoiser: Callable,
+    verifier: Callable,
+    encoder: FrozenEncoder,
+    ddpm: DDPMParams,
+    sample: dict,  # tensors of one test-mode sample, no batch dim
+    cfg: AgglConfig,
+    noise: tuple[torch.Tensor, torch.Tensor] | None = None,
+    generator: torch.Generator | None = None,
+) -> dict:
+    """The denoise-verify-merge loop for one shape (the JAX package's per-shape entry):
+    ``auto_agglomerate_batch`` at B = 1, its results without the batch dim. ``noise``:
+    (init [P, 7], steps [max_iters*S, P, 7])."""
+    batch = {k: v[None] for k, v in sample.items()}
+    if noise is not None:
+        noise = (noise[0][None], noise[1][:, None])
+    out = auto_agglomerate_batch(denoiser, verifier, encoder, ddpm, batch, cfg, noise=noise,
+                                 generator=generator)
+    return {
+        "pred_trans": out["pred_trans"][0],
+        "pred_rots": out["pred_rots"][0],
+        "trajectory": out["trajectory"][0],  # [max_iters*S, P, 7]
+        "final_state": AgglState(*(f[0] for f in out["final_state"])),
+    }

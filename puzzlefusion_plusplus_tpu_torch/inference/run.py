@@ -12,7 +12,9 @@ The weights come from the checkpoints that ``denoiser.encoder_ckpt_path``,
 repo's Lightning ``.ckpt`` files (``training/state.py::load_model_state``). The JAX package's
 orbax checkpoints are converted first by ``scripts/jax_ckpt_to_torch.py``. A key left empty
 keeps the weights drawn from ``trainer.seed``. Callers holding flax weights may also pass
-them converted (``convert/from_jax.py``) as ``state_dicts``.
+them converted (``convert/from_jax.py``) as ``state_dicts``. ``PFPP_SA_GATHER=int8``, read
+when the engine is built, quantizes the encoder's SA2 and SA3 feature projections to 8 bits
+(kernel S's int8 mode, ``ops/sa_fused.py``), as it does in the JAX package.
 
 ``trainer.num_devices`` above 1 serves data-parallel (``parallel/``), as the JAX entry shards
 each batch over its mesh: every rank takes the same bucket-sliced global batch, padded to a
@@ -143,6 +145,7 @@ def build_engine_fn(cfg: Config, device=None, state_dicts: dict | None = None,
         return {k: v.cpu().numpy() for k, v in res.items()}
 
     engine.device = device
+    engine.sa_gather = encoder.sa_gather  # kernel S's gather mode, PFPP_SA_GATHER at build
     return engine
 
 

@@ -16,6 +16,12 @@ kernel or its plain version by device, so every mode computes the same function 
 Under ``trainer.precision=bf16`` the VQ-VAE computes in bf16 (``VQVAE.with_dtype``), which
 reaches the composable encode only: kernels S and R take the fp32 folded weights, as the JAX
 package's fused encodes do.
+Kernel S's gather mode (``ops/sa_fused.py``: exact, or ``'int8'``, SA2's and SA3's projections
+quantized to 8 bits) is the encoder's ``sa_gather``: ``gather_impl``, else ``PFPP_SA_GATHER``
+read once when the encoder is built (the JAX package reads it when it traces the encode),
+default ``'onehot'``. It reaches every caller of the cached encode: the engine, verifier
+generation and the denoiser's ``train_encode_cached`` steps and validation. The 'always' and
+'never' modes have no int8 mode and stay exact.
 Per engine iteration ``build_feature_cache`` builds the rotation-invariant indices and
 grouped geometry once; ``extract_features`` encodes per step, from the cache or (training's
 single-shot encode) by rotating the clouds. ``ddpm_sample`` is the 20-step reverse loop.
@@ -30,7 +36,11 @@ import torch
 from puzzlefusion_plusplus_tpu_torch.models.scheduler import DDPMParams, step as ddpm_step
 from puzzlefusion_plusplus_tpu_torch.models.vqvae import VQVAE, pn2_grouping_geometry
 from puzzlefusion_plusplus_tpu_torch.ops.grouping import index_points
-from puzzlefusion_plusplus_tpu_torch.ops.sa_fused import sa_stage_fused, sa_stage_fused_cached
+from puzzlefusion_plusplus_tpu_torch.ops.sa_fused import (
+    sa_gather_mode,
+    sa_stage_fused,
+    sa_stage_fused_cached,
+)
 from puzzlefusion_plusplus_tpu_torch.utils.masking import (
     compact_parts,
     compaction_indices,
@@ -47,13 +57,15 @@ FUSED_MODES = ("cached", "always", "never")
 
 class FrozenEncoder:
     """The VQ-VAE encoder, frozen: the module is put in eval mode with its parameters
-    frozen, and eval-mode BatchNorm is folded into its weights once for kernels S and R."""
+    frozen, and eval-mode BatchNorm is folded into its weights once for kernels S and R.
+    ``sa_gather`` is kernel S's gather mode, resolved here (module note)."""
 
-    def __init__(self, model: VQVAE, fused: str = "cached"):
+    def __init__(self, model: VQVAE, fused: str = "cached", gather_impl: str | None = None):
         if fused not in FUSED_MODES:
             raise ValueError(f"fused must be one of {FUSED_MODES}, got {fused!r}")
         self.model = model.eval().requires_grad_(False)
         self.fused = fused
+        self.sa_gather = sa_gather_mode(gather_impl)
         self.num_point = model.num_point
         self.num_dim = model.num_dim
         self.e_dim = model.embedding_dim
@@ -100,7 +112,8 @@ class FrozenEncoder:
             (k1, b1), (w2, b2), (w3, b3) = self.w[sa]
             w_eff = torch.einsum("med,ec->mdc", rot, k1[:3])  # R^T K_xyz
             k1f = k1[3:] if feats is not None else None
-            return sa_stage_fused_cached(g, w_eff, feats, gidx, k1f, b1, w2, b2, w3, b3)
+            return sa_stage_fused_cached(g, w_eff, feats, gidx, k1f, b1, w2, b2, w3, b3,
+                                         gather_impl=self.sa_gather)
 
         f1 = run("sa1", g1, None, None)
         f2 = run("sa2", g2, f1, gi2)
@@ -121,11 +134,13 @@ class FrozenEncoder:
         return {"z_q": z_q, "xyz": index_points(x2, i3), "z_e": z_e}
 
 
-def make_frozen_encoder(model: VQVAE, fused: str = "cached") -> FrozenEncoder:
+def make_frozen_encoder(model: VQVAE, fused: str = "cached",
+                        gather_impl: str | None = None) -> FrozenEncoder:
     """``fused`` selects the frozen encode's path: 'cached' (kernel S when cached geometry
     and rotations are given), 'always' (kernel R when cached indices and no geometry are
-    given) or 'never' (always the composable encode)."""
-    return FrozenEncoder(model, fused)
+    given) or 'never' (always the composable encode). ``gather_impl`` is kernel S's gather
+    mode; None reads ``PFPP_SA_GATHER`` now (default 'onehot')."""
+    return FrozenEncoder(model, fused, gather_impl)
 
 
 class FeatureCache(NamedTuple):

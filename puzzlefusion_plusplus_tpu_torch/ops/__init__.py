@@ -12,6 +12,8 @@ kernel (counting the launch in ``<wrapper>.launches``) on CUDA tensors.
 | B | ``gather.scatter_add`` (backward of G, A and of N's target side) | ``csrc/scatter_add.cu`` |
 | R | ``sa_fused.sa_stage_fused`` (the frozen encoder's ``fused='always'`` mode) | ``csrc/sa_raw.cu`` |
 | P | ``fps.farthest_point_sample_per_cloud`` (the engine's merge resample) | ``csrc/fps.cu`` |
+| S int8 | ``sa_fused.sa_stage_cached_int8`` (S under ``PFPP_SA_GATHER=int8``, SA2 and SA3) | ``csrc/sa_cached.cu`` |
+| S int8 quantize | ``sa_fused.sa_quantize`` (the codes S int8 gathers) | ``csrc/sa_cached.cu`` |
 
 S and R share their layers 2-3 and max over K (``csrc/sa_common.cuh``); P returns F's indices.
 """
@@ -26,7 +28,12 @@ from puzzlefusion_plusplus_tpu_torch.ops.gather import (
     gather_points_approx,
     scatter_add,
 )
-from puzzlefusion_plusplus_tpu_torch.ops.sa_fused import sa_stage_fused, sa_stage_fused_cached
+from puzzlefusion_plusplus_tpu_torch.ops.sa_fused import (
+    sa_quantize,
+    sa_stage_cached_int8,
+    sa_stage_fused,
+    sa_stage_fused_cached,
+)
 
 KERNEL_WRAPPERS = {
     "S": sa_stage_fused_cached,
@@ -38,6 +45,8 @@ KERNEL_WRAPPERS = {
     "B": scatter_add,
     "R": sa_stage_fused,
     "P": farthest_point_sample_per_cloud,
+    "S int8": sa_stage_cached_int8,
+    "S int8 quantize": sa_quantize,
 }
 
 

@@ -39,7 +39,9 @@ SIGNATURES = {
         "pfpp_masked_pairwise_nn": [_P, _P, _I, _I, _I, _P, _P],
     },
     "sa_cached": {"pfpp_sa_cached": [_P] * 10 + [_I] * 7 + [_P],
-                  "pfpp_sa_cached_rows": [_I] * 3},
+                  "pfpp_sa_cached_int8": [_P] * 11 + [_I] * 7 + [_P],
+                  "pfpp_sa_quantize": [_P] * 3 + [_I] * 3 + [_P],
+                  "pfpp_sa_cached_rows": [_I] * 4},
     "sa_raw": {"pfpp_sa_raw": [_P] * 10 + [_I] * 8 + [_P], "pfpp_sa_raw_rows": [_I] * 4},
     "scatter_add": {"pfpp_scatter_add": [_P] * 4 + [_I] * 4 + [_P]},
 }

@@ -10,10 +10,14 @@ A block holds 128 (centre, neighbour) rows where two such blocks share an SM (SA
 from L2 serves that many rows (see ``csrc/sa_common.cuh``).
 
 * S replaces ``puzzlefusion_plusplus_tpu/ops/sa_fused_pallas.py::sa_stage_fused_cached``
-  (``_sa_cached_kernel``) with its ``'onehot'`` semantics, an exact gather. Per cloud m and
-  centre s: h1 = relu(g_rel @ W_eff[m] + (feats[m] @ K_feat)[gidx] + b1), two
-  BatchNorm-folded Dense+ReLU layers, then the max over the K neighbours. The per-cloud
-  projection ``feats @ K_feat`` is a plain matmul outside the kernel, as in the JAX package.
+  (``_sa_cached_kernel``). Per cloud m and centre s: h1 = relu(g_rel @ W_eff[m] +
+  (feats[m] @ K_feat)[gidx] + b1), two BatchNorm-folded Dense+ReLU layers, then the max over
+  the K neighbours. The per-cloud projection ``feats @ K_feat`` is a plain matmul outside the
+  kernel, as in the JAX package. Its gather modes (``gather_impl``, else the env var
+  ``PFPP_SA_GATHER``, default ``'onehot'``) are the JAX package's: ``'int8'`` quantizes the
+  projection per cloud and column (``sa_quantize``, its own kernel) and gathers the codes
+  (S's int8 instantiation, ``sa_stage_cached_int8``); every other mode is the exact gather,
+  and so is ``'int8'`` on a stage without features (SA1).
 * R replaces ``sa_fused_pallas.py::sa_stage_fused`` (``_sa_kernel``), the stage over a raw
   cloud ``xyz ++ feats`` and cached indices: it gathers the K neighbour rows and the centre
   row, recentres the xyz channels, and runs all three folded layers (layer 1 included)
@@ -21,6 +25,8 @@ from L2 serves that many rows (see ``csrc/sa_common.cuh``).
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -46,6 +52,50 @@ def sa_stage_plain(g_rel, w_eff, proj, group_idx, b1, w2, b2, w3, b3) -> torch.T
     return h.amax(dim=2)
 
 
+def sa_quantize_plain(proj: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """proj [M, N2, C1] f32 -> (q [M, N2, C1] int8, scale [M, C1] f32), the JAX package's
+    'int8' quantization (``sa_fused_pallas.py:318-323``): per cloud and column, scale =
+    max(max_n |proj| / 127, 1e-30), q = clamp(round(proj / scale), -127, 127), rounding half
+    to even. Both divisions are true IEEE divisions (a CUDA tensor divided by a Python
+    number would be multiplied by its reciprocal), so the kernel's codes are bit-equal to
+    these. They are the JAX expressions as written and as JAX computes them op by op; a
+    jitted JAX caller gets the first division folded by XLA into a multiply by fl(1/127),
+    a scale at most one ulp away."""
+    amax = proj.abs().amax(dim=1)
+    scale = torch.clamp(amax / amax.new_full((), 127.0), min=1e-30)
+    q = torch.clamp(torch.round(proj / scale[:, None, :]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def sa_quantize(proj: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """-> (q, scale) of ``sa_quantize_plain``; on CUDA tensors one launch of
+    ``pfpp_sa_quantize`` (``csrc/sa_cached.cu``)."""
+    if proj.device.type == "cpu":
+        return sa_quantize_plain(proj)
+    proj = proj.contiguous()
+    cuda_build.require(proj, "proj", torch.float32, 3)
+    M, N2, C1 = proj.shape
+    q = torch.empty((M, N2, C1), dtype=torch.int8, device=proj.device)
+    scale = torch.empty((M, C1), dtype=torch.float32, device=proj.device)
+    cuda_build.check(
+        cuda_build.function("sa_cached", "pfpp_sa_quantize")(
+            proj.data_ptr(), scale.data_ptr(), q.data_ptr(), M, N2, C1,
+            cuda_build.stream_ptr(proj)),
+        "sa_quantize",
+    )
+    sa_quantize.launches += 1
+    return q, scale
+
+
+sa_quantize.launches = 0
+
+
+def sa_gather_mode(gather_impl: str | None = None) -> str:
+    """The gather mode kernel S runs: ``gather_impl``, else ``PFPP_SA_GATHER``, else
+    'onehot' (``sa_fused_pallas.py:295-296``)."""
+    return os.environ.get("PFPP_SA_GATHER", "onehot") if gather_impl is None else gather_impl
+
+
 def _check_kernel_shapes(K: int, C1: int, C2: int, C3: int) -> None:
     """The kernels' block layout: K rows a centre inside 64-row blocks, 32-channel weight
     tiles (C1, the input of layer 2) and 64-column passes (C2, C3). Widths whose activation
@@ -67,14 +117,51 @@ def sa_stage_fused_cached(
     b1: torch.Tensor,
     w2: torch.Tensor, b2: torch.Tensor,
     w3: torch.Tensor, b3: torch.Tensor,
+    gather_impl: str | None = None,  # 'onehot' | 'dynamic' (exact) | 'int8'; None reads
+    # PFPP_SA_GATHER (default 'onehot'); any other string is the exact gather, as in JAX
 ) -> torch.Tensor:
     """-> new_feats [M, S, C3]; kernel S on CUDA tensors, which has no backward (it raises
-    where autograd would need one; the plain version on CPU tensors differentiates)."""
+    where autograd would need one; the plain version on CPU tensors differentiates). Under
+    'int8' with ``feats`` the projection is quantized (``sa_quantize``) and gathered as
+    codes (``sa_stage_cached_int8``); stage 1 has no features and runs exactly."""
     proj = None if feats is None else torch.matmul(feats, k1_feat)  # [M, N2, C1]
-    if g_rel.device.type == "cpu":
+    on_cpu = g_rel.device.type == "cpu"
+    if not on_cpu:
+        cuda_build.forbid_grad("sa_stage_fused_cached", g_rel, w_eff, feats, k1_feat, b1, w2,
+                               b2, w3, b3)
+    if proj is not None and sa_gather_mode(gather_impl) == "int8":
+        q, scale = sa_quantize(proj)
+        return sa_stage_cached_int8(g_rel, w_eff, q, scale, group_idx, b1, w2, b2, w3, b3)
+    if on_cpu:
         return sa_stage_plain(g_rel, w_eff, proj, group_idx, b1, w2, b2, w3, b3)
-    cuda_build.forbid_grad("sa_stage_fused_cached", g_rel, w_eff, feats, k1_feat, b1, w2, b2,
-                           w3, b3)
+    out = _launch_s(g_rel, w_eff, proj, None, group_idx, b1, w2, b2, w3, b3)
+    sa_stage_fused_cached.launches += 1
+    return out
+
+
+sa_stage_fused_cached.launches = 0
+
+
+def sa_stage_cached_int8(g_rel, w_eff, q, scale, group_idx, b1, w2, b2, w3, b3):
+    """Kernel S's 'int8' instantiation: q [M, N2, C1] int8 codes, scale [M, C1] -> [M, S, C3].
+    The plain version gathers from the dequantized table q * scale and adds it after the
+    xyz term, in the order of ``sa_fused_pallas.py:240``."""
+    if g_rel.device.type == "cpu":
+        table = q.float() * scale[:, None, :]
+        return sa_stage_plain(g_rel, w_eff, table, group_idx, b1, w2, b2, w3, b3)
+    cuda_build.forbid_grad("sa_stage_cached_int8", g_rel, w_eff, b1, w2, b2, w3, b3)
+    out = _launch_s(g_rel, w_eff, q, scale, group_idx, b1, w2, b2, w3, b3)
+    sa_stage_cached_int8.launches += 1
+    return out
+
+
+sa_stage_cached_int8.launches = 0
+
+
+def _launch_s(g_rel, w_eff, proj, scale, group_idx, b1, w2, b2, w3, b3) -> torch.Tensor:
+    """Check kernel S's operands and launch it -> out [M, S, C3]: the exact instantiation
+    with ``proj`` [M, N2, C1] f32 or None, or with ``scale`` [M, C1] the int8 one, ``proj``
+    then holding the codes."""
     M, S, K, _ = g_rel.shape
     C1, C2, C3 = w_eff.shape[2], w2.shape[1], w3.shape[1]
     _check_kernel_shapes(K, C1, C2, C3)
@@ -90,24 +177,27 @@ def sa_stage_fused_cached(
     if proj is not None:
         proj = proj.contiguous()
         gidx = group_idx.to(torch.int32).contiguous()
-        cuda_build.require(proj, "proj", torch.float32, 3, align16=True)
+        cuda_build.require(proj, "proj", torch.float32 if scale is None else torch.int8, 3,
+                           align16=True)
         if gidx.shape != (M, S, K) or proj.shape[0] != M or proj.shape[2] != C1:
             raise ValueError("group_idx / feats do not match g_rel")
         n2, proj_ptr, gidx_ptr = proj.shape[1], proj.data_ptr(), gidx.data_ptr()
     out = torch.empty((M, S, C3), dtype=torch.float32, device=g_rel.device)
-    lib = cuda_build.library("sa_cached")
-    cuda_build.check(
-        lib.pfpp_sa_cached(g_rel.data_ptr(), w_eff.data_ptr(), proj_ptr, gidx_ptr,
-                           b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), w3.data_ptr(),
-                           b3.data_ptr(), out.data_ptr(), M, S, K, n2, C1, C2, C3,
-                           cuda_build.stream_ptr(g_rel)),
-        "sa_stage_fused_cached",
-    )
-    sa_stage_fused_cached.launches += 1
+    tail = (gidx_ptr, b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), w3.data_ptr(),
+            b3.data_ptr(), out.data_ptr(), M, S, K, n2, C1, C2, C3, cuda_build.stream_ptr(g_rel))
+    if scale is None:
+        code = cuda_build.function("sa_cached", "pfpp_sa_cached")(
+            g_rel.data_ptr(), w_eff.data_ptr(), proj_ptr, *tail)
+    else:
+        scale = scale.contiguous()
+        cuda_build.require(scale, "scale", torch.float32, 2, align16=True)
+        if proj is None or scale.shape != (M, C1):
+            raise ValueError(f"the int8 kernel takes codes [M, N2, C1] and scale [M, C1]; got "
+                             f"scale {tuple(scale.shape)}")
+        code = cuda_build.function("sa_cached", "pfpp_sa_cached_int8")(
+            g_rel.data_ptr(), w_eff.data_ptr(), proj_ptr, scale.data_ptr(), *tail)
+    cuda_build.check(code, "sa_stage_fused_cached" if scale is None else "sa_stage_cached_int8")
     return out
-
-
-sa_stage_fused_cached.launches = 0
 
 
 def sa_stage_fused_plain(pts_cat, fps_idx, group_idx, weights) -> torch.Tensor:

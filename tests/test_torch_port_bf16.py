@@ -274,9 +274,9 @@ def test_engine_under_bf16_passes_fp32_weights_to_kernel_s(monkeypatch, tmp_path
     cfg.inference.save_trajectories = False
     seen, real = [], sampler.sa_stage_fused_cached
 
-    def spy(*args):
+    def spy(*args, **kwargs):
         seen.append({a.dtype for a in args if isinstance(a, torch.Tensor)})
-        return real(*args)
+        return real(*args, **kwargs)
 
     monkeypatch.setattr(sampler, "sa_stage_fused_cached", spy)
     _, den_m, ver = R.make_models(cfg)

@@ -7,7 +7,7 @@ so on a machine without JAX it runs with the conftest left out:
 
 Tolerances: FPS (F and P) / gather (G and A) / NN (N and M) indices and values exact (the
 kernels compute distances with the plain version's rounding, no FMA; P equals F too; N and M
-also across two launches); S and R 1e-4
+also across two launches; S's int8 codes and scales bit-equal); S (exact and int8) and R 1e-4
 of the largest output (3xTF32 products on the tensor cores, FP32 sums in another order),
 and bit-equal across two launches (no float atomics);
 B 1e-5 of the largest sum against the plain index_add_, which adds with atomics in no fixed
@@ -103,6 +103,44 @@ def test_sa_cached_kernel_matches_plain_on_card(dev, K, D, widths, S):
     proj = None if feats is None else feats @ k1f
     ref = tsa.sa_stage_plain(args[0], args[1], proj, gidx, *args[5:])
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("S", [25, 7])
+@pytest.mark.parametrize("K,D,widths", [
+    (64, 128, (128, 128, 256)),  # SA2: 8 chunks of 16 codes a row
+    (64, 256, (256, 256, 512)),  # SA3: 16 chunks a row
+    (32, 24, (32, 64, 64)),      # C1 = 32: two chunks a row, 128-row blocks
+])
+def test_sa_int8_kernels_match_plain_on_card(dev, K, D, widths, S):
+    """S's int8 mode: the quantize kernel bit-equal to its plain version (an all-zero column
+    included), S's int8 instantiation within 1e-4 of the largest output of its plain version
+    and bit-equal across two launches, one launch of each counted."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    M, N2 = 3, 40
+    C1, C2, C3 = widths
+    r = lambda *s, scale=1.0: torch.randn(s, generator=g, device=dev) * scale  # noqa: E731
+    feats = r(M, N2, D).relu()
+    k1f = r(D, C1, scale=D ** -0.5)
+    k1f[:, 1] = 0
+    gidx = torch.randint(0, N2, (M, S, K), generator=g, device=dev)
+    args = (r(M, S, K, 3, scale=0.1), r(M, 3, C1, scale=3 ** -0.5), feats, gidx, k1f,
+            r(C1, scale=0.1), r(C1, C2, scale=C1 ** -0.5), r(C2, scale=0.1),
+            r(C2, C3, scale=C2 ** -0.5), r(C3, scale=0.1))
+    proj = feats @ k1f
+    q, scale = tsa.sa_quantize(proj)
+    q_ref, scale_ref = tsa.sa_quantize_plain(proj)
+    assert torch.equal(q, q_ref) and torch.equal(scale, scale_ref)
+    assert bool((q[:, :, 1] == 0).all()) and int(q.abs().max()) == 127
+    ops.reset_launch_counts()
+    out = tsa.sa_stage_fused_cached(*args, gather_impl="int8")
+    counts = ops.launch_counts()
+    assert (counts["S"], counts["S int8"], counts["S int8 quantize"]) == (0, 1, 1)
+    assert torch.equal(out, tsa.sa_stage_fused_cached(*args, gather_impl="int8"))
+    ref = tsa.sa_stage_plain(args[0], args[1], q_ref.float() * scale_ref[:, None, :], gidx,
+                             *args[5:])
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 * ref.abs().max().item())
+    cpu = tsa.sa_stage_fused_cached(*(a.cpu() for a in args), gather_impl="int8")
+    torch.testing.assert_close(out.cpu(), cpu, rtol=0, atol=1e-4 * cpu.abs().max().item())
 
 
 @pytest.mark.parametrize("N,C,shape", [(1000, 3, (1000,)), (256, 128, (128, 64)),
@@ -483,6 +521,16 @@ def test_kernel_wrappers_reject_bad_input(dev):
                                                    (64,), (64, 64), (64,))]
     with pytest.raises(ValueError, match="K dividing 64"):  # K = 6
         tsa.sa_stage_fused_cached(args[0], args[1], None, None, None, *args[2:])
+    # the int8 instantiation checks its codes and scales as the exact one checks proj
+    g_rel, gidx = torch.randn((1, 4, 8, 3), device=dev), torch.zeros((1, 4, 8), device=dev)
+    q = torch.zeros((1, 5, 64), dtype=torch.int8, device=dev)
+    scale = torch.ones((1, 64), device=dev)
+    for bad_q, bad_scale, gi, err in ((q.float(), scale, gidx, TypeError),
+                                      (q[:, :, :32], scale, gidx, ValueError),
+                                      (q, scale[:, :32], gidx, ValueError),
+                                      (q, scale, gidx[:, :3], ValueError)):
+        with pytest.raises(err):
+            tsa.sa_stage_cached_int8(g_rel, args[1], bad_q, bad_scale, gi, *args[2:])
 
 
 def test_kernels_without_backward_refuse_inputs_that_need_grad(dev):

@@ -225,8 +225,8 @@ def test_frozen_encoder_modes_match_jax(vq_weights, fused, monkeypatch):
     kernels = []
     for name in ("sa_stage_fused", "sa_stage_fused_cached"):
         orig = getattr(tsampler, name)
-        monkeypatch.setattr(tsampler, name,
-                            lambda *a, _o=orig, _n=name: kernels.append(_n) or _o(*a))
+        monkeypatch.setattr(tsampler, name, lambda *a, _o=orig, _n=name, **kw:
+                            kernels.append(_n) or _o(*a, **kw))
     with torch.no_grad():
         tidx, tgeom = tenc.grouping(T(pcs))
         if fused == "cached":

@@ -381,7 +381,10 @@ def test_wrappers_use_plain_version_only_on_cpu():
     tfps.farthest_point_sample(x, 2)
     tga.gather_points_approx(x, idx)
     tga.scatter_add(x[:, :2], idx, 4)
-    assert ops.launch_counts() == {k: 0 for k in "SFGNMABRP"}
+    tsa.sa_quantize(x)
+    assert ops.launch_counts() == {k: 0 for k in [*"SFGNMABRP", "S int8", "S int8 quantize"]}
+    with pytest.raises(ValueError):
+        tsa.sa_quantize(x.to("meta"))
     with pytest.raises(ValueError):
         tch.nn_distance(x.to("meta"), x.to("meta"))
     with pytest.raises(ValueError):

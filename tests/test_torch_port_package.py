@@ -43,7 +43,8 @@ def test_port_imports_no_jax():
         "tools = {'bench', 'render_results', 'utils.native', 'utils.profiling', "
         "'utils.sanitize', 'data.meshio', 'data.preprocess', 'data.generate_pc_data', "
         "'renderer', 'renderer.artifacts', 'renderer.blender', 'renderer.matching_vis', "
-        "'renderer.pc_renderer', 'renderer.rasterizer'}\n"
+        "'renderer.pc_renderer', 'renderer.rasterizer', 'inference', 'inference.engine', "
+        "'inference.sampler', 'ops.sa_fused'}\n"
         "assert {'puzzlefusion_plusplus_tpu_torch.' + m for m in tools} <= set(mods), mods\n"
         "assert not bad, bad\n"
     )
