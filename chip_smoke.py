@@ -156,6 +156,17 @@ Phases, each printing one JSON object per line (with its seconds):
                exact and SA2, SA3 int8 in every step), z_e of the int8 encode against the
                exact one on the engine batch's 96 clouds, and the bench entry under the
                variable (``sa_gather`` in its line).
+ 24. overfit — the overfit proof (``scripts/overfit_proof.py::run``) at ``Config()`` widths
+               on one synthetic shape of 4-6 parts (seed 3), cut in depth (``OVERFIT_CUT``):
+               the VQ-VAE at batch 1, the denoiser overfit at batch 64 (1280 encoder clouds a
+               step) on the 20 inference timesteps with its curve, the verifier stage, then
+               the engine over the shape without merging and with the verifier checkpoint,
+               all served from the phase's own checkpoints. Fails unless every curve point
+               and both engine results are finite, the loss on the held draws at the last
+               evaluation is at most ``OVERFIT_MSE_FRACTION`` of its value after step 1, and
+               the engine's checkpoints are the phase's. Phase 2 holds A and B at the VQ-VAE
+               step's M = 20, G at its xyz gathers, F and G at the overfit step's M = 1280
+               and N on the engine's [1, 20000] shape_cd clouds (path "overfit").
 Each path's launch counts are read from its own run: reset right before phase 3's second
 (counted) engine call and read right after phase 4's GPU run (the inference path), reset
 right before phase 6 and read right after it (the VQ-VAE training path), reset right before
@@ -167,7 +178,8 @@ training path, "train_matching") and phase 19's writer ("matching_gen") and serv
 each rank's, reset in the rank right before each entry run and summed over the ranks after it
 (its parity steps are not counted); phase 22's are reset right before its training run and
 read right after its engine call (path "bf16"); phase 23's are reset right before its
-counted engine call and read right after it (path "int8"). Then a ``kernels``
+counted engine call and read right after it (path "int8"); phase 24's right before the
+overfit run and read right after it (path "overfit"). Then a ``kernels``
 line lists every kernel with its path's count, its error and its times, and the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and the script exits non-zero without
 that line. Needs one CUDA card; ``--phases`` picks phases.
@@ -224,13 +236,23 @@ BF16_KERNELS = "SFGNA"  # bf16 denoiser training (F, G, A) and the bf16 engine (
 # the matcher's training step, its test-mode forward in the writer, and the engine serving
 # the written matching data
 MATCHING_KERNELS, MATCHING_GEN_KERNELS, MATCHING_SERVE_KERNELS = "FGB", "FG", "SFGN"
+# the overfit proof: VQ-VAE training (F, G, A, B, N), the overfit step's composable encode
+# (F, G, A), the sampler and the engine (S, F, G, N; M and P only when a merge fires)
+OVERFIT_KERNELS, OVERFIT_REQUIRED = "SFGNABMP", "SFGNAB"
+# the overfit phase's cut in depth (its widths are Config()'s): steps of the VQ-VAE (batch
+# 1), of the denoiser (batch 64) and of the verifier, and the evaluation cadence
+OVERFIT_CUT = {"steps_ae": 300, "steps_dn": 150, "steps_vf": 400, "eval_every": 50}
+# the learning check: the loss on the held draws at the last evaluation over its value
+# after step 1 (fixed before the first run on the card, PERF.md §6)
+OVERFIT_MSE_FRACTION = 0.5
 PATH_KERNELS = {"inference": INFERENCE_KERNELS, "train": TRAIN_KERNELS,
                 "encoder_modes": ENCODER_MODE_KERNELS, "train_denoiser": DENOISER_KERNELS,
                 "verifier_gen": VERIFIER_GEN_KERNELS, "train_verifier": "",
                 "serve": SERVE_KERNELS, "dp": DP_KERNELS, "train_matching": MATCHING_KERNELS,
                 "matching_gen": MATCHING_GEN_KERNELS,
                 "matching_serve": MATCHING_SERVE_KERNELS, "bf16": BF16_KERNELS,
-                "int8": ("S", "S int8", "S int8 quantize", "F", "G", "N")}
+                "int8": ("S", "S int8", "S int8 quantize", "F", "G", "N"),
+                "overfit": OVERFIT_KERNELS}
 MAIN_PATH = {"A": "train", "B": "train", "R": "encoder_modes", "S int8": "int8",
              "S int8 quantize": "int8"}  # the rest: "inference"
 SUMMED = ("S", "R", "A", "B", "S int8", "S int8 quantize")  # one step's shapes, summed
@@ -612,6 +634,9 @@ def phase_kernels(results: dict) -> None:
                                          for m in [plan["engine_clouds"], *plan["train_clouds"]]
                                          for n, k in ((1000, 256), (256, 128), (128, 25))),
                                        *((MATCHING_SERVE_CLOUDS, n, k, False, "matching_serve")
+                                         for n, k in ((1000, 256), (256, 128), (128, 25))),
+                                       # the overfit step's composable encode, M = 1280
+                                       *((1280, n, k, False, "overfit")
                                          for n, k in ((1000, 256), (256, 128), (128, 25)))):
         t0 = time.perf_counter()
         xyz = randn(B, N, 3)
@@ -720,6 +745,13 @@ def phase_kernels(results: dict) -> None:
             gather_row("G", gather.gather_points, M, N, 3, (S, K), "dp", 50)
     gather_row("G", gather.gather_points, MATCHING_SERVE_CLOUDS, 1000, 3, (256, 32),
                "matching_serve", 50)
+    # the overfit proof: its VQ-VAE step's SA2 and SA3 xyz gathers at M = 20 (batch 1 x 20
+    # slots), then the overfit step's composable encode at M = 1280
+    for M, shapes in ((20, ((256, 128, 64), (128, 25, 64))),
+                      (1280, ((1000, 256, 32), (256, 128, 64), (128, 25, 64)))):
+        for N, S, K in shapes:
+            gather_row("G", gather.gather_points, M, N, 3, (S, K), "overfit",
+                       50 if M == 20 else 5)
 
     # G: the matcher's gathers at batch 1: sa1's ball grouping of the 5000-point cloud, the
     # feature groupings of sa2-sa4, fp4's and fp1's 3-NN interpolation and the
@@ -750,7 +782,8 @@ def phase_kernels(results: dict) -> None:
                                       (8 // plan["world"], 12000, "dp", True),
                                       *((m, 1000, "dp", False) for m in plan["train_clouds"]),
                                       (MATCHING_SERVE_CLOUDS, 1000, "matching_serve", False),
-                                      (MATCHING_GEN_SHAPES, 12000, "matching_serve", True)):
+                                      (MATCHING_GEN_SHAPES, 12000, "matching_serve", True),
+                                      (1, 20000, "overfit", True)):
         t0 = time.perf_counter()
         x, y = (nn_engine_clouds(gen, B, N // 1000) if engine_shaped
                 else (randn(B, N, 3), randn(B, N, 3)))
@@ -782,6 +815,8 @@ def phase_kernels(results: dict) -> None:
     for M in plan["train_clouds"]:
         for N, C, S, K in ((256, 128, 128, 64), (128, 256, 25, 64)):
             gather_row("A", gather.gather_points_approx, M, N, C, (S, K), "dp", 10)
+    for N, C, S, K in ((256, 128, 128, 64), (128, 256, 25, 64)):  # the overfit VQ-VAE's
+        gather_row("A", gather.gather_points_approx, 20, N, C, (S, K), "overfit", 20)
     # G and A on bf16 rows (trainer.precision=bf16): the denoiser step's frozen encode, SA2's
     # and SA3's feature gathers at M = 1280
     for name, fn in (("G", gather.gather_points), ("A", gather.gather_points_approx)):
@@ -799,6 +834,7 @@ def phase_kernels(results: dict) -> None:
     for M, path, (N, C, R, skewed) in (
             [(160, "train", sh) for sh in step_shapes + ((1000, 3, 1000, True),)]
             + [(m, "dp", sh) for m in plan["train_clouds"] for sh in step_shapes]
+            + [(20, "overfit", sh) for sh in step_shapes]
             + [(1, "train_matching", (N, C, math.prod(shape), False))
                for N, C, shape in MATCHER_GATHERS[1:]]):
         t0 = time.perf_counter()
@@ -2356,6 +2392,49 @@ def phase_int8(results: dict, data_root: str, data_proc, engine_row: dict | None
     return row
 
 
+def phase_overfit() -> dict:
+    """The overfit proof at ``OVERFIT_CUT`` (phase 24): its curve, both engine rows, the
+    learning check and the engine's checkpoints."""
+    import shutil
+
+    import numpy as np
+
+    from puzzlefusion_plusplus_tpu_torch import ops
+    from puzzlefusion_plusplus_tpu_torch.scripts import overfit_proof
+    from puzzlefusion_plusplus_tpu_torch.utils.config import Config
+
+    t0 = time.perf_counter()
+    root = os.path.join(REPO, ".smoke", "chip_smoke_overfit")
+    evidence_dir = os.path.join(REPO, ".smoke", "evidence")
+    shutil.rmtree(root, ignore_errors=True)  # overfit_proof resumes from what it finds
+    ops.reset_launch_counts()  # the overfit path's run starts here
+    summary = overfit_proof.run(Config(), root, num_shapes=1, device="cuda",
+                                evidence_dir=evidence_dir, **OVERFIT_CUT)
+    counts = ops.launch_counts()
+    curve, engine = summary["curve"], summary["engine"]
+    held = [p["mse_held"] for p in curve]
+    row = {"phase": "overfit", "seconds": time.perf_counter() - t0, "cut": OVERFIT_CUT,
+           "curve": curve, "engine": engine, "mse_held_ratio": held[-1] / held[0],
+           "mse_held_fraction_bar": OVERFIT_MSE_FRACTION,
+           "stage_seconds": summary["seconds"],
+           **{k: summary[k] for k in ("steps", "batch", "denoiser_s_per_step", "wall_s",
+                                      "peak_memory_bytes", "checkpoints")},
+           "launches": counts}
+    emit(row)
+    _check(all(np.isfinite(v) for p in curve for v in p.values()), f"non-finite curve {curve}")
+    _check(all(np.isfinite(r[k]) for r in engine.values()
+               for k in ("part_acc", "shape_cd", "rmse_r", "rmse_t")), f"engine {engine}")
+    _check(held[-1] <= OVERFIT_MSE_FRACTION * held[0],
+           f"the held-draw loss fell from {held[0]} to {held[-1]}, not below "
+           f"{OVERFIT_MSE_FRACTION} of it")
+    ckpts = summary["checkpoints"]
+    _check(all(path.startswith(root) and os.path.isdir(path) for path in ckpts.values())
+           and engine["full"]["verifier"] == ckpts["verifier"],
+           f"the engine did not serve the phase's checkpoints: {ckpts}, {engine}")
+    _check(all(counts[k] > 0 for k in OVERFIT_REQUIRED), f"a kernel never launched: {counts}")
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,fps_shapes,engine,merge,profile,train,"
@@ -2363,7 +2442,7 @@ def main() -> int:
                                         "train_denoiser,denoiser_parity,profile_denoiser,"
                                         "verifier_gen,train_verifier,verifier_parity,serve,"
                                         "train_matching,matching_parity,profile_matching,"
-                                        "matching_gen,dp,bench,bf16,int8")
+                                        "matching_gen,dp,bench,bf16,int8,overfit")
     phases = ap.parse_args().phases.split(",")
 
     import torch
@@ -2489,6 +2568,8 @@ def main() -> int:
     if "int8" in phases:
         launches["int8"] = phase_int8(results, data_root, bench_data,
                                       rows.get("engine"))["launches"]
+    if "overfit" in phases:
+        launches["overfit"] = phase_overfit()["launches"]
 
     if results:
         rows = []

@@ -46,6 +46,13 @@ def test_port_imports_no_jax():
         "'renderer.pc_renderer', 'renderer.rasterizer', 'inference', 'inference.engine', "
         "'inference.sampler', 'ops.sa_fused'}\n"
         "assert {'puzzlefusion_plusplus_tpu_torch.' + m for m in tools} <= set(mods), mods\n"
+        "scripts = {'evidence', 'engine_breakdown', 'part_acc_floor', 'overfit_proof', "
+        "'synthetic_train_eval', 'eval_train_split', 'rescore_checkpoints', "
+        "'denoiser_extend', 'verifier_regen_eval'}\n"
+        "assert {'puzzlefusion_plusplus_tpu_torch.scripts', *('puzzlefusion_plusplus_tpu_torch"
+        ".scripts.' + m for m in scripts)} <= set(mods), mods\n"
+        "assert not [m for m in sys.modules if m == 'scripts' or m.startswith('scripts.') "
+        "or m in ('evidence', 'engine_breakdown')], 'the root scripts/ were imported'\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
