@@ -15,6 +15,16 @@ JAX script's environment variables, with its defaults, and calls it:
 * ``rescore_checkpoints`` — a multi-seed re-score of every retained denoiser checkpoint.
 * ``denoiser_extend``     — more denoiser epochs from the latest checkpoint, to a deadline.
 * ``verifier_regen_eval`` — a verifier trained on data from the trained denoiser, A/B.
+* ``matcher_train_eval``  — the matcher on ``synthetic_train_eval``'s shapes: its held-out
+                            ``mat_f1`` against the oracle ceiling, its matching data through
+                            the engine beside the GT-synthetic data.
+* ``matcher_diagnosis``   — a matcher checkpoint under four score/selection regimes.
+* ``matching_sensitivity_probe`` — the engine's merges under both kinds of matching data.
+
+The shell scripts beside them are the root ``scripts/``' by name, on the port's entries: the
+launchers ``train_{vqvae,denoiser,verifier,matching}.sh`` and ``inference.sh``, and the run
+tooling ``supervise_train.sh``, ``stall_watchdog.sh``, ``evidence_queue.sh`` (the root's
+``tpu_evidence_queue.sh``), ``warm_cache.sh`` and ``evidence_snapshot.sh``.
 
 The scripts that compute run on ``cuda`` unless given ``--cpu`` (``device="cpu"``), through
 ``inference/run.py::resolve_device``; ``evidence`` and ``engine_breakdown`` only read and

@@ -90,6 +90,21 @@ def denoiser_batches(cfg: Config, batch: int) -> int:
     return len(Loader(ds, batch, seed=cfg.trainer.seed, bucket_key=keys))
 
 
+def ensure_splits(root: str, n_train: int, n_val: int, clock: Clock, min_parts: int = 2,
+                  max_parts: int = 20) -> None:
+    """The run root's shapes, made once (``.done`` marks them): N_TRAIN training shapes
+    (seed 11) and N_VAL held-out ones (seed 12) of 1000 points, as the JAX scripts that share
+    the root (``synthetic_train_eval``, ``matcher_train_eval``) make them."""
+    if not os.path.exists(root + "/.done"):
+        clock.say(f"generating {n_train}+{n_val} shapes")
+        generate_dataset(root, num_shapes=n_train, seed=11, split="train",
+                         min_parts=min_parts, max_parts=max_parts, n_points=1000)
+        generate_dataset(root, num_shapes=n_val, seed=12, split="val", min_parts=min_parts,
+                         max_parts=max_parts, n_points=1000)
+        with open(root + "/.done", "w") as fh:
+            fh.write("ok")
+
+
 def run(cfg: Config, root: str, n_train: int = 256, n_val: int = 16, steps_ae: int = 4000,
         steps_dn: int = 10000, steps_vf: int = 1000, min_parts: int = 2, max_parts: int = 20,
         plateau_x: float = 3.0, bucket_mult: int = 4, batches: dict | None = None,
@@ -99,14 +114,7 @@ def run(cfg: Config, root: str, n_train: int = 256, n_val: int = 16, steps_ae: i
     batches = {**BATCHES, **(batches or {})}
     clock = Clock()
     tag = f"gen{n_train}"
-    if not os.path.exists(root + "/.done"):
-        clock.say(f"generating {n_train}+{n_val} shapes")
-        generate_dataset(root, num_shapes=n_train, seed=11, split="train",
-                         min_parts=min_parts, max_parts=max_parts, n_points=1000)
-        generate_dataset(root, num_shapes=n_val, seed=12, split="val", min_parts=min_parts,
-                         max_parts=max_parts, n_points=1000)
-        with open(root + "/.done", "w") as fh:
-            fh.write("ok")
+    ensure_splits(root, n_train, n_val, clock, min_parts, max_parts)
     cfg = gen_config(root, cfg, bucket_mult)
     if not os.path.exists(root + "/.stage2_plateau") and not denoiser_batches(
             cfg, batches["denoiser"]):

@@ -694,3 +694,24 @@ def test_matching_step_on_card_matches_cpu(dev, tmp_path):
     assert all(ops.launch_counts()[k] > 0 for k in "FGB")
     cpu = parity.matching_step_on(make, sd, batch, "cpu")
     parity.compare(cpu, gpu, mtrain.METRIC_KEYS, parity.MATCHING_SMALL)
+
+
+def test_matcher_eval_shapes_match_plain_on_card(dev):
+    """The matcher at 1000 points with sa_npoints (1024, ...): F selects more centres than a
+    cloud has points (once every valid point is taken, the first valid index repeats); B at
+    the batch-4 PointTransformer backward, [4, 2000 x 16, 128] (the CSR route)."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    xyz = torch.randn((4, 1000, 3), generator=g, device=dev) * 0.3
+    mask = torch.ones((4, 1000), dtype=torch.bool, device=dev)
+    mask[1, :100] = False  # 900 valid points
+    for m in (mask, None):
+        out = tfps.farthest_point_sample(xyz, 1024, m)
+        assert torch.equal(out, tfps.farthest_point_sample_plain(xyz, 1024, m))
+        assert (out[:, 1000:] == out[:, :1]).all()
+    up = torch.randn((4, 2000 * 16, 128), generator=g, device=dev)
+    idx = torch.randint(0, 2000, (4, 2000 * 16), generator=g, device=dev, dtype=torch.int32)
+    assert tga.scatter_scratch_ints(4, 2000 * 16, 2000, 128) > 0  # the CSR route
+    out = tga.scatter_add(up, idx, 2000)
+    ref = tga.scatter_add_plain(up, idx, 2000)
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+    assert torch.equal(out.cpu(), tga.scatter_add_plain(up.cpu(), idx.cpu(), 2000))

@@ -48,7 +48,8 @@ def test_port_imports_no_jax():
         "assert {'puzzlefusion_plusplus_tpu_torch.' + m for m in tools} <= set(mods), mods\n"
         "scripts = {'evidence', 'engine_breakdown', 'part_acc_floor', 'overfit_proof', "
         "'synthetic_train_eval', 'eval_train_split', 'rescore_checkpoints', "
-        "'denoiser_extend', 'verifier_regen_eval'}\n"
+        "'denoiser_extend', 'verifier_regen_eval', 'matcher_train_eval', "
+        "'matcher_diagnosis', 'matching_sensitivity_probe'}\n"
         "assert {'puzzlefusion_plusplus_tpu_torch.scripts', *('puzzlefusion_plusplus_tpu_torch"
         ".scripts.' + m for m in scripts)} <= set(mods), mods\n"
         "assert not [m for m in sys.modules if m == 'scripts' or m.startswith('scripts.') "

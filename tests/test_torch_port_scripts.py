@@ -472,7 +472,8 @@ def test_verifier_regen_eval_on_the_run_root(gen_run):
 
 
 ENTRIES = ("part_acc_floor", "overfit_proof", "synthetic_train_eval", "eval_train_split",
-           "rescore_checkpoints", "denoiser_extend", "verifier_regen_eval")
+           "rescore_checkpoints", "denoiser_extend", "verifier_regen_eval",
+           "matcher_train_eval", "matcher_diagnosis", "matching_sensitivity_probe")
 
 
 @pytest.mark.parametrize("name", ENTRIES)
@@ -484,6 +485,8 @@ def test_script_entry_needs_cuda_unless_cpu_asked(monkeypatch, name):
     with pytest.raises(RuntimeError, match="CUDA"):
         if name == "part_acc_floor":
             mod.floors("/nonexistent", device="cuda")
+        elif name == "matcher_diagnosis":
+            mod.run("/nonexistent", "/nonexistent/ckpt", device="cuda")
         else:
             mod.run(Config(), "/nonexistent", device="cuda")
     assert cli_device(["--cpu"]).type == "cpu"
