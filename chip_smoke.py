@@ -45,7 +45,8 @@ Phases, each printing one JSON object per line (with its seconds):
                discrete outcomes must agree and poses stay within 1e-3 (damped denoiser
                weights keep the 20-step recurrence contractive, as tests/test_bucketing.py).
   5. profile — torch.profiler over one more full-width engine call: self device time grouped
-               into the port's kernels, matrix products and the rest, and the busy share.
+               into the port's kernels, matrix products and the rest, and the program's
+               ``pfpp.*`` spans (count and host ms of each).
   6. train   — VQ-VAE training through its entry point ``training.vqvae.train`` at
                ``Config()``'s full ``ae`` width on 16 synthetic shapes of 3-12 parts (seed 11),
                batch 8 x 20 part slots = 160 clouds per step: one warm-up step and 5 timed
@@ -1212,14 +1213,19 @@ KERNEL_NAMES = {"sa_cached_kernel": "S", "fps_kernel": "F", "pfpp_gather_rows_ke
 
 def _profile(fn, warmups: int = 1) -> dict:
     """torch.profiler over one call of ``fn`` after ``warmups`` calls: self device time
-    grouped into the port's kernels, matrix products and the rest, and the busy share."""
+    grouped into the port's kernels, matrix products and the rest, and the program's spans
+    (``utils/profiling.py::snapshot``: per name, its count and host ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from puzzlefusion_plusplus_tpu_torch.utils import profiling
 
     for _ in range(warmups):
         fn()
     torch.cuda.synchronize()
+    profiling.profiling_on()  # reads False: the probe below starts the span registry afresh
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiling.profiling_on()
         t1 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1240,8 +1246,9 @@ def _profile(fn, warmups: int = 1) -> dict:
         groups[group] = groups.get(group, 0.0) + us / 1e3
     device_ms = sum(groups.values())
     top.sort(reverse=True)
-    return {"wall_ms_under_profiler": wall_ms, "device_ms": device_ms,
-            "device_busy_share": device_ms / wall_ms if device_ms else None,
+    spans = {n: {"count": v["count"], "host_ms": v["total_s"] * 1e3}
+             for n, v in sorted(profiling.snapshot()["spans"].items())}
+    return {"wall_ms_under_profiler": wall_ms, "device_ms": device_ms, "spans": spans,
             "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
             "top": [{"name": k[:90], "ms": us / 1e3, "count": c} for us, k, c in top[:12]]}
 

@@ -19,6 +19,8 @@ from typing import Any, Callable, Iterator
 
 import numpy as np
 
+from puzzlefusion_plusplus_tpu_torch.utils import profiling
+
 
 class Loader:
     def __init__(
@@ -96,11 +98,15 @@ def prefetch_batches(iterable, depth: int = 2) -> Iterator[Any]:
     consumer, so that the host builds the next batch while the card runs the step. One
     producer keeps the loader's rng call order, so batches come out bit for bit as plain
     iteration gives them. The producer touches numpy only, never CUDA. Its exceptions
-    re-raise at the consumer; a consumer that leaves early (``max_steps``) stops it."""
+    re-raise at the consumer; a consumer that leaves early (``max_steps``) stops it.
+    Spans: ``pfpp.loader.build`` on the producer a batch built, ``pfpp.loader.wait`` on the
+    consumer a batch handed out; the producer records only where the consumer's thread ran
+    a profiler when the generator started."""
     q: queue.Queue = queue.Queue(maxsize=depth)
     stop = threading.Event()
     sentinel = object()
     err: list[BaseException] = []
+    profiled = profiling.profiling_on()
 
     def put(item) -> bool:
         while not stop.is_set():
@@ -113,8 +119,13 @@ def prefetch_batches(iterable, depth: int = 2) -> Iterator[Any]:
 
     def worker():
         try:
-            for item in iterable:
-                if not put(item):
+            items = iter(iterable)
+            while True:
+                with profiling.span("pfpp.loader.build", on=profiled) as sp:
+                    item = next(items, sentinel)
+                    if item is sentinel:
+                        sp.discard()
+                if item is sentinel or not put(item):
                     return
         except BaseException as e:  # noqa: BLE001 - re-raised at the consumer
             err.append(e)
@@ -126,7 +137,10 @@ def prefetch_batches(iterable, depth: int = 2) -> Iterator[Any]:
     threading.Thread(target=worker, daemon=True).start()
     try:
         while True:
-            item = q.get()
+            with profiling.span("pfpp.loader.wait") as sp:
+                item = q.get()
+                if item is sentinel:
+                    sp.discard()
             if item is sentinel:
                 if err:
                     raise err[0]

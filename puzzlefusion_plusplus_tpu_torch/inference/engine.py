@@ -35,6 +35,7 @@ from puzzlefusion_plusplus_tpu_torch.ops.chamfer import masked_pairwise_nn
 from puzzlefusion_plusplus_tpu_torch.ops.fps import farthest_point_sample_per_cloud
 from puzzlefusion_plusplus_tpu_torch.ops.grouping import index_points
 from puzzlefusion_plusplus_tpu_torch.ops.normals import estimate_pointcloud_normals
+from puzzlefusion_plusplus_tpu_torch.utils import profiling
 from puzzlefusion_plusplus_tpu_torch.utils.transforms import (
     affine_to_pose,
     pose_to_affine,
@@ -190,21 +191,25 @@ def denoise_phase(state: AgglState, denoiser: Callable, encoder: FrozenEncoder,
     poses). ``step_noise`` [S, B, P, 7]. The grouping cache is built once: rotation leaves
     it unchanged and part_pcs/valids change only at merges."""
     B = state.noisy.shape[0]
-    cache = build_feature_cache(encoder, state.part_pcs, state.part_valids)
+    with profiling.span("pfpp.engine.cache"):
+        cache = build_feature_cache(encoder, state.part_pcs, state.part_valids)
     noisy = state.noisy
     traj = []
     for k, t in enumerate(leading_timesteps(ddpm.num_train_timesteps,
                                             cfg.num_inference_steps).tolist()):
-        latent, xyz = extract_features(encoder, state.part_pcs, noisy, cache)
-        pred = denoiser(
-            noisy, torch.full((B,), t, dtype=torch.long, device=noisy.device), latent, xyz,
-            state.part_valids, state.part_scale[..., None], state.ref_part,
-        )
-        new = ddpm_step(ddpm, pred, t, noisy, step_noise[k], cfg.num_inference_steps)
-        new = torch.where(state.ref_part[..., None], state.reference_vals, new)
-        new = torch.where(state.done[:, None, None], noisy, new)  # frozen once done
-        traj.append(torch.cat(compose_poses(new, state.pivot, state.init_pose), dim=-1))
-        noisy = new
+        with profiling.span("pfpp.engine.step"):
+            with profiling.span("pfpp.engine.encode"):
+                latent, xyz = extract_features(encoder, state.part_pcs, noisy, cache)
+            with profiling.span("pfpp.engine.denoiser"):
+                pred = denoiser(
+                    noisy, torch.full((B,), t, dtype=torch.long, device=noisy.device), latent,
+                    xyz, state.part_valids, state.part_scale[..., None], state.ref_part,
+                )
+            new = ddpm_step(ddpm, pred, t, noisy, step_noise[k], cfg.num_inference_steps)
+            new = torch.where(state.ref_part[..., None], state.reference_vals, new)
+            new = torch.where(state.done[:, None, None], noisy, new)  # frozen once done
+            traj.append(torch.cat(compose_poses(new, state.pivot, state.init_pose), dim=-1))
+            noisy = new
     return state._replace(noisy=noisy), torch.stack(traj, dim=1)
 
 
@@ -365,13 +370,15 @@ def verify_and_merge(state: AgglState, verifier: Callable, matching: dict,
                      num_parts: torch.Tensor, cfg: AgglConfig, triu: torch.Tensor):
     """One verify/merge pass; the merge geometry runs only if some sample merges (one host
     sync)."""
-    mid, ctx = verify_phase(state, verifier, matching, num_parts, cfg, triu)
-    if bool(ctx.part_merges.any()):
-        merged, merge_scale = merge_geometry(ctx, mid.node_valids, cfg)
-    else:
-        merged = torch.zeros_like(ctx.transformed_pts)
-        merge_scale = torch.zeros_like(mid.part_scale)
-    return commit_merge(state, mid, ctx, merged, merge_scale)
+    with profiling.span("pfpp.engine.verify"):
+        mid, ctx = verify_phase(state, verifier, matching, num_parts, cfg, triu)
+        if profiling.sync("pfpp.sync.merge_gate", ctx.part_merges.any()):
+            with profiling.span("pfpp.engine.merge"):
+                merged, merge_scale = merge_geometry(ctx, mid.node_valids, cfg)
+        else:
+            merged = torch.zeros_like(ctx.transformed_pts)
+            merge_scale = torch.zeros_like(mid.part_scale)
+        return commit_merge(state, mid, ctx, merged, merge_scale)
 
 
 def draw_noise(cfg: AgglConfig, B: int, P: int, generator: torch.Generator,
@@ -414,7 +421,8 @@ def auto_agglomerate_batch(
     traj_buf = torch.zeros((B, cfg.max_iters * S, P, 7), dtype=state.noisy.dtype, device=dev)
 
     it = 0
-    while it < cfg.max_iters and not all_done(bool(state.done.all())):
+    while it < cfg.max_iters and not all_done(profiling.sync("pfpp.sync.exit",
+                                                             state.done.all())):
         state, traj = denoise_phase(state, denoiser, encoder, ddpm, cfg,
                                     noise_steps[it * S : (it + 1) * S])
         traj_buf[:, it * S : (it + 1) * S] = traj

@@ -48,6 +48,7 @@ from puzzlefusion_plusplus_tpu_torch.models.verifier import VerifierTransformer
 from puzzlefusion_plusplus_tpu_torch.models.vqvae import VQVAE
 from puzzlefusion_plusplus_tpu_torch.parallel import launch, mesh
 from puzzlefusion_plusplus_tpu_torch.training.state import load_model_state
+from puzzlefusion_plusplus_tpu_torch.utils import profiling
 from puzzlefusion_plusplus_tpu_torch.utils.config import Config, config_from_argv
 from puzzlefusion_plusplus_tpu_torch.utils.metrics import assembly_metrics
 
@@ -130,19 +131,20 @@ def build_engine_fn(cfg: Config, device=None, state_dicts: dict | None = None,
 
     @torch.inference_mode()
     def engine(batch: dict, noise=None, generator=None) -> dict:
-        t = {k: torch.as_tensor(np.asarray(batch[k]), device=device) for k in SAMPLE_KEYS}
-        out = auto_agglomerate_batch(denoiser, verifier, encoder, ddpm, t, acfg,
-                                     noise=noise, generator=generator,
-                                     all_done=mesh.all_ranks)
-        pts = t["part_pcs"] * t["part_scale"][..., None]  # original local clouds
-        res = {
-            **assembly_metrics(pts, out["pred_trans"], out["pred_rots"], t["part_trans"],
-                               t["part_rots"], t["part_valids"], t["ref_part"]),
-            "trajectory": out["trajectory"],
-            "n_merged_pairs": out["final_state"].adj.sum((-1, -2)) // 2,
-            "n_iters": torch.full_like(t["num_parts"], out["n_iters"]),
-        }
-        return {k: v.cpu().numpy() for k, v in res.items()}
+        with profiling.span("pfpp.engine.call", request=True):
+            t = {k: torch.as_tensor(np.asarray(batch[k]), device=device) for k in SAMPLE_KEYS}
+            out = auto_agglomerate_batch(denoiser, verifier, encoder, ddpm, t, acfg,
+                                         noise=noise, generator=generator,
+                                         all_done=mesh.all_ranks)
+            pts = t["part_pcs"] * t["part_scale"][..., None]  # original local clouds
+            res = {
+                **assembly_metrics(pts, out["pred_trans"], out["pred_rots"], t["part_trans"],
+                                   t["part_rots"], t["part_valids"], t["ref_part"]),
+                "trajectory": out["trajectory"],
+                "n_merged_pairs": out["final_state"].adj.sum((-1, -2)) // 2,
+                "n_iters": torch.full_like(t["num_parts"], out["n_iters"]),
+            }
+            return profiling.sync("pfpp.sync.results", res)
 
     engine.device = device
     engine.sa_gather = encoder.sa_gather  # kernel S's gather mode, PFPP_SA_GATHER at build

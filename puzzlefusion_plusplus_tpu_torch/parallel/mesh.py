@@ -33,6 +33,8 @@ import torch
 import torch.distributed as dist
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
+from puzzlefusion_plusplus_tpu_torch.utils import profiling
+
 
 def initialized() -> bool:
     return dist.is_available() and dist.is_initialized()
@@ -148,12 +150,13 @@ def all_reduce_gradients(model: torch.nn.Module, group=None) -> None:
     parameter's gradient is summed shard by shard."""
     if world(group) == 1:
         return
-    grads = [p.grad for p in model.parameters() if p.grad is not None]
-    local = [g.to_local() if hasattr(g, "to_local") else g for g in grads]
-    flat = _flatten_dense_tensors(local)
-    dist.all_reduce(flat, group=group)
-    for g, v in zip(local, _unflatten_dense_tensors(flat, local)):
-        g.copy_(v)
+    with profiling.span("pfpp.train.allreduce"):
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        local = [g.to_local() if hasattr(g, "to_local") else g for g in grads]
+        flat = _flatten_dense_tensors(local)
+        dist.all_reduce(flat, group=group)
+        for g, v in zip(local, _unflatten_dense_tensors(flat, local)):
+            g.copy_(v)
 
 
 class _AllReduceSum(torch.autograd.Function):

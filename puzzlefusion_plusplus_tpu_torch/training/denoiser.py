@@ -68,6 +68,7 @@ from puzzlefusion_plusplus_tpu_torch.training.state import (
 )
 from puzzlefusion_plusplus_tpu_torch.training.vqvae import local_rows
 from puzzlefusion_plusplus_tpu_torch.training.vqvae import make_model as make_ae_model
+from puzzlefusion_plusplus_tpu_torch.utils import profiling
 from puzzlefusion_plusplus_tpu_torch.utils.config import Config, config_from_argv
 from puzzlefusion_plusplus_tpu_torch.utils.metrics import assembly_metrics
 
@@ -108,7 +109,8 @@ def loss_fn(model: DenoiserTransformer, encoder: FrozenEncoder, ddpm: DDPMParams
         timesteps = drawn[0] if timesteps is None else timesteps
         noise = drawn[1] if noise is None else noise
     noisy = torch.where(ref[..., None], gt, add_noise(ddpm, gt, noise, timesteps))
-    with torch.no_grad():  # the encoder is frozen (the JAX package's stop_gradient)
+    # the encoder is frozen (the JAX package's stop_gradient)
+    with torch.no_grad(), profiling.span("pfpp.train.encode"):
         cache = (build_feature_cache(encoder, batch["part_pcs"], batch["part_valids"])
                  if encode_cached else None)
         latent, xyz = extract_features(encoder, batch["part_pcs"], noisy, cache,
@@ -125,15 +127,17 @@ def train_step(state: TrainState, batch: dict, encoder: FrozenEncoder, ddpm: DDP
                encode_cached: bool = False, timesteps=None, noise=None) -> dict:
     """One AdamW update on ``batch`` (this rank's rows, tensors on the model's device) with
     the gradient summed over the ranks; returns the global batch's metrics."""
-    state.model.train()
-    state.optimizer.zero_grad(set_to_none=True)
-    loss, metrics = loss_fn(state.model, encoder, ddpm, batch, generator, timestep_set,
-                            encode_cached, timesteps, noise)
-    loss.backward()
-    mesh.all_reduce_gradients(state.model)
-    state.optimizer.step()
-    state.scheduler.step()
-    state.step += 1
+    with profiling.span("pfpp.train.step", request=True):
+        state.model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, metrics = loss_fn(state.model, encoder, ddpm, batch, generator, timestep_set,
+                                encode_cached, timesteps, noise)
+        loss.backward()
+        mesh.all_reduce_gradients(state.model)
+        with profiling.span("pfpp.train.optimizer"):
+            state.optimizer.step()
+            state.scheduler.step()
+        state.step += 1
     return metrics
 
 
