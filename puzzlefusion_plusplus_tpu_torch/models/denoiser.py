@@ -21,20 +21,32 @@ computes that op in fp32 and never rounds it (the scores q k^T, the bias add of 
 output joins the residual stream, ``1 + scale`` of the AdaLN): the port does the same
 (``dense(..., promoted=True)``), and computes silu and gelu in bf16 op by op as XLA lowers
 them. The parameters, their gradients and the optimizer's state stay fp32.
+
+On the card, ``DenoiserTransformer.forward`` replays its inference forward from a CUDA graph
+(one a shape of the inputs), so that the engine's denoising loop does not wait on the eager
+dispatch of its few hundred launches a call. The graph runs the same kernels on the same
+parameters as the eager body (``_forward_eager``), which every other call takes.
 """
 
 from __future__ import annotations
 
 import math
+import sys
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.modules import module as nn_module
 
 from puzzlefusion_plusplus_tpu_torch.models.embeddings import nerf_embed, sinusoidal_table
+from puzzlefusion_plusplus_tpu_torch.utils import profiling
 
 NEG_INF = -1e9
 SQRT_HALF_BF16 = 0.70703125  # sqrt(1/2) rounded to bf16, as jax.nn.gelu casts it
+# eager calls on a side stream before a capture, as torch.cuda.graph asks: cuBLAS's handles
+# and workspaces and every lazy initialisation happen there, outside the graph
+GRAPH_WARMUP_CALLS = 3
 
 
 def silu(x: torch.Tensor, promoted: bool = False) -> torch.Tensor:
@@ -204,10 +216,33 @@ class DenoiserTransformer(nn.Module):
         self.register_buffer(
             "pe", torch.from_numpy(sinusoidal_table(max_parts, embed_dim)), persistent=False
         )
+        self._drop_graphs()
 
     def forward(self, x, timesteps, latent, xyz, part_valids, scale, ref_part):
         """x [B, P, 7], timesteps [B] int, latent [B, P, L, num_dim], xyz [B, P, L, 3],
-        part_valids [B, P], scale [B, P, 1], ref_part [B, P] bool -> [B, P, 7]."""
+        part_valids [B, P], scale [B, P, 1], ref_part [B, P] bool -> [B, P, 7].
+
+        Where ``_graph_key`` finds the call fit for it (contiguous inputs on the current
+        card, ``eval()``, autograd off, a plain module tree), the first call at a key
+        captures ``_forward_eager`` into a CUDA graph (span ``pfpp.denoiser.capture``) and
+        every call at it replays the graph on a copy of its inputs (``pfpp.denoiser.replay``)
+        and returns a fresh tensor. Every other call runs ``_forward_eager``."""
+        args = (x, timesteps, latent, xyz, part_valids, scale, ref_part)
+        key = self._graph_key(args)
+        if key is None:
+            return self._forward_eager(*args)
+        g = self._graphs.get(key)
+        if g is None:
+            with profiling.span("pfpp.denoiser.capture"):
+                g = self._graphs[key] = self._capture(args)
+        with profiling.span("pfpp.denoiser.replay"):
+            for buf, a in zip(g.inputs, args):
+                buf.copy_(a)
+            g.graph.replay()
+            return g.output.clone()
+
+    def _forward_eager(self, x, timesteps, latent, xyz, part_valids, scale, ref_part):
+        """The forward, launched op by op (``forward``'s arguments)."""
         B, P, L, _ = latent.shape
         C, T = self.embed_dim, P * L
         scale_emb = nerf_embed(scale, self.multires)[:, :, None, :].expand(B, P, L, -1)
@@ -233,6 +268,86 @@ class DenoiserTransformer(nn.Module):
         return torch.cat([self._head(self.mlp_out_trans, out), self._head(self.mlp_out_rot, out)],
                          dim=-1)
 
+    def train(self, mode: bool = True):
+        """As ``nn.Module.train``; training mode also drops the captured graphs and their
+        memory pool, so that training never holds them."""
+        if mode:
+            self._drop_graphs()
+        return super().train(mode)
+
+    def _drop_graphs(self) -> None:
+        self._graphs, self._graph_params, self._graph_pool = {}, None, None
+
+    def _graph_key(self, args):
+        """The key of the CUDA graph that serves a call with these inputs: their shapes and
+        dtypes, the card, and whether inference mode is on (an inference-mode graph's input
+        buffers are inference tensors, which a ``no_grad`` caller cannot write). None where
+        the call runs eagerly: an input off the current card or not contiguous, training
+        mode, autograd or autocast on, or a tree that ``_param_ptrs`` refuses. Parameters
+        moved or replaced since the last call (``.to()``, ``load_state_dict(assign=True)``,
+        a parameter rebound) drop every graph first; an in-place update keeps them, and the
+        next replay reads it."""
+        if self.training or torch.is_grad_enabled() or torch.is_autocast_enabled():
+            return None
+        if not all(isinstance(a, torch.Tensor) and a.is_cuda and a.is_contiguous()
+                   for a in args):
+            return None
+        dev = torch.cuda.current_device()
+        if any(a.get_device() != dev for a in args):
+            return None
+        ptrs = self._param_ptrs()
+        if ptrs is None:
+            return None
+        if ptrs != self._graph_params:
+            self._drop_graphs()
+            self._graph_params = ptrs
+        return (tuple((a.shape, a.dtype) for a in args), dev,
+                torch.is_inference_mode_enabled())
+
+    def _param_ptrs(self):
+        """The addresses of every parameter and buffer of the tree, which a captured graph
+        reads; None where the forward must run eagerly: a module with forward hooks or
+        pre-hooks (a global one included), or a DTensor parameter (tensor parallelism's
+        plans, ``parallel/dryrun.py``)."""
+        if nn_module._global_forward_hooks or nn_module._global_forward_pre_hooks:
+            return None
+        tensors, stack = [], [self]
+        while stack:  # a plain walk: ``modules()`` costs about twice as much a call
+            m = stack.pop()
+            if m is None:
+                continue
+            if m._forward_hooks or m._forward_pre_hooks:
+                return None
+            tensors.extend(m._parameters.values())
+            tensors.extend(m._buffers.values())
+            stack.extend(m._modules.values())
+        dtensor = _loaded_dtensor_type()
+        if dtensor is not None and any(isinstance(t, dtensor) for t in tensors):
+            return None
+        return tuple(t.data_ptr() for t in tensors if t is not None)
+
+    def _capture(self, args) -> "_Graph":
+        """``_forward_eager`` captured on copies of ``args`` (the graph's input buffers),
+        after warm-up calls on a side stream. Every graph of the module allocates from one
+        memory pool: one forward's activations, whatever the shapes. Two graphs' buffers
+        may overlap there, which is safe because a replay's output is copied out on the
+        same stream before the next replay starts."""
+        inputs = tuple(a.clone() for a in args)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(GRAPH_WARMUP_CALLS):
+                self._forward_eager(*inputs)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: other threads of the process (a loader, NCCL's watchdog) may keep
+        # calling CUDA while this one captures
+        with torch.cuda.graph(graph, pool=self._graph_pool, capture_error_mode="thread_local"):
+            output = self._forward_eager(*inputs)
+        return _Graph(inputs, graph, output)
+
     def _head(self, head: nn.Sequential, x):
         """A pose head; with a compute dtype its first two layers run in it and the last in
         fp32 (it has no dtype in the JAX model), so the poses come out fp32."""
@@ -240,6 +355,24 @@ class DenoiserTransformer(nn.Module):
             return head(x)
         x = silu(dense(silu(dense(x, head[0], self.dtype)), head[2], self.dtype), promoted=True)
         return head[4](x)
+
+
+class _Graph(NamedTuple):
+    """One captured inference forward: its input buffers, the graph and its output buffer."""
+
+    inputs: tuple
+    graph: object  # torch.cuda.CUDAGraph
+    output: torch.Tensor
+
+
+def _loaded_dtensor_type():
+    """DTensor's class where ``torch.distributed`` has loaded it, else None: no parameter
+    can be a DTensor before then, and the check costs nothing."""
+    for name in ("torch.distributed.tensor", "torch.distributed._tensor"):
+        dtensor = getattr(sys.modules.get(name), "DTensor", None)
+        if dtensor is not None:
+            return dtensor
+    return None
 
 
 def compute_dtype(cfg) -> torch.dtype | None:

@@ -146,7 +146,9 @@ def pose_to_affine(trans: torch.Tensor, quat: torch.Tensor) -> torch.Tensor:
     """(trans [..., 3], quat [..., 4]) -> [..., 4, 4] (rotation then translation)."""
     batch = trans.shape[:-1]
     top = torch.cat([quat_to_matrix(quat), trans[..., :, None]], dim=-1)
-    bottom = trans.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(batch + (1, 4))
+    # the row [0, 0, 0, 1] made on the device: a tensor built from a host list is a blocking
+    # copy, which would make the engine's every denoising step wait for the card
+    bottom = torch.eye(4, dtype=trans.dtype, device=trans.device)[3:].expand(batch + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 
 

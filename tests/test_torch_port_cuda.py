@@ -14,7 +14,11 @@ B 1e-5 of the largest sum against the plain index_add_, which adds with atomics 
 order on the card, and bit for bit against the CPU's index_add_ and its own second launch
 (it adds in row order); engine trajectories 1e-3 on damped weights, discrete outcomes exact;
 a VQ-VAE and a denoiser training step on the card against the CPU within
-``training/parity.py``'s tolerances."""
+``training/parity.py``'s tolerances; the denoiser's replayed CUDA graph bit for bit against
+its eager body (the same kernels on the same inputs), and a b8 engine call with it against the
+same call with the eager body."""
+
+import gc
 
 import numpy as np
 import pytest
@@ -30,7 +34,7 @@ from puzzlefusion_plusplus_tpu_torch.data import (
 from puzzlefusion_plusplus_tpu_torch.inference import run as R
 from puzzlefusion_plusplus_tpu_torch.inference.engine import draw_noise
 from puzzlefusion_plusplus_tpu_torch.inference.sampler import make_frozen_encoder
-from puzzlefusion_plusplus_tpu_torch.models.denoiser import DenoiserTransformer
+from puzzlefusion_plusplus_tpu_torch.models.denoiser import DenoiserTransformer, make_denoiser
 from puzzlefusion_plusplus_tpu_torch.models.vqvae import VQVAE
 from puzzlefusion_plusplus_tpu_torch.ops import chamfer as tch
 from puzzlefusion_plusplus_tpu_torch.ops import cuda_build
@@ -715,3 +719,166 @@ def test_matcher_eval_shapes_match_plain_on_card(dev):
     ref = tga.scatter_add_plain(up, idx, 2000)
     assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
     assert torch.equal(out.cpu(), tga.scatter_add_plain(up.cpu(), idx.cpu(), 2000))
+
+
+# ------------------------------------------------ the denoiser's inference forward as a graph
+
+
+def _graph_denoiser(dev, precision="fp32", seed=0):
+    """The denoiser at ``Config()``'s published widths, in ``eval()`` on the card."""
+    cfg = R.Config()
+    cfg.trainer.precision = precision
+    torch.manual_seed(seed)
+    return make_denoiser(cfg).to(dev).eval(), cfg
+
+
+def _graph_inputs(dev, cfg, B, P, seed):
+    """One call's inputs at batch B and part pad P: some pad parts, one reference part."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    L, D = cfg.denoiser.num_point, cfg.denoiser.num_dim
+    n = torch.randint(2, P + 1, (B,), generator=g, device=dev)
+    valid = (torch.arange(P, device=dev)[None] < n[:, None]).float()
+    ref = torch.zeros((B, P), dtype=torch.bool, device=dev)
+    ref[:, 0] = True
+    return (torch.randn((B, P, 7), generator=g, device=dev),
+            torch.randint(0, 1000, (B,), generator=g, device=dev),
+            torch.randn((B, P, L, D), generator=g, device=dev),
+            torch.randn((B, P, L, 3), generator=g, device=dev), valid,
+            torch.rand((B, P, 1), generator=g, device=dev) + 0.5, ref)
+
+
+def _graph_spans(fn):
+    """(fn(), counts of the program's pfpp.denoiser.* spans while it ran)."""
+    from puzzlefusion_plusplus_tpu_torch.utils import profiling
+
+    assert not profiling.profiling_on()  # ends the last session
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        profiling.profiling_on()  # starts this one, empty even where fn() opens no span
+        out = fn()
+    return out, {n: v["count"] for n, v in profiling.snapshot()["spans"].items()
+                 if n.startswith("pfpp.denoiser.")}
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("P", [8, 12, 16, 20])
+def test_denoiser_graph_equals_eager_at_engine_shapes(dev, precision, P):
+    den, cfg = _graph_denoiser(dev, precision)
+    calls = [_graph_inputs(dev, cfg, 8, P, seed) for seed in range(3)]
+    with torch.inference_mode():
+        got, spans = _graph_spans(lambda: [den(*a) for a in calls])
+        want = [den._forward_eager(*a) for a in calls]
+    assert spans == {"pfpp.denoiser.capture": 1, "pfpp.denoiser.replay": 3}
+    assert len(den._graphs) == 1
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == (8, P, 7)
+        assert torch.equal(g, w)
+    assert got[0].data_ptr() != got[1].data_ptr()  # a fresh tensor a call
+
+
+def test_denoiser_graph_inference_mode_and_no_grad(dev):
+    den, cfg = _graph_denoiser(dev)
+    a = _graph_inputs(dev, cfg, 8, 12, 1)
+    with torch.inference_mode():
+        inf = den(*a)
+        inf_ref = den._forward_eager(*a)
+    with torch.no_grad():
+        ng = den(*a)
+        ng_ref = den._forward_eager(*a)
+    assert len(den._graphs) == 2  # the no_grad caller cannot write inference tensors
+    with torch.inference_mode():
+        assert torch.equal(den(*a), inf_ref)
+    assert len(den._graphs) == 2
+    assert torch.equal(inf, inf_ref) and torch.equal(ng, ng_ref)
+    assert not ng.is_inference() and inf.is_inference()
+
+
+def test_denoiser_graph_sees_in_place_weight_updates(dev):
+    den, cfg = _graph_denoiser(dev)
+    a = _graph_inputs(dev, cfg, 8, 16, 2)
+    g = torch.Generator(device=dev).manual_seed(5)
+    with torch.no_grad():
+        before = den(*a)
+        for p in den.parameters():  # as an optimizer step updates them
+            p.add_(torch.randn(p.shape, generator=g, device=dev), alpha=1e-2)
+        after = den(*a)
+        want = den._forward_eager(*a)
+    assert len(den._graphs) == 1
+    assert not torch.equal(before, after)
+    assert torch.equal(after, want)
+
+
+def test_denoiser_graph_recaptured_after_to_and_assign(dev):
+    den, cfg = _graph_denoiser(dev)
+    a = _graph_inputs(dev, cfg, 8, 8, 3)
+    with torch.inference_mode():
+        den(*a)
+    first = den._graph_params
+    for move in ("to", "assign"):
+        # the old tensors held, so that the allocator cannot hand their addresses back
+        held = [t.detach() for t in (*den.parameters(), *den.buffers())]
+        if move == "to":
+            den.to("cpu").to(dev)
+        else:
+            sd = {k: v.clone() for k, v in den.state_dict().items()}
+            den.load_state_dict(sd, assign=True)
+        with torch.inference_mode():
+            out, spans = _graph_spans(lambda: den(*a))
+            want = den._forward_eager(*a)
+        assert spans == {"pfpp.denoiser.capture": 1, "pfpp.denoiser.replay": 1}, move
+        assert den._graph_params != first and len(den._graphs) == 1
+        assert torch.equal(out, want), move
+        first = den._graph_params
+        del held
+
+
+def test_denoiser_train_mode_is_eager_and_frees_the_graphs(dev):
+    den, cfg = _graph_denoiser(dev)
+    a = _graph_inputs(dev, cfg, 8, 20, 4)
+    with torch.inference_mode():
+        den(*a)
+    assert den._graphs and den._graph_pool is not None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    den.train()
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert den._graphs == {} and den._graph_pool is None
+    assert torch.cuda.memory_reserved() < held  # the pool went back to the card
+    with torch.no_grad():
+        torch.manual_seed(6)  # the same dropout masks in both calls
+        out, spans = _graph_spans(lambda: den(*a))
+        torch.manual_seed(6)
+        want = den._forward_eager(*a)
+    assert spans == {} and den._graphs == {}
+    assert torch.equal(out, want)
+
+
+def test_engine_call_with_denoiser_graph_equals_eager(dev, tmp_path):
+    root = str(tmp_path)
+    generate_dataset(root, num_shapes=8, seed=4, split="val", min_parts=3, max_parts=8,
+                     n_points=96)
+    cfg = R.Config()  # the published denoiser and verifier; a small VQ-VAE
+    cfg.data.max_num_part = 8
+    cfg.verifier.max_iters = 2
+    torch.manual_seed(0)
+    _, den, ver = R.make_models(cfg)
+    vq = VQVAE(32, 16, 25, 64, sa_npoints=(24, 12), sa_nsamples=(8, 8, 8))
+    engine = R.build_engine_fn(cfg, "cuda", models=(vq, den, ver))
+    ds = DenoiserDataset(root + "/pc_data/val", mode="test",
+                         matching_data_path=root + "/matching_data", max_num_part=8)
+    batch = next(iter(Loader(ds, 8, shuffle=False, drop_last=False)))
+    P = batch["part_valids"].shape[1]
+    noise = draw_noise(R.agg_config(cfg), 8, P, torch.Generator().manual_seed(0), "cpu")
+    noise = tuple(n.cuda() for n in noise)
+    graphed, spans = _graph_spans(lambda: engine(batch, noise=noise))
+    steps = int(graphed["n_iters"][0]) * cfg.denoiser.num_inference_steps
+    assert spans == {"pfpp.denoiser.capture": 1, "pfpp.denoiser.replay": steps}
+    den.forward = den._forward_eager  # the eager engine
+    try:
+        eager = engine(batch, noise=noise)
+    finally:
+        del den.forward
+    assert graphed.keys() == eager.keys()
+    for k in graphed:
+        np.testing.assert_array_equal(graphed[k], eager[k], err_msg=k)

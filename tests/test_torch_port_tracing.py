@@ -12,18 +12,28 @@
   clock alone, so not in the trace) and one ``pfpp.loader.wait`` a batch.
 * A second profiled session starts the registry afresh; no ``pfpp.`` name is one that the
   benchmark's drivers count as their own spans.
+* The denoiser's CUDA-graph dispatch (``DenoiserTransformer.forward``) stays eager on the CPU,
+  in ``train()``, with autograd on, with a forward hook and with a DTensor parameter, and
+  then equals its eager body bit for bit; its key follows the parameters' addresses; no
+  ``pfpp.denoiser.*`` span is recorded on the CPU. The graph path itself runs on the card
+  (``tests/test_torch_port_cuda.py``).
 """
 
+import itertools
 import json
 
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+from torch import nn
+from torch.nn.modules import module as nn_module
 
 from puzzlefusion_plusplus_tpu_torch.data import DenoiserDataset, Loader, generate_dataset
 from puzzlefusion_plusplus_tpu_torch.data.loader import prefetch_batches
 from puzzlefusion_plusplus_tpu_torch.inference import run as R
 from puzzlefusion_plusplus_tpu_torch.inference.sampler import make_frozen_encoder
+from puzzlefusion_plusplus_tpu_torch.models.denoiser import DenoiserTransformer
 from puzzlefusion_plusplus_tpu_torch.models.scheduler import DDPMParams
 from puzzlefusion_plusplus_tpu_torch.models.vqvae import VQVAE
 from puzzlefusion_plusplus_tpu_torch.training import denoiser as ttrain
@@ -253,3 +263,120 @@ def test_no_program_span_is_a_benchmark_span():
 
     for spans in (engine.SPANS, denoiser_train.SPANS):
         assert not [n for n in spans if n.startswith("pfpp.")]
+
+
+# ----------------------------------------------------- the denoiser's CUDA-graph dispatch
+
+
+def _denoiser(B=2, P=4, L=5, dim=16):
+    """A small denoiser and one call's inputs, on the CPU."""
+    torch.manual_seed(0)
+    den = DenoiserTransformer(embed_dim=32, num_layers=2, num_heads=2, num_dim=dim,
+                              max_parts=P, num_ada_embeds=1000)
+    g = torch.Generator().manual_seed(1)
+    valid = torch.ones(B, P)
+    valid[0, -1] = 0
+    ref = torch.zeros(B, P, dtype=torch.bool)
+    ref[:, 0] = True
+    args = (torch.randn((B, P, 7), generator=g), torch.randint(0, 1000, (B,), generator=g),
+            torch.randn((B, P, L, dim), generator=g), torch.randn((B, P, L, 3), generator=g),
+            valid, torch.rand((B, P, 1), generator=g) + 0.5, ref)
+    return den, args
+
+
+def _sorted_ptrs(den):
+    return sorted(t.data_ptr() for t in itertools.chain(den.parameters(), den.buffers()))
+
+
+@pytest.mark.parametrize("mode", ["no_grad", "inference_mode", "grad", "train"])
+def test_denoiser_runs_its_eager_body_on_the_cpu(mode):
+    den, args = _denoiser()
+    den.train(mode == "train")
+    ctx = {"no_grad": torch.no_grad, "inference_mode": torch.inference_mode}.get(
+        mode, torch.enable_grad)
+    with ctx():
+        assert den._graph_key(args) is None
+        torch.manual_seed(2)  # train mode's dropout draws the same masks in both calls
+        out = den(*args)
+        torch.manual_seed(2)
+        ref = den._forward_eager(*args)
+    assert torch.equal(out, ref)
+    assert out.requires_grad == (mode in ("grad", "train"))
+    assert den._graphs == {} and den._graph_params is None and den._graph_pool is None
+
+
+@pytest.mark.parametrize("kind", ["plain", "forward_hook", "forward_pre_hook", "global_hook",
+                                  "dtensor"])
+def test_denoiser_graph_refused_by_hooks_and_dtensors(kind, tmp_path):
+    den, args = _denoiser()
+    den.eval()
+    assert sorted(den._param_ptrs()) == _sorted_ptrs(den)
+    if kind == "plain":
+        return
+    if kind == "dtensor":
+        from torch.distributed.device_mesh import init_device_mesh
+        from torch.distributed.tensor import Replicate, distribute_tensor
+
+        dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
+                                world_size=1)
+        try:
+            mesh = init_device_mesh("cpu", (1,))
+            w = den.transformer_layers[1].ff.net[2].weight
+            den.transformer_layers[1].ff.net[2].weight = nn.Parameter(
+                distribute_tensor(w.detach(), mesh, [Replicate()]))
+            assert den._param_ptrs() is None
+        finally:
+            dist.destroy_process_group()
+        return
+    target = den.transformer_layers[1].ff
+    handle = {
+        "forward_hook": lambda: target.register_forward_hook(lambda m, i, o: None),
+        "forward_pre_hook": lambda: target.register_forward_pre_hook(lambda m, i: None),
+        "global_hook": lambda: nn_module.register_module_forward_hook(lambda m, i, o: None),
+    }[kind]()
+    try:
+        assert den._param_ptrs() is None
+        with torch.no_grad():
+            assert den._graph_key(args) is None
+            assert torch.equal(den(*args), den._forward_eager(*args))
+    finally:
+        handle.remove()
+    assert sorted(den._param_ptrs()) == _sorted_ptrs(den)
+
+
+def test_denoiser_graph_key_follows_the_parameters():
+    den, _ = _denoiser()
+    den.eval()
+    first = den._param_ptrs()
+    with torch.no_grad():  # in place: a captured graph reads the new values
+        den.param_fc.weight.mul_(2.0)
+    den.load_state_dict(den.state_dict())
+    assert den._param_ptrs() == first
+    moved = []  # each of these moves or replaces a parameter: every graph is dropped
+    den.load_state_dict({k: v.clone() for k, v in den.state_dict().items()}, assign=True)
+    moved.append(den._param_ptrs())
+    den.mlp_out_rot[4].weight = nn.Parameter(den.mlp_out_rot[4].weight.detach().clone())
+    moved.append(den._param_ptrs())
+    den.to(torch.float64)
+    moved.append(den._param_ptrs())
+    for before, after in zip([first] + moved, moved):
+        assert after != before
+    assert sorted(moved[-1]) == _sorted_ptrs(den)
+
+
+def test_denoiser_train_mode_drops_its_graphs():
+    den, _ = _denoiser()
+    den.eval()
+    held = object()
+    den._graphs, den._graph_params, den._graph_pool = {"key": held}, (1, 2), (0, 1)
+    den.eval()
+    assert den._graphs == {"key": held}
+    den.train()
+    assert den._graphs == {} and den._graph_params is None and den._graph_pool is None
+
+
+def test_no_denoiser_graph_span_on_the_cpu(data):
+    engine = _engine(data, 2)
+    _, _, snap = _profiled(lambda: _call(engine, _batch(data)))
+    assert _counts(snap)["pfpp.engine.denoiser"] == 2 * STEPS
+    assert not [n for n in snap["spans"] if n.startswith("pfpp.denoiser.")]
