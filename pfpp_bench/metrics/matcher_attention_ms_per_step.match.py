@@ -1,0 +1,9 @@
+"""``matcher_attention_ms_per_step.match``: device ms of the kernels launched inside the
+program's ``pfpp.match.attention`` span (the PointTransformer and cross-attention layers'
+forward) per training step, in the traced slice. None where the program has no such span."""
+
+from pfpp_bench import readers
+
+
+def read(r: dict):
+    return readers.span_ms(r, "pfpp.match.attention", "pfpp.match.step")

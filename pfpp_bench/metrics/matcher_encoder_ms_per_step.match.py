@@ -1,0 +1,9 @@
+"""``matcher_encoder_ms_per_step.match``: device ms of the kernels launched inside the
+program's ``pfpp.match.encode`` span (the PointNet++ MSG encoder's forward) per training
+step, in the traced slice. None where the program has no such span."""
+
+from pfpp_bench import readers
+
+
+def read(r: dict):
+    return readers.span_ms(r, "pfpp.match.encode", "pfpp.match.step")

@@ -8,6 +8,10 @@ score -> cross-piece mask -> log-space Sinkhorn. The losses: the permutation los
 the nearest cross-piece critical point, and the rigid loss, a weighted-Horn residual per
 piece pair.
 
+Spans (``utils/profiling.py``): ``pfpp.match.encode`` (the encoder), ``pfpp.match.attention``
+(``tf_self1``, ``tf_cross1``), ``pfpp.match.affinity`` (classifier, compaction, affinity head,
+cross mask), ``pfpp.match.sinkhorn``.
+
 Module and parameter names follow the flax tree (``encoder.sa1.conv0_0``, ``cls_bn``,
 ``affinity_layer.A``), so ``convert/from_jax.py::matching_state_dict`` maps it key by key.
 """
@@ -29,6 +33,7 @@ from puzzlefusion_plusplus_tpu_torch.matching.layers import (
 from puzzlefusion_plusplus_tpu_torch.matching.sinkhorn import hungarian, sinkhorn_log
 from puzzlefusion_plusplus_tpu_torch.models.vqvae import MaskedBatchNorm
 from puzzlefusion_plusplus_tpu_torch.parallel import mesh
+from puzzlefusion_plusplus_tpu_torch.utils import profiling
 
 
 def lecun_normal_(linear: nn.Linear) -> None:
@@ -97,43 +102,47 @@ class JigsawModel(nn.Module):
         """part_pcs [B, N, 3] (the augmented frame), pid [B, N] (P for padding), n_valid [B],
         critical_label [B, N] {0, 1} (ground truth in training; ``use_pred_labels`` takes the
         classifier's). BatchNorm runs in train mode when ``self.training``."""
-        valid = mops.valid_point_mask(pid, n_valid)
-        enc_pcs = (mops.pca_canonicalize(part_pcs, pid, valid, self.max_num_part)
-                   if self.canonicalize_inputs else part_pcs)
-        feats = self.encoder(enc_pcs, pid, valid)
-        feats = self.tf_self1(enc_pcs, feats, pid)
-        feats = self.tf_cross1(feats, valid[:, None, :] & valid[:, :, None])
+        with profiling.span("pfpp.match.encode"):
+            valid = mops.valid_point_mask(pid, n_valid)
+            enc_pcs = (mops.pca_canonicalize(part_pcs, pid, valid, self.max_num_part)
+                       if self.canonicalize_inputs else part_pcs)
+            feats = self.encoder(enc_pcs, pid, valid)
+        with profiling.span("pfpp.match.attention"):
+            feats = self.tf_self1(enc_pcs, feats, pid)
+            feats = self.tf_cross1(feats, valid[:, None, :] & valid[:, :, None])
 
-        h = torch.relu(self.cls_bn(feats, valid.float()))
-        if self.cls_method == "binary":
-            cls_logits = self.cls_head(h)[..., 0]
-            cls_pred = (torch.sigmoid(cls_logits) > 0.5) & valid
-        else:
-            cls_logits = F.log_softmax(self.cls_head(h), dim=-1)
-            cls_pred = (cls_logits.argmax(-1) > 0) & valid
-        out = {"cls_logits": cls_logits, "cls_pred": cls_pred.to(torch.int32),
-               "part_feats": feats}
-        if not compute_matching:
-            return out
+        with profiling.span("pfpp.match.affinity"):
+            h = torch.relu(self.cls_bn(feats, valid.float()))
+            if self.cls_method == "binary":
+                cls_logits = self.cls_head(h)[..., 0]
+                cls_pred = (torch.sigmoid(cls_logits) > 0.5) & valid
+            else:
+                cls_logits = F.log_softmax(self.cls_head(h), dim=-1)
+                cls_pred = (cls_logits.argmax(-1) > 0) & valid
+            out = {"cls_logits": cls_logits, "cls_pred": cls_pred.to(torch.int32),
+                   "part_feats": feats}
+            if not compute_matching:
+                return out
 
-        labels = out["cls_pred"] if use_pred_labels else critical_label.to(torch.int32)
-        labels = labels * valid.to(torch.int32)
-        slot_valid, (crit_feats, crit_pid), order = mops.compact_critical(
-            labels, feats, pid[..., None].float())
-        crit_pid = torch.where(slot_valid, crit_pid[..., 0].to(torch.int32),
-                               n_valid[:, None].to(torch.int32))
-        # the statistics over the critical slots alone (the tail holds the other points)
-        a = self.aff_head(torch.relu(self.aff_bn(crit_feats, slot_valid.float())))
-        hd = self.aff_feat_dim // 2
-        a = torch.cat([a[..., :hd] / a[..., :hd].norm(dim=-1, keepdim=True).clamp_min(1e-12),
-                       a[..., hd:] / a[..., hd:].norm(dim=-1, keepdim=True).clamp_min(1e-12)],
-                      dim=-1)
-        s = self.affinity_layer(a, a)
-        cross = ((crit_pid[:, :, None] != crit_pid[:, None, :])
-                 & slot_valid[:, :, None] & slot_valid[:, None, :])
-        s = torch.where(cross, s, -1e6)
-        n_crit = labels.sum(-1)
-        ds_mat = sinkhorn_log(s, n_crit, n_crit, self.sinkhorn_iters, self.sinkhorn_tau)
+            labels = out["cls_pred"] if use_pred_labels else critical_label.to(torch.int32)
+            labels = labels * valid.to(torch.int32)
+            slot_valid, (crit_feats, crit_pid), order = mops.compact_critical(
+                labels, feats, pid[..., None].float())
+            crit_pid = torch.where(slot_valid, crit_pid[..., 0].to(torch.int32),
+                                   n_valid[:, None].to(torch.int32))
+            # the statistics over the critical slots alone (the tail holds the other points)
+            a = self.aff_head(torch.relu(self.aff_bn(crit_feats, slot_valid.float())))
+            hd = self.aff_feat_dim // 2
+            a = torch.cat([a[..., :hd] / a[..., :hd].norm(dim=-1, keepdim=True).clamp_min(1e-12),
+                           a[..., hd:] / a[..., hd:].norm(dim=-1, keepdim=True).clamp_min(1e-12)],
+                          dim=-1)
+            s = self.affinity_layer(a, a)
+            cross = ((crit_pid[:, :, None] != crit_pid[:, None, :])
+                     & slot_valid[:, :, None] & slot_valid[:, None, :])
+            s = torch.where(cross, s, -1e6)
+            n_crit = labels.sum(-1)
+        with profiling.span("pfpp.match.sinkhorn"):
+            ds_mat = sinkhorn_log(s, n_crit, n_crit, self.sinkhorn_iters, self.sinkhorn_tau)
         out.update(ds_mat=ds_mat, s_mask=cross, crit_slot_valid=slot_valid, crit_pid=crit_pid,
                    crit_order=order, n_critical_sum=n_crit)
         return out

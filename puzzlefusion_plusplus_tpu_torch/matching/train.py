@@ -13,6 +13,12 @@ reference Jigsaw's train_matching.py and model_config.py:27-31):
 * validation every ``val_every`` epochs and at the last: the losses and the Hungarian
   matching F1 (``eval_step``), top-k checkpoints on ``mat_f1``; auto-resume from the latest.
 
+Spans (``utils/profiling.py``): ``pfpp.match.step`` around ``train_step`` (a request id a
+step), ``pfpp.match.loss`` around ``loss_fn`` (the labels, the GT permutation and the losses;
+the forward's spans, ``matching/model.py``, open inside it), ``pfpp.match.backward``,
+``pfpp.match.optimizer`` (Adam and the scheduler), and ``pfpp.sync.match_batch`` around each
+array's blocking copy to the card (``device_batch``).
+
 ``num_devices`` above 1 trains data-parallel on the port's mesh (``parallel/``): every rank
 builds the same global batch and keeps its rows; the losses are local sums over global
 counts, the BatchNorm statistics are the global batch's (``JigsawModel.reduce_over``), the
@@ -52,6 +58,7 @@ from puzzlefusion_plusplus_tpu_torch.training.state import (
 )
 from puzzlefusion_plusplus_tpu_torch.training.verifier import binary_cls_metrics
 from puzzlefusion_plusplus_tpu_torch.training.vqvae import local_rows, to_device
+from puzzlefusion_plusplus_tpu_torch.utils import profiling
 
 LOSS_KEYS = ("cls_loss", "mat_loss", "rig_loss", "loss")
 METRIC_KEYS = LOSS_KEYS + ("cls_acc", "cls_precision", "cls_recall", "cls_f1_score")
@@ -71,53 +78,67 @@ def loss_fn(model: JigsawModel, batch: dict, w_mat: float, w_rig: float,
     """-> (this rank's share of the loss, the metrics of ``group``'s batch, the forward's
     outputs, the GT permutation, the cross-piece mask). ``group``: the ranks whose global
     batch the counts cover (None: this process's batch)."""
-    pid = batch["piece_id"]
-    n_valid = batch["part_valids"].sum(-1).to(torch.int32)
-    labels = mops.fracture_point_labels(batch["gt_pcs"], pid, n_valid,
-                                        batch["critical_label_thresholds"])
-    out = model(batch["part_pcs"], pid, n_valid, labels, compute_matching=True)
-    w = mops.valid_point_mask(pid, n_valid).float()
-    logits, gt = out["cls_logits"], labels.float()
-    if model.cls_method == "binary":
-        bce = logits.clamp_min(0) - logits * gt + torch.log1p(torch.exp(-logits.abs()))
-        wc = w * torch.where(gt > 0, float(cls_pos_weight), 1.0)
-        cls_loss = (bce * wc).sum() / global_count(wc.sum(), group).clamp_min(1.0)
-    else:  # NLL over the log-softmax logits
-        nll = -torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
-        cls_loss = (nll * w).sum() / global_count(w.sum(), group).clamp_min(1.0)
+    with profiling.span("pfpp.match.loss"):
+        pid = batch["piece_id"]
+        n_valid = batch["part_valids"].sum(-1).to(torch.int32)
+        labels = mops.fracture_point_labels(batch["gt_pcs"], pid, n_valid,
+                                            batch["critical_label_thresholds"])
+        out = model(batch["part_pcs"], pid, n_valid, labels, compute_matching=True)
+        w = mops.valid_point_mask(pid, n_valid).float()
+        logits, gt = out["cls_logits"], labels.float()
+        if model.cls_method == "binary":
+            bce = logits.clamp_min(0) - logits * gt + torch.log1p(torch.exp(-logits.abs()))
+            wc = w * torch.where(gt > 0, float(cls_pos_weight), 1.0)
+            cls_loss = (bce * wc).sum() / global_count(wc.sum(), group).clamp_min(1.0)
+        else:  # NLL over the log-softmax logits
+            nll = -torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
+            cls_loss = (nll * w).sum() / global_count(w.sum(), group).clamp_min(1.0)
 
-    slot_valid, order, cross = out["crit_slot_valid"], out["crit_order"], out["s_mask"]
-    gt_crit = torch.take_along_dim(batch["gt_pcs"], order[..., None], dim=1)
-    gt_perm = gt_permutation(torch.where(slot_valid[..., None], gt_crit, 1e3), cross)
-    mat_loss = permutation_loss(out["ds_mat"], gt_perm, out["n_critical_sum"], group)
-    if w_rig > 0:  # a Python-level gate: before rig_epoch the rigid loss does not run
-        pts_crit = torch.take_along_dim(batch["part_pcs"], order[..., None], dim=1)
-        rig_loss = rigid_loss_pairs(out["ds_mat"], pts_crit, out["crit_pid"], slot_valid,
-                                    batch["part_valids"].shape[-1], group)
-    else:
-        rig_loss = torch.zeros((), device=logits.device)
-    total = cls_loss + w_mat * mat_loss + w_rig * rig_loss
-    shares = {"cls_loss": cls_loss, "mat_loss": mat_loss, "rig_loss": rig_loss, "loss": total}
-    shares = {k: v.detach() for k, v in shares.items()}
-    metrics = {**(shares if group is None else mesh.global_sums(shares, group)),
-               **binary_cls_metrics(out["cls_pred"].float(), gt, w, reduce=group is not None)}
-    return total, metrics, out, gt_perm, cross
+        slot_valid, order, cross = out["crit_slot_valid"], out["crit_order"], out["s_mask"]
+        gt_crit = torch.take_along_dim(batch["gt_pcs"], order[..., None], dim=1)
+        gt_perm = gt_permutation(torch.where(slot_valid[..., None], gt_crit, 1e3), cross)
+        mat_loss = permutation_loss(out["ds_mat"], gt_perm, out["n_critical_sum"], group)
+        if w_rig > 0:  # a Python-level gate: before rig_epoch the rigid loss does not run
+            pts_crit = torch.take_along_dim(batch["part_pcs"], order[..., None], dim=1)
+            rig_loss = rigid_loss_pairs(out["ds_mat"], pts_crit, out["crit_pid"], slot_valid,
+                                        batch["part_valids"].shape[-1], group)
+        else:
+            rig_loss = torch.zeros((), device=logits.device)
+        total = cls_loss + w_mat * mat_loss + w_rig * rig_loss
+        shares = {"cls_loss": cls_loss, "mat_loss": mat_loss, "rig_loss": rig_loss, "loss": total}
+        shares = {k: v.detach() for k, v in shares.items()}
+        metrics = {**(shares if group is None else mesh.global_sums(shares, group)),
+                   **binary_cls_metrics(out["cls_pred"].float(), gt, w, reduce=group is not None)}
+        return total, metrics, out, gt_perm, cross
 
 
 def train_step(state: TrainState, batch: dict, w_mat: float, w_rig: float,
                cls_pos_weight: float = 1.0) -> dict:
     """One Adam update on ``batch`` (this rank's rows, tensors on the model's device) with
     the gradient summed over the ranks; returns the global batch's metrics."""
-    state.model.train()
-    state.optimizer.zero_grad(set_to_none=True)
-    loss, metrics, *_ = loss_fn(state.model, batch, w_mat, w_rig, cls_pos_weight,
-                                mesh.data_group())
-    loss.backward()
-    mesh.all_reduce_gradients(state.model)
-    state.optimizer.step()
-    state.scheduler.step()
-    state.step += 1
+    with profiling.span("pfpp.match.step", request=True):
+        state.model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, metrics, *_ = loss_fn(state.model, batch, w_mat, w_rig, cls_pos_weight,
+                                    mesh.data_group())
+        with profiling.span("pfpp.match.backward"):
+            loss.backward()
+        mesh.all_reduce_gradients(state.model)
+        with profiling.span("pfpp.match.optimizer"):
+            state.optimizer.step()
+            state.scheduler.step()
+        state.step += 1
     return metrics
+
+
+def device_batch(batch: dict, device) -> dict:
+    """This rank's rows of a loader batch on ``device``, as ``local_rows`` gives them; each
+    array's copy blocks the host (span ``pfpp.sync.match_batch``, one an array)."""
+    out = {}
+    for k, v in local_rows(batch, "cpu").items():
+        with profiling.span("pfpp.sync.match_batch"):
+            out[k] = v.to(device)
+    return out
 
 
 @torch.no_grad()
@@ -203,7 +224,7 @@ def train_matching(data_dir: str, out_dir: str = "output/matching", epochs: int 
         w_mat = 1.0 if epoch >= mat_epoch else 0.0
         w_rig = 1.0 if epoch >= rig_epoch else 0.0
         for batch in prefetch_batches(loader):
-            metrics = train_step(state, local_rows(batch, device), w_mat, w_rig,
+            metrics = train_step(state, device_batch(batch, device), w_mat, w_rig,
                                  cls_pos_weight)
             if step % log_every == 0:
                 logger.log(step, epoch=epoch, **metrics)

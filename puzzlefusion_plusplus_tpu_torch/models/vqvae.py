@@ -39,6 +39,7 @@ from puzzlefusion_plusplus_tpu_torch.ops.grouping import (
 )
 from puzzlefusion_plusplus_tpu_torch.ops.sa_fused import fold_batchnorm
 from puzzlefusion_plusplus_tpu_torch.parallel import mesh
+from puzzlefusion_plusplus_tpu_torch.utils import profiling
 
 SA_RADII = (0.2, 0.4, 0.8)
 SA_MLPS = ((64, 64, 128), (128, 128, 256), (256, 256, 512))
@@ -120,7 +121,9 @@ class MaskedBatchNorm(nn.BatchNorm2d):
             red = tuple(range(x.dim() - 1))
             if weights is None:
                 w = torch.ones((), dtype=x.dtype, device=x.device)
-                count = torch.tensor(float(x.numel() // x.shape[-1]), device=x.device)
+                # a blocking copy of the host's count to the device
+                with profiling.span("pfpp.sync.bn_count"):
+                    count = torch.tensor(float(x.numel() // x.shape[-1]), device=x.device)
             else:
                 w = weights.to(x.dtype).reshape((-1,) + (1,) * (x.dim() - 1))
                 count = w.sum() * math.prod(x.shape[1:-1])
