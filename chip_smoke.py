@@ -452,9 +452,10 @@ def record_kernel(results: dict, phase: str, name, shape, err, ms, plain_ms, nby
 
 def l2_weights(rows_per_block, M, S, K, weight_floats):
     """Rows per block and the weight bytes the blocks of one launch read from L2, worked
-    out from the block count (every block streams all of its layers' weights once)."""
+    out from the block count (every block streams all of its layers' weights once, as
+    their big and small TF32 planes: 2 * weight_floats floats)."""
     def nbytes(rows):
-        return 4 * weight_floats * M * -(-S // (rows // K))
+        return 8 * weight_floats * M * -(-S // (rows // K))
     return {"rows_per_block": rows_per_block, "l2_weight_bytes": nbytes(rows_per_block),
             "l2_weight_bytes_64_rows": nbytes(64)}
 
@@ -580,7 +581,9 @@ def phase_kernels(results: dict) -> None:
         k1f = randn(D, C1, scale=D ** -0.5) if D else None
         b1, b2, b3 = randn(C1, scale=0.1), randn(C2, scale=0.1), randn(C3, scale=0.1)
         w2, w3 = randn(C1, C2, scale=C1 ** -0.5), randn(C2, C3, scale=C2 ** -0.5)
-        args = (g, w_eff, feats, gidx, k1f, b1, w2, b2, w3, b3)
+        # W2 and W3 split beforehand, as the frozen encoder hands them to S
+        args = (g, w_eff, feats, gidx, k1f, b1, sa_fused.tf32_planes(w2), b2,
+                sa_fused.tf32_planes(w3), b3)
         out = sa_fused.sa_stage_fused_cached(*args)
         proj = None if feats is None else torch.matmul(feats, k1f)
         ref = sa_fused.sa_stage_plain(g, w_eff, proj, gidx, b1, w2, b2, w3, b3)
@@ -603,7 +606,7 @@ def phase_kernels(results: dict) -> None:
                    g, w_eff, None if feats is None else torch.matmul(feats, k1f), gidx, b1,
                    w2, b2, w3, b3), plain_reps),
                nbytes, flops, path=path, tensor_cores=True, max_rel_err=rel,
-               computed=l2_weights(sa_rows(K, C1, C2, 0), M, S, K, C1 * C2 + C2 * C3),
+               computed=l2_weights(sa_rows(K, C1, C2, C3, 0), M, S, K, C1 * C2 + C2 * C3),
                seconds=time.perf_counter() - t0)
     emit_l2_step("S")
 
@@ -641,7 +644,7 @@ def phase_kernels(results: dict) -> None:
                cuda_ms(lambda: sa_fused.sa_stage_fused(pts, fidx, gidx, weights), 20),
                cuda_ms(lambda: sa_fused.sa_stage_fused_plain(pts, fidx, gidx, weights), 3),
                nbytes, flops, path="encoder_modes", tensor_cores=True, max_rel_err=rel,
-               computed=l2_weights(raw_rows(K, Cin, C1, C2), M, S, K, weight_floats),
+               computed=l2_weights(raw_rows(K, Cin, C1, C2, C3), M, S, K, weight_floats),
                seconds=time.perf_counter() - t0)
     emit_l2_step("R")
 
@@ -2341,10 +2344,11 @@ def phase_int8(results: dict, data_root: str, data_proc, engine_row: dict | None
         gidx = torch.randint(0, N2, (M, S, K), generator=gen, device=dev, dtype=torch.int32)
         b1, b2, b3 = randn(C1, scale=0.1), randn(C2, scale=0.1), randn(C3, scale=0.1)
         w2, w3 = randn(C1, C2, scale=C1 ** -0.5), randn(C2, C3, scale=C2 ** -0.5)
-        tail = (gidx, b1, w2, b2, w3, b3)
+        w2p, w3p = sa_fused.tf32_planes(w2), sa_fused.tf32_planes(w3)
+        tail = (gidx, b1, w2p, b2, w3p, b3)  # split beforehand, as the frozen encoder does
         out = sa_fused.sa_stage_cached_int8(g, w_eff, q, scale, *tail)
         table = q.float() * scale[:, None, :]
-        ref = sa_fused.sa_stage_plain(g, w_eff, table, *tail)
+        ref = sa_fused.sa_stage_plain(g, w_eff, table, gidx, b1, w2, b2, w3, b3)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         rel = err / max(ref.abs().max().item(), 1e-30)
@@ -2355,7 +2359,7 @@ def phase_int8(results: dict, data_root: str, data_proc, engine_row: dict | None
         quant_err = (ref - exact).abs().max().item()  # what the 8-bit codes move
         buf = torch.empty_like(out)
         dims = (M, S, K, N2, C1, C2, C3)
-        ptrs = [t.data_ptr() for t in (gidx, b1, w2, b2, w3, b3, buf)]
+        ptrs = [t.data_ptr() for t in (gidx, b1, w2p, b2, w3p, b3, buf)]
         stream = cuda_build.stream_ptr(g)
         bare = lambda: int8_launch(g.data_ptr(), w_eff.data_ptr(), q.data_ptr(),  # noqa: E731
                                    scale.data_ptr(), *ptrs, *dims, stream)
@@ -2364,12 +2368,12 @@ def phase_int8(results: dict, data_root: str, data_proc, engine_row: dict | None
         flops = 2 * M * S * K * (3 * C1 + C1 * C2 + C2 * C3)
         nbytes = (4 * (g.numel() + w_eff.numel() + scale.numel() + gidx.numel() + C1
                        + C1 * C2 + C2 + C2 * C3 + C3 + M * S * C3) + q.numel())
-        stage_args = (g, w_eff, feats, gidx, k1f, b1, w2, b2, w3, b3)
+        stage_args = (g, w_eff, feats, gidx, k1f, b1, w2p, b2, w3p, b3)
         record_kernel(
             results, "int8", "S int8", f"{stage} M={M}", err,
             cuda_ms(lambda: sa_fused.sa_stage_cached_int8(g, w_eff, q, scale, *tail), 20),
             cuda_ms(lambda: sa_fused.sa_stage_plain(g, w_eff, q.float() * scale[:, None, :],
-                                                    *tail), 3),
+                                                    gidx, b1, w2, b2, w3, b3), 3),
             nbytes, flops, path="int8", tensor_cores=True, max_rel_err=rel,
             kernel_ms=cuda_ms(bare, 20), exact_kernel_ms=cuda_ms(bare_exact, 20),
             stage_ms=cuda_ms(lambda: sa_fused.sa_stage_fused_cached(
@@ -2377,7 +2381,7 @@ def phase_int8(results: dict, data_root: str, data_proc, engine_row: dict | None
             exact_stage_ms=cuda_ms(lambda: sa_fused.sa_stage_fused_cached(
                 *stage_args, gather_impl="onehot"), 20),
             quantization_max_abs=quant_err,
-            computed=l2_weights(sa_rows(K, C1, C2, 1), M, S, K, C1 * C2 + C2 * C3),
+            computed=l2_weights(sa_rows(K, C1, C2, C3, 1), M, S, K, C1 * C2 + C2 * C3),
             seconds=time.perf_counter() - t1)
         del out, ref, exact, table, buf
 

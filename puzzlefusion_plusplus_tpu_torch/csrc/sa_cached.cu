@@ -15,53 +15,71 @@
 // Bound: the two products (2*rows*(C1*C2 + C2*C3) FLOP per stage, ~157 GFLOP per denoise
 // step at 96 clouds), FP32-accurate on the tensor cores as 3xTF32 (three TF32 MMAs per
 // product: 0.97 ms a step at 495 TFLOP/s, against 2.40 ms for FP32 on the CUDA cores).
-// Design (sa_common.cuh): a block of 256 threads owns 128 rows at SA1 and 64 at SA2 and SA3
-// (sa::with_block_shape: two blocks an SM at SA1 and SA2, one at SA3, where h1 and h2 of
-// 128 rows would need 266 KB), so each W2/W3 byte read from L2 serves that many rows.
-// Layer 1 (the 3-term xyz product, the gathered proj row and the bias) is FP32 elementwise
-// work: the block's proj rows land in h1 by cp.async (int8: its codes in a [BM][C1] byte
-// buffer, 16 codes a copy), all in flight at once, while the ring's first weight tiles load.
-// Layers 2 and 3 run as mma.sync 3xTF32 passes from the ring, and the max over K is fused
+// Design (sa_common.cuh): W2 and W3 arrive split into their TF32 planes; a block of one
+// warpgroup per 64 rows owns 128 rows at SA1, SA2 and SA3 (sa::with_block_shape; SA3's h2
+// overwrites h1 in place), so each weight byte read from L2 serves that many rows. Layer 1
+// (the 3-term xyz product, the gathered proj row and the bias) is FP32 elementwise work:
+// the block's proj rows land in h1 by cp.async (int8: its codes in a [BM][C1] byte buffer,
+// 16 codes a copy), all in flight at once, while the ring's first weight tiles load. Layers
+// 2 and 3 run as wgmma 3xTF32 passes of N columns from the ring, and the max over K is fused
 // into layer 3's epilogue. h1 and h2 never leave shared memory.
 #include "sa_common.cuh"
 
 namespace {
 
-using sa::kThreads;
-using sa::ld_act;
-
-size_t smem_bytes(int BM, int stages, int K, int C1, int C2, bool int8) {
-  return sizeof(float) *
-             (sa::base_floats(BM, stages, K) + (size_t)BM * (ld_act(C1) + ld_act(C2))) +
-         (int8 ? (size_t)BM * C1 : 0);
-}
+// S's shared memory in floats from the base: the ring's mbarriers, the weight ring of
+// `stages` tiles, activation buffers 0 and 1
+// (h1 in 0; h2 in place of h1 or in 1), the layer-3 maxima, the rows' xyz and gather index,
+// then (int8) the rows' codes; bytes is the total.
+template <class Sh>
+struct Smem {
+  sa::Buffers buf;
+  size_t act[2], red, gs, gi, codes, bytes;
+  __host__ __device__ Smem(int K, int C1, int C2, bool int8, int stages)
+      : buf(2, C1, C2, 0, Sh::N) {
+    act[0] = sa::kBarrierFloats + (size_t)stages * Sh::kTileFloats;
+    act[1] = act[0] + (size_t)Sh::BM * buf.ld(0);
+    red = act[1] + (size_t)Sh::BM * buf.ld(1);
+    gs = red + (size_t)(Sh::BM / sa::rows_in_warp(K)) * Sh::N;
+    gi = gs + Sh::BM * 3;
+    codes = gi + Sh::BM;
+    bytes = sizeof(float) * codes + (int8 ? (size_t)Sh::BM * C1 : 0);
+  }
+};
 
 // kInt8: `proj` holds int8 codes and `scale` [M, C1] their dequantization scales.
-template <int BM, int kStages, bool kInt8>
-__global__ void __launch_bounds__(kThreads, 2) sa_cached_kernel(
+template <class Sh, bool kInt8>
+__global__ void __launch_bounds__(Sh::kBlockThreads, Sh::kMinBlocks) sa_cached_kernel(
     const float* __restrict__ g, const float* __restrict__ weff,
     const void* __restrict__ proj, const float* __restrict__ scale,
     const int* __restrict__ gidx, const float* __restrict__ b1, const float* __restrict__ w2,
     const float* __restrict__ b2, const float* __restrict__ w3, const float* __restrict__ b3,
-    float* __restrict__ out, int S, int K, int N2, int C1, int C2, int C3) {
+    float* __restrict__ out, int S, int K, int N2, int C1, int C2, int C3, int stages) {
+  constexpr int BM = Sh::BM, kThreads = Sh::kThreads;
   extern __shared__ float4 smem4[];
-  float* ring = reinterpret_cast<float*>(smem4);   // [kStages][kKT][kLDW]
-  float* h1 = ring + kStages * sa::kTileFloats;     // [BM][C1 + 4]
-  float* h2 = h1 + (size_t)BM * ld_act(C1);         // [BM][C2 + 4]
-  float* red = h2 + (size_t)BM * ld_act(C2);        // [BM / min(K, 32)][kBN]
-  float* gs = red + (BM / (K < 32 ? K : 32)) * sa::kBN;  // [BM][3]
-  int* gi = reinterpret_cast<int*>(gs + BM * 3);
-  int8_t* codes = reinterpret_cast<int8_t*>(gi + BM);  // kInt8: [BM][C1], 16-byte aligned
+  float* base = reinterpret_cast<float*>(smem4);
+  const Smem<Sh> L(K, C1, C2, kInt8, stages);
+  float* h1 = base + L.act[L.buf.in[0]];  // [BM][ld1]
+  float* h2 = base + L.act[L.buf.in[1]];  // [BM][ld2]
+  const int ld1 = L.buf.ld(L.buf.in[0]), ld2 = L.buf.ld(L.buf.in[1]);
+  float* red = base + L.red;  // [BM / min(K, 16)][N]
+  float* gs = base + L.gs;    // [BM][3]
+  int* gi = reinterpret_cast<int*>(base + L.gi);
+  int8_t* codes = reinterpret_cast<int8_t*>(base + L.codes);  // kInt8: [BM][C1], 16-B aligned
 
   const int m = blockIdx.y;
   const int s0 = blockIdx.x * (BM / K);
   const int tid = threadIdx.x;
 
-  sa::WeightStream<kStages> ws;
-  ws.ring = ring;
-  ws.add(w2, C2, C1, C2);
-  ws.add(w3, C3, C2, C3);
-  ws.prologue();  // W2's first tiles load while layer 1 runs
+  sa::WeightStream<Sh> ws;
+  ws.add(w2, C1, C2);
+  ws.add(w3, C2, C3);
+  ws.init(base + sa::kBarrierFloats, reinterpret_cast<uint64_t*>(base), stages);
+  __syncthreads();
+  if (tid >= kThreads) {  // the producer warp: W2's first tiles load while layer 1 runs
+    if (tid == kThreads) ws.produce();
+    return;
+  }
 
   for (int r = tid; r < BM; r += kThreads) {
     const int s = s0 + r / K;
@@ -72,11 +90,11 @@ __global__ void __launch_bounds__(kThreads, 2) sa_cached_kernel(
     gs[r * 3 + 2] = ok ? g[row * 3 + 2] : 0.f;
     gi[r] = (ok && gidx != nullptr) ? gidx[row] : 0;
   }
-  __syncthreads();
+  sa::bar_sync(1, kThreads);
 
   // the rows' proj vectors (or codes) straight into shared memory, one warp a row (cp.async:
   // all of them in flight at once)
-  const int lane = tid & 31, warp = tid >> 5, ld1 = ld_act(C1);
+  const int lane = tid & 31, warp = tid >> 5;
   if (proj != nullptr) {
     for (int r = warp; r < BM; r += kThreads / 32) {
       if constexpr (kInt8) {
@@ -92,33 +110,45 @@ __global__ void __launch_bounds__(kThreads, 2) sa_cached_kernel(
   }
   sa::cp_async_commit();
   sa::cp_async_wait<0>();
-  __syncthreads();
+  sa::bar_sync(1, kThreads);
 
   // layer 1: rotation-folded xyz term + gathered feature projection + bias, ReLU
   if constexpr (kInt8)
-    sa::xyz_layer<BM>(gs, weff + (size_t)m * 3 * C1, b1, h1, C1, false, codes,
+    sa::xyz_layer<Sh>(gs, weff + (size_t)m * 3 * C1, b1, h1, ld1, C1, false, codes,
                       scale + (size_t)m * C1);
   else
-    sa::xyz_layer<BM>(gs, weff + (size_t)m * 3 * C1, b1, h1, C1, proj != nullptr);
+    sa::xyz_layer<Sh>(gs, weff + (size_t)m * 3 * C1, b1, h1, ld1, C1, proj != nullptr);
+  sa::bar_sync(1, kThreads);  // publishes h1
 
-  int t = 0;  // the first tile barrier of layer 2 publishes h1
-  sa::mlp_tail<BM>(ws, t, h1, h2, red, b2, b3, out, m, S, K, s0, C1, C2, C3);
+  int t = 0;
+  sa::mlp_tail<Sh>(ws, t, h1, ld1, h2, ld2, red, b2, b3, out, m, S, K, s0, C1, C2, C3);
 }
 
-template <int BM, int kStages, bool kInt8>
+template <class Sh, bool kInt8>
 int launch(const float* g, const float* weff, const void* proj, const float* scale,
            const int* gidx, const float* b1, const float* w2, const float* b2, const float* w3,
            const float* b3, float* out, int M, int S, int K, int N2, int C1, int C2, int C3,
-           cudaStream_t stream) {
-  const size_t smem = smem_bytes(BM, kStages, K, C1, C2, kInt8);
-  cudaError_t err = cudaFuncSetAttribute(sa_cached_kernel<BM, kStages, kInt8>,
+           int stages, cudaStream_t stream) {
+  const size_t smem = Smem<Sh>(K, C1, C2, kInt8, stages).bytes;
+  cudaError_t err = cudaFuncSetAttribute(sa_cached_kernel<Sh, kInt8>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int cpb = BM / K;
+  const int cpb = Sh::BM / K;
   const dim3 grid((S + cpb - 1) / cpb, M);
-  sa_cached_kernel<BM, kStages, kInt8><<<grid, kThreads, smem, stream>>>(
-      g, weff, proj, scale, gidx, b1, w2, b2, w3, b3, out, S, K, N2, C1, C2, C3);
+  sa_cached_kernel<Sh, kInt8><<<grid, Sh::kBlockThreads, smem, stream>>>(
+      g, weff, proj, scale, gidx, b1, w2, b2, w3, b3, out, S, K, N2, C1, C2, C3, stages);
   return (int)cudaGetLastError();
+}
+
+// Calls f(shape, stages) for the block shape of these widths (see sa::with_block_shape).
+template <class F>
+int with_shape(int K, int C1, int C2, int C3, bool int8, F&& f, int none) {
+  return sa::with_block_shape(
+      K, sa::pass_width({C2, C3}),
+      [&](auto shape, int stages) {
+        return Smem<decltype(shape)>(K, C1, C2, int8, stages).bytes;
+      },
+      f, none);
 }
 
 template <bool kInt8>
@@ -127,13 +157,12 @@ int dispatch(const float* g, const float* weff, const void* proj, const float* s
              const float* w3, const float* b3, float* out, int M, int S, int K, int N2, int C1,
              int C2, int C3, void* stream) {
   if (M == 0 || S == 0) return 0;
-  return sa::with_block_shape(
-      K, [&](int BM, int stages) { return smem_bytes(BM, stages, K, C1, C2, kInt8); },
-      [&](auto shape) {
-        using Sh = decltype(shape);
-        return launch<Sh::BM, Sh::kStages, kInt8>(g, weff, proj, scale, gidx, b1, w2, b2, w3,
-                                                  b3, out, M, S, K, N2, C1, C2, C3,
-                                                  (cudaStream_t)stream);
+  return with_shape(
+      K, C1, C2, C3, kInt8,
+      [&](auto shape, int stages) {
+        return launch<decltype(shape), kInt8>(g, weff, proj, scale, gidx, b1, w2, b2, w3, b3,
+                                              out, M, S, K, N2, C1, C2, C3, stages,
+                                              (cudaStream_t)stream);
       },
       (int)cudaErrorInvalidValue);
 }
@@ -145,9 +174,9 @@ int dispatch(const float* g, const float* weff, const void* proj, const float* s
 // bit-equal to the plain version's. A block of 32 columns x 8 row lanes owns one cloud's
 // column tile: the 8 lanes reduce the max over their rows, the first combines them, then all
 // write the tile's codes. Bound: bytes (proj read twice, here counted once, codes written).
-constexpr int kQCols = 32, kQRows = kThreads / kQCols;
+constexpr int kQThreads = 256, kQCols = 32, kQRows = kQThreads / kQCols;
 
-__global__ void __launch_bounds__(kThreads) sa_quantize_kernel(
+__global__ void __launch_bounds__(kQThreads) sa_quantize_kernel(
     const float* __restrict__ proj, float* __restrict__ scale, int8_t* __restrict__ q, int N2,
     int C1) {
   __shared__ float red[kQRows][kQCols];
@@ -180,16 +209,16 @@ __global__ void __launch_bounds__(kThreads) sa_quantize_kernel(
 
 // Rows of one block at these widths (128 or 64; 0: the layers do not fit shared memory), of
 // the exact instantiation or (int8 != 0) the int8 one.
-PFPP_EXPORT int pfpp_sa_cached_rows(int K, int C1, int C2, int int8) {
-  return sa::with_block_shape(
-      K, [&](int BM, int stages) { return smem_bytes(BM, stages, K, C1, C2, int8 != 0); },
-      [](auto shape) { return decltype(shape)::BM; }, 0);
+PFPP_EXPORT int pfpp_sa_cached_rows(int K, int C1, int C2, int C3, int int8) {
+  return with_shape(K, C1, C2, C3, int8 != 0,
+                    [](auto shape, int) { return decltype(shape)::BM; }, 0);
 }
 
 // Shapes: g [M,S,K,3], weff [M,3,C1], proj [M,N2,C1] or null, gidx [M,S,K] or null,
-// w2 [C1,C2], w3 [C2,C3], out [M,S,C3]. Requires 64 % K == 0, K % 4 == 0, C1 % 32 == 0,
-// C2 % 64 == 0, C3 % 64 == 0 and 16-byte aligned w2/w3 (checked by the Python wrapper);
-// C1 + C2 above 808 do not fit shared memory (cudaErrorInvalidValue).
+// w2 and w3 the TF32 planes of W2 [C1,C2] and W3 [C2,C3] (ops/sa_fused.py::tf32_planes),
+// out [M,S,C3]. Requires 64 % K == 0, K % 4 == 0, C1 % 32 == 0, C2 % 64 == 0, C3 % 64 == 0
+// and 16-byte aligned w2/w3 (checked by the Python wrapper); widths whose activations do
+// not fit shared memory even at 64 rows return cudaErrorInvalidValue.
 PFPP_EXPORT int pfpp_sa_cached(const float* g, const float* weff, const float* proj,
                                const int* gidx, const float* b1, const float* w2,
                                const float* b2, const float* w3, const float* b3, float* out,
@@ -215,6 +244,6 @@ PFPP_EXPORT int pfpp_sa_quantize(const float* proj, float* scale, int8_t* q, int
                                  int C1, void* stream) {
   if (M == 0 || C1 == 0) return 0;
   const dim3 grid((C1 + kQCols - 1) / kQCols, M);
-  sa_quantize_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(proj, scale, q, N2, C1);
+  sa_quantize_kernel<<<grid, kQThreads, 0, (cudaStream_t)stream>>>(proj, scale, q, N2, C1);
   return (int)cudaGetLastError();
 }

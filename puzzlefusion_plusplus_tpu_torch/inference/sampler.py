@@ -40,12 +40,14 @@ from puzzlefusion_plusplus_tpu_torch.ops.sa_fused import (
     sa_gather_mode,
     sa_stage_fused,
     sa_stage_fused_cached,
+    tf32_planes,
 )
 from puzzlefusion_plusplus_tpu_torch.utils.masking import (
     compact_parts,
     compaction_indices,
     scatter_parts,
 )
+from puzzlefusion_plusplus_tpu_torch.utils.profiling import span
 from puzzlefusion_plusplus_tpu_torch.utils.transforms import (
     qrot,
     quat_normalize,
@@ -58,7 +60,10 @@ FUSED_MODES = ("cached", "always", "never")
 class FrozenEncoder:
     """The VQ-VAE encoder, frozen: the module is put in eval mode with its parameters
     frozen, and eval-mode BatchNorm is folded into its weights once for kernels S and R.
-    ``sa_gather`` is kernel S's gather mode, resolved here (module note)."""
+    In the 'cached' mode each stage's folded W2 and W3 are also split once into their TF32
+    planes (``tf32_planes``, span ``pfpp.encoder.weight_split``), which every launch of
+    kernel S takes as they are. ``sa_gather`` is kernel S's gather mode, resolved here
+    (module note)."""
 
     def __init__(self, model: VQVAE, fused: str = "cached", gather_impl: str | None = None):
         if fused not in FUSED_MODES:
@@ -72,6 +77,12 @@ class FrozenEncoder:
         self.sa_npoints = model.sa_npoints
         self.sa_nsamples = model.sa_nsamples
         self.w = model.folded_weights()
+        self.planes = {}  # stage -> (W2, W3) planes
+        if fused == "cached":
+            with span("pfpp.encoder.weight_split"):
+                for sa in ("sa1", "sa2", "sa3"):
+                    (_, _), (w2, _), (w3, _) = self.w[sa]
+                    self.planes[sa] = (tf32_planes(w2), tf32_planes(w3))
 
     def grouping(self, flat_pcs: torch.Tensor):
         return pn2_grouping_geometry(flat_pcs, self.num_point, self.sa_npoints,
@@ -110,6 +121,7 @@ class FrozenEncoder:
 
         def run(sa, g, feats, gidx):
             (k1, b1), (w2, b2), (w3, b3) = self.w[sa]
+            w2, w3 = self.planes.get(sa, (w2, w3))  # other modes: the wrapper splits
             w_eff = torch.einsum("med,ec->mdc", rot, k1[:3])  # R^T K_xyz
             k1f = k1[3:] if feats is not None else None
             return sa_stage_fused_cached(g, w_eff, feats, gidx, k1f, b1, w2, b2, w3, b3,

@@ -15,6 +15,9 @@ kernel (counting the launch in ``<wrapper>.launches``) on CUDA tensors.
 | S int8 | ``sa_fused.sa_stage_cached_int8`` (S under ``PFPP_SA_GATHER=int8``, SA2 and SA3) | ``csrc/sa_cached.cu`` |
 | S int8 quantize | ``sa_fused.sa_quantize`` (the codes S int8 gathers) | ``csrc/sa_cached.cu`` |
 
+"S pre-split" counts the launches of S (either instantiation) that were handed W2 and W3 as
+planes split beforehand (``sa_fused.tf32_planes``; the frozen encoder's), not a kernel.
+
 S and R share their layers 2-3 and max over K (``csrc/sa_common.cuh``); P returns F's indices.
 """
 
@@ -29,6 +32,7 @@ from puzzlefusion_plusplus_tpu_torch.ops.gather import (
     scatter_add,
 )
 from puzzlefusion_plusplus_tpu_torch.ops.sa_fused import (
+    presplit,
     sa_quantize,
     sa_stage_cached_int8,
     sa_stage_fused,
@@ -47,6 +51,7 @@ KERNEL_WRAPPERS = {
     "P": farthest_point_sample_per_cloud,
     "S int8": sa_stage_cached_int8,
     "S int8 quantize": sa_quantize,
+    "S pre-split": presplit,
 }
 
 

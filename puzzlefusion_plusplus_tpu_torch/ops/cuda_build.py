@@ -41,8 +41,8 @@ SIGNATURES = {
     "sa_cached": {"pfpp_sa_cached": [_P] * 10 + [_I] * 7 + [_P],
                   "pfpp_sa_cached_int8": [_P] * 11 + [_I] * 7 + [_P],
                   "pfpp_sa_quantize": [_P] * 3 + [_I] * 3 + [_P],
-                  "pfpp_sa_cached_rows": [_I] * 4},
-    "sa_raw": {"pfpp_sa_raw": [_P] * 10 + [_I] * 8 + [_P], "pfpp_sa_raw_rows": [_I] * 4},
+                  "pfpp_sa_cached_rows": [_I] * 5},
+    "sa_raw": {"pfpp_sa_raw": [_P] * 11 + [_I] * 8 + [_P], "pfpp_sa_raw_rows": [_I] * 5},
     "scatter_add": {"pfpp_scatter_add": [_P] * 4 + [_I] * 4 + [_P]},
 }
 

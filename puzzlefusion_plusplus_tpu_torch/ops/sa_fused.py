@@ -5,9 +5,14 @@ encoder needs none.
 Both run their matrix products on the tensor cores in 3xTF32 (each FP32 operand split into
 a TF32 part and its remainder, three TF32 MMAs per product), which keeps them within 1e-6
 of FP32 where one TF32 pass would miss the 1e-4 gate. Bound: those MMAs at 495 TFLOP/s.
-A block holds 128 (centre, neighbour) rows where two such blocks share an SM (SA1), else
-64 (SA2, SA3), and streams the weights through a cp.async ring, so each weight byte read
-from L2 serves that many rows (see ``csrc/sa_common.cuh``).
+The weights reach the kernels split: ``tf32_planes`` lays a folded weight out as its big and
+small planes in the order the kernels' wgmma tail loads them. A wrapper given a plain weight
+splits it on every call; the frozen encoder (``inference/sampler.py``) splits its weights
+once when it is built and hands kernel S the planes (launches counted in
+``presplit.launches``, "S pre-split" in ``ops.launch_counts()``). A block holds 128
+(centre, neighbour) rows where they fit shared memory, else 64, and streams the weights
+through a ring of bulk copies, so each weight byte read from L2 serves that many rows (see
+``csrc/sa_common.cuh``).
 
 * S replaces ``puzzlefusion_plusplus_tpu/ops/sa_fused_pallas.py::sa_stage_fused_cached``
   (``_sa_cached_kernel``). Per cloud m and centre s: h1 = relu(g_rel @ W_eff[m] +
@@ -37,6 +42,50 @@ def fold_batchnorm(kernel, bias, scale, bn_bias, mean, var, eps: float = 1e-5):
     """Dense(W [in, out], b) followed by eval-mode BatchNorm -> folded (W', b')."""
     s = scale / torch.sqrt(var + eps)
     return kernel * s[None, :], (bias - mean) * s + bn_bias
+
+
+def tf32_planes(w: torch.Tensor) -> torch.Tensor:
+    """w [cin, cout] f32 -> its 3xTF32 planes [cin/8, 2, cout/8, 2, 8, 4] f32 (cin and cout
+    multiples of 8), as the kernels' tail loads them: big = w rounded to TF32 (10 mantissa
+    bits, to nearest with ties away from zero, by adding 0x1000 to the bit pattern and
+    clearing the low 13 bits: ``split_tf32`` in ``csrc/sa_common.cuh``), small = w - big
+    (exact), and entry [kb, p, ng, kc, n, kk] = plane p at input 8 kb + 4 kc + kk, output
+    8 ng + n: per k8 slice and plane, the K-major 8 x 4 core matrices of wgmma's B operand.
+    Integer arithmetic on the bit pattern and one exact subtraction, so the planes are
+    bit-equal on every device."""
+    cin, cout = w.shape
+    bits = w.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    big = (bits + 0x1000) & 0xFFFFE000
+    big = torch.where(big >= 1 << 31, big - (1 << 32), big).to(torch.int32).view(torch.float32)
+    planes = torch.stack([big, w - big])  # [p, k, c] = [p, kb, kc, kk, ng, n]
+    return (planes.reshape(2, cin // 8, 2, 4, cout // 8, 8).permute(1, 0, 4, 2, 5, 3)
+            .contiguous())
+
+
+def tf32_join(planes: torch.Tensor) -> torch.Tensor:
+    """The weight [cin, cout] of ``tf32_planes``' output: big + small, exactly."""
+    kb, _, ng = planes.shape[:3]
+    p = planes.permute(1, 0, 3, 5, 2, 4).reshape(2, 8 * kb, 8 * ng)
+    return p[0] + p[1]
+
+
+def _plain(w: torch.Tensor) -> torch.Tensor:
+    """A weight given plain [cin, cout] or as its planes -> plain."""
+    return tf32_join(w) if w.dim() == 6 else w
+
+
+def _planes(w: torch.Tensor) -> torch.Tensor:
+    """A weight given plain [cin, cout] or as its planes -> planes."""
+    return w.contiguous() if w.dim() == 6 else tf32_planes(w)
+
+
+def _dims(w: torch.Tensor) -> tuple[int, int]:
+    """(cin, cout) of a weight given plain or as its planes."""
+    if w.dim() != 6:
+        return tuple(w.shape)
+    if w.shape[1] != 2 or tuple(w.shape[3:]) != (2, 8, 4):
+        raise ValueError(f"not the planes of tf32_planes: shape {tuple(w.shape)}")
+    return 8 * w.shape[0], 8 * w.shape[2]
 
 
 def sa_stage_plain(g_rel, w_eff, proj, group_idx, b1, w2, b2, w3, b3) -> torch.Tensor:
@@ -115,7 +164,7 @@ def sa_stage_fused_cached(
     group_idx: torch.Tensor | None,  # [M, S, K] (None for stage 1)
     k1_feat: torch.Tensor | None,  # [D, C1] BN-folded conv0 feature weights
     b1: torch.Tensor,
-    w2: torch.Tensor, b2: torch.Tensor,
+    w2: torch.Tensor, b2: torch.Tensor,  # w2, w3: [C1, C2], [C2, C3], or their tf32_planes
     w3: torch.Tensor, b3: torch.Tensor,
     gather_impl: str | None = None,  # 'onehot' | 'dynamic' (exact) | 'int8'; None reads
     # PFPP_SA_GATHER (default 'onehot'); any other string is the exact gather, as in JAX
@@ -123,7 +172,8 @@ def sa_stage_fused_cached(
     """-> new_feats [M, S, C3]; kernel S on CUDA tensors, which has no backward (it raises
     where autograd would need one; the plain version on CPU tensors differentiates). Under
     'int8' with ``feats`` the projection is quantized (``sa_quantize``) and gathered as
-    codes (``sa_stage_cached_int8``); stage 1 has no features and runs exactly."""
+    codes (``sa_stage_cached_int8``); stage 1 has no features and runs exactly. The plain
+    version takes the planes' weights back (``tf32_join``, exact)."""
     proj = None if feats is None else torch.matmul(feats, k1_feat)  # [M, N2, C1]
     on_cpu = g_rel.device.type == "cpu"
     if not on_cpu:
@@ -133,7 +183,7 @@ def sa_stage_fused_cached(
         q, scale = sa_quantize(proj)
         return sa_stage_cached_int8(g_rel, w_eff, q, scale, group_idx, b1, w2, b2, w3, b3)
     if on_cpu:
-        return sa_stage_plain(g_rel, w_eff, proj, group_idx, b1, w2, b2, w3, b3)
+        return sa_stage_plain(g_rel, w_eff, proj, group_idx, b1, _plain(w2), b2, _plain(w3), b3)
     out = _launch_s(g_rel, w_eff, proj, None, group_idx, b1, w2, b2, w3, b3)
     sa_stage_fused_cached.launches += 1
     return out
@@ -148,7 +198,8 @@ def sa_stage_cached_int8(g_rel, w_eff, q, scale, group_idx, b1, w2, b2, w3, b3):
     xyz term, in the order of ``sa_fused_pallas.py:240``."""
     if g_rel.device.type == "cpu":
         table = q.float() * scale[:, None, :]
-        return sa_stage_plain(g_rel, w_eff, table, group_idx, b1, w2, b2, w3, b3)
+        return sa_stage_plain(g_rel, w_eff, table, group_idx, b1, _plain(w2), b2, _plain(w3),
+                              b3)
     cuda_build.forbid_grad("sa_stage_cached_int8", g_rel, w_eff, b1, w2, b2, w3, b3)
     out = _launch_s(g_rel, w_eff, q, scale, group_idx, b1, w2, b2, w3, b3)
     sa_stage_cached_int8.launches += 1
@@ -158,20 +209,32 @@ def sa_stage_cached_int8(g_rel, w_eff, q, scale, group_idx, b1, w2, b2, w3, b3):
 sa_stage_cached_int8.launches = 0
 
 
+class _Count:
+    """A launch count kept beside a wrapper's own (``ops.launch_counts()`` reads it)."""
+
+    launches = 0
+
+
+presplit = _Count()  # launches of S, either instantiation, given W2 and W3 as planes
+
+
 def _launch_s(g_rel, w_eff, proj, scale, group_idx, b1, w2, b2, w3, b3) -> torch.Tensor:
     """Check kernel S's operands and launch it -> out [M, S, C3]: the exact instantiation
     with ``proj`` [M, N2, C1] f32 or None, or with ``scale`` [M, C1] the int8 one, ``proj``
-    then holding the codes."""
+    then holding the codes. w2 and w3 plain are split here; given as planes they count in
+    ``presplit``."""
     M, S, K, _ = g_rel.shape
-    C1, C2, C3 = w_eff.shape[2], w2.shape[1], w3.shape[1]
-    _check_kernel_shapes(K, C1, C2, C3)
+    (C1, C2), (C2_in, C3) = _dims(w2), _dims(w3)
+    _check_kernel_shapes(K, w_eff.shape[2], C2, C3)
+    given = w2.dim() == 6 and w3.dim() == 6
     g_rel, w_eff = g_rel.contiguous(), w_eff.contiguous()
-    b1, w2, b2, w3, b3 = (t.contiguous() for t in (b1, w2, b2, w3, b3))
+    b1, b2, b3 = (t.contiguous() for t in (b1, b2, b3))
+    w2, w3 = _planes(w2), _planes(w3)
     for name, t, nd in (("g_rel", g_rel, 4), ("w_eff", w_eff, 3), ("b1", b1, 1),
-                        ("w2", w2, 2), ("b2", b2, 1), ("w3", w3, 2), ("b3", b3, 1)):
+                        ("w2", w2, 6), ("b2", b2, 1), ("w3", w3, 6), ("b3", b3, 1)):
         cuda_build.require(t, name, torch.float32, nd,
                            align16=name in ("w_eff", "b1", "w2", "w3"))
-    if w_eff.shape != (M, 3, C1) or w2.shape[0] != C1 or w3.shape[0] != C2:
+    if w_eff.shape != (M, 3, C1) or C2_in != C2:
         raise ValueError("inconsistent layer widths")
     n2, proj_ptr, gidx_ptr = 0, None, None
     if proj is not None:
@@ -197,6 +260,7 @@ def _launch_s(g_rel, w_eff, proj, scale, group_idx, b1, w2, b2, w3, b3) -> torch
         code = cuda_build.function("sa_cached", "pfpp_sa_cached_int8")(
             g_rel.data_ptr(), w_eff.data_ptr(), proj_ptr, scale.data_ptr(), *tail)
     cuda_build.check(code, "sa_stage_fused_cached" if scale is None else "sa_stage_cached_int8")
+    presplit.launches += given
     return out
 
 
@@ -242,12 +306,15 @@ def sa_stage_fused(pts_cat: torch.Tensor, fps_idx: torch.Tensor, group_idx: torc
         raise ValueError("inconsistent layer widths")
     if fidx.shape != (M, S) or gidx.shape != (M, S, K) or fidx.device != pts_cat.device:
         raise ValueError("fps_idx / group_idx do not match pts_cat")
+    w1f = tf32_planes(w1[3:]) if Cin > 3 else None
+    w2p, w3p = tf32_planes(w2), tf32_planes(w3)
     out = torch.empty((M, S, C3), dtype=torch.float32, device=pts_cat.device)
     cuda_build.check(
         cuda_build.library("sa_raw").pfpp_sa_raw(
             pts_cat.data_ptr(), fidx.data_ptr(), gidx.data_ptr(), w1.data_ptr(),
-            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), w3.data_ptr(), b3.data_ptr(),
-            out.data_ptr(), M, N, Cin, S, K, C1, C2, C3, cuda_build.stream_ptr(pts_cat)),
+            None if w1f is None else w1f.data_ptr(), b1.data_ptr(), w2p.data_ptr(),
+            b2.data_ptr(), w3p.data_ptr(), b3.data_ptr(), out.data_ptr(), M, N, Cin, S, K, C1,
+            C2, C3, cuda_build.stream_ptr(pts_cat)),
         "sa_stage_fused",
     )
     sa_stage_fused.launches += 1

@@ -82,15 +82,23 @@ def test_kernels_match_plain_on_card(dev):
 
 
 @pytest.mark.parametrize("S", [25, 7])  # neither a multiple of a block's centres
-@pytest.mark.parametrize("K,D,widths", [
-    (32, 0, (64, 64, 128)),  # SA1: 128-row blocks, no features
-    (64, 128, (128, 128, 256)),  # SA2: 64-row blocks, two an SM; a centre spans two warps
-    (64, 256, (256, 256, 512)),  # SA3: 64-row blocks, one an SM
-    (64, 0, (384, 384, 64)),  # 64-row blocks with a 2-stage weight ring
+@pytest.mark.parametrize("K,D,widths,M", [
+    (32, 0, (64, 64, 128), 3),  # SA1: 128-row blocks, two an SM, no features
+    (64, 128, (128, 128, 256), 3),  # SA2: 128-row blocks; a centre spans four warps
+    (64, 256, (256, 256, 512), 3),  # SA3: 128-row blocks, one an SM, h2 in place of h1
+    (64, 0, (384, 384, 64), 3),  # 64-row blocks, h2 beside h1, a weight ring of one tile
+    (64, 128, (128, 128, 256), 8),  # SA2 and SA3 at a b1 and a b8 engine's clouds
+    (64, 128, (128, 128, 256), 160),
+    (64, 256, (256, 256, 512), 8),
+    (64, 256, (256, 256, 512), 160),
 ])
-def test_sa_cached_kernel_matches_plain_on_card(dev, K, D, widths, S):
+def test_sa_cached_kernel_matches_plain_on_card(dev, K, D, widths, S, M):
+    """S given W2 and W3 split beforehand (``tf32_planes``, as the frozen encoder hands
+    them) bit-equal to S splitting the plain weights itself, bit-equal across two launches,
+    and within 1e-4 of the largest output of the plain version; only the launches given
+    planes count as pre-split."""
     g = torch.Generator(device=dev).manual_seed(7)
-    M, N2 = 3, 40
+    N2 = 40
     C1, C2, C3 = widths
     r = lambda *s, scale=1.0: torch.randn(s, generator=g, device=dev) * scale  # noqa: E731
     feats = r(M, N2, D).relu() if D else None
@@ -99,14 +107,19 @@ def test_sa_cached_kernel_matches_plain_on_card(dev, K, D, widths, S):
     args = (r(M, S, K, 3, scale=0.1), r(M, 3, C1, scale=3 ** -0.5), feats, gidx, k1f,
             r(C1, scale=0.1), r(C1, C2, scale=C1 ** -0.5), r(C2, scale=0.1),
             r(C2, C3, scale=C2 ** -0.5), r(C3, scale=0.1))
+    split = list(args)
+    split[6], split[8] = tsa.tf32_planes(args[6]), tsa.tf32_planes(args[8])
     ops.reset_launch_counts()
     out = tsa.sa_stage_fused_cached(*args)
-    again = tsa.sa_stage_fused_cached(*args)
-    assert ops.launch_counts()["S"] == 2
-    assert torch.equal(out, again)  # bit-reproducible
+    pre = tsa.sa_stage_fused_cached(*split)
+    again = tsa.sa_stage_fused_cached(*split)
+    counts = ops.launch_counts()
+    assert (counts["S"], counts["S pre-split"]) == (3, 2)
+    assert torch.equal(pre, out)  # the planes are the wrapper's own split
+    assert torch.equal(pre, again)  # bit-reproducible
     proj = None if feats is None else feats @ k1f
     ref = tsa.sa_stage_plain(args[0], args[1], proj, gidx, *args[5:])
-    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 * ref.abs().max().item())
+    torch.testing.assert_close(pre, ref, rtol=0, atol=1e-4 * ref.abs().max().item())
 
 
 @pytest.mark.parametrize("S", [25, 7])
@@ -882,3 +895,49 @@ def test_engine_call_with_denoiser_graph_equals_eager(dev, tmp_path):
     assert graphed.keys() == eager.keys()
     for k in graphed:
         np.testing.assert_array_equal(graphed[k], eager[k], err_msg=k)
+
+
+def _encoder_spans(fn):
+    """(fn(), counts of the program's pfpp.encoder.* spans while it ran)."""
+    from puzzlefusion_plusplus_tpu_torch.utils import profiling
+
+    assert not profiling.profiling_on()  # ends the last session
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        profiling.profiling_on()  # starts this one, empty even where fn() opens no span
+        out = fn()
+    return out, {n: v["count"] for n, v in profiling.snapshot()["spans"].items()
+                 if n.startswith("pfpp.encoder.")}
+
+
+def test_frozen_encoder_splits_its_weights_once_for_kernel_s(dev, tmp_path):
+    """Building the frozen encoder opens pfpp.encoder.weight_split once, its planes are
+    ``tf32_planes`` of its folded W2 and W3 bit for bit; a b8 engine call opens no split, and
+    every launch of S in it took the planes."""
+    torch.manual_seed(0)
+    vq = VQVAE(32, 16, 25, 64, sa_npoints=(24, 12), sa_nsamples=(8, 8, 8)).to(dev)
+    enc, spans = _encoder_spans(lambda: make_frozen_encoder(vq))
+    assert spans == {"pfpp.encoder.weight_split": 1}
+    for sa in ("sa1", "sa2", "sa3"):
+        (_, _), (w2, _), (w3, _) = enc.w[sa]
+        for got, w in zip(enc.planes[sa], (w2, w3)):
+            assert got.is_cuda and torch.equal(got, tsa.tf32_planes(w))
+    assert make_frozen_encoder(vq, "always").planes == {}
+
+    root = str(tmp_path)
+    generate_dataset(root, num_shapes=8, seed=4, split="val", min_parts=3, max_parts=8,
+                     n_points=96)
+    cfg = R.Config()
+    cfg.data.max_num_part = 8
+    cfg.verifier.max_iters = 2
+    _, den, ver = R.make_models(cfg)
+    engine, spans = _encoder_spans(lambda: R.build_engine_fn(cfg, "cuda",
+                                                             models=(vq, den, ver)))
+    assert spans == {"pfpp.encoder.weight_split": 1}
+    ds = DenoiserDataset(root + "/pc_data/val", mode="test",
+                         matching_data_path=root + "/matching_data", max_num_part=8)
+    batch = next(iter(Loader(ds, 8, shuffle=False, drop_last=False)))
+    ops.reset_launch_counts()
+    out, spans = _encoder_spans(lambda: engine(batch))
+    counts = ops.launch_counts()
+    assert spans == {} and np.isfinite(out["part_acc"]).all()
+    assert counts["S"] > 0 and counts["S pre-split"] == counts["S"]

@@ -20,6 +20,9 @@ Tolerances and why:
   * The 3xTF32 split that S and R run on the tensor cores, emulated in numpy on one
     SA3-width layer: within 1e-5 of float64 (relative to the largest output), where a
     single TF32 product misses the kernels' 1e-4 gate.
+  * The weights' split (``tf32_planes``): bit for bit against a numpy model of the rule
+    written in float64 arithmetic (round to 10 mantissa bits, ties away from zero), on
+    finite values: ties, subnormals, signed zeros; the planes' layout round-trips exactly.
   * normals: ``lax.top_k`` and ``torch.topk`` may order equal kNN distances differently, and
     the two kNN sets come from the expanded-form distances, so normals agree up to sign to
     1e-3 on all but a few percent of points (degenerate neighbourhoods).
@@ -382,7 +385,8 @@ def test_wrappers_use_plain_version_only_on_cpu():
     tga.gather_points_approx(x, idx)
     tga.scatter_add(x[:, :2], idx, 4)
     tsa.sa_quantize(x)
-    assert ops.launch_counts() == {k: 0 for k in [*"SFGNMABRP", "S int8", "S int8 quantize"]}
+    assert ops.launch_counts() == {k: 0 for k in [*"SFGNMABRP", "S int8", "S int8 quantize",
+                                                  "S pre-split"]}
     with pytest.raises(ValueError):
         tsa.sa_quantize(x.to("meta"))
     with pytest.raises(ValueError):
@@ -463,3 +467,73 @@ def test_3xtf32_split_keeps_fp32_accuracy_where_tf32_does_not():
     assert err(single) > 1e-4, err(single)
     assert err(summed) < 1e-5, err(summed)
     assert err(acc) < 1e-5, err(acc)
+
+
+def _tf32_model(x: np.ndarray) -> np.ndarray:
+    """float32 x -> TF32 x in float64 arithmetic: |x| to the nearest multiple of its TF32 ulp
+    (2^(e - 10) for a leading bit 2^e, e at least -126 as float32's subnormals have), ties
+    away from zero, the sign kept (signed zeros too)."""
+    a = np.abs(x.astype(np.float64))
+    lead = np.maximum(np.frexp(a)[1] - 1, -126)
+    ulp = np.ldexp(1.0, lead - 10)
+    return np.copysign(np.floor(a / ulp + 0.5) * ulp, x.astype(np.float64)).astype(np.float32)
+
+
+def _split_cases(case: str) -> np.ndarray:
+    rng = np.random.default_rng(31)
+    if case == "normal":
+        return (rng.standard_normal(256) * 10.0 ** rng.integers(-30, 30, 256)).astype(np.float32)
+    if case == "ties":  # the low 13 bits exactly half an ulp, and one bit either side
+        hi = rng.integers(0x00800000 >> 13, 0x7f000000 >> 13, 256, dtype=np.int64) << 13
+        low = np.resize(np.array([0x1000, 0x0fff, 0x1001, 0x1fff], np.int64), 256)
+        sign = np.resize(np.array([0, 1 << 31], np.int64), 256)
+        return ((hi | low | sign).astype(np.uint32)).view(np.float32)
+    if case == "subnormal":
+        mant = rng.integers(1, 1 << 23, 252, dtype=np.int64)
+        mant[:4] = [0x1000, 0x7ff000, 0x7fffff, 0x0fff]  # a tie, the carry into the normals
+        sign = np.resize(np.array([0, 1 << 31], np.int64), 256)
+        return ((np.concatenate([mant, [1, 2, 0x1001, 0x3000]]) | sign)
+                .astype(np.uint32)).view(np.float32)
+    vals = np.zeros(256, np.float32)  # signed zeros among small and ordinary values
+    vals[1::2] = -0.0
+    vals[::8] = np.float32(1e-40)
+    vals[3::8] = np.float32(-3.5)
+    return vals
+
+
+@pytest.mark.parametrize("case", ["normal", "ties", "subnormal", "signed_zero"])
+def test_tf32_planes_split_by_the_kernels_rule(case):
+    """``tf32_planes`` (the weights' split, once per frozen encoder) against the numpy model:
+    big bit-equal to the model, small = x - big exactly, big + small == x, and each value at
+    its place in the planes' layout [cin/8, 2, cout/8, 2, 8, 4]."""
+    x = _split_cases(case)
+    assert np.all(np.isfinite(x))
+    w = x.reshape(16, 16)
+    planes = tsa.tf32_planes(torch.from_numpy(w.copy())).numpy()
+    assert planes.shape == (2, 2, 2, 2, 8, 4)
+    k, c = np.meshgrid(np.arange(16), np.arange(16), indexing="ij")
+    at = lambda p: planes[k // 8, p, c // 8, (k % 8) // 4, c % 8, k % 4]  # noqa: E731
+    big, small = at(0), at(1)
+    model = _tf32_model(w)
+    assert np.array_equal(big.view(np.uint32), model.view(np.uint32))
+    assert np.array_equal((big.view(np.uint32) & 0x1fff), np.zeros_like(big, np.uint32))
+    assert np.array_equal(small.view(np.uint32), (w - model).view(np.uint32))
+    assert np.array_equal(big.astype(np.float64) + small, w.astype(np.float64))
+    assert np.array_equal(big + small, w)
+
+
+def test_tf32_planes_round_trip_and_kernel_s_takes_them():
+    """``tf32_join`` gives the weight back bit for bit, and S's wrapper given the planes
+    computes what it computes from the plain weights (its plain version on the CPU)."""
+    rng = np.random.default_rng(32)
+    w = rng.standard_normal((64, 128)).astype(np.float32)
+    planes = tsa.tf32_planes(T(w))
+    assert planes.shape == (8, 2, 16, 2, 8, 4) and planes.is_contiguous()
+    assert np.array_equal(tsa.tf32_join(planes).numpy().view(np.uint32), w.view(np.uint32))
+    M, S, K, N2, D, C1, C2, C3 = 2, 5, 8, 12, 16, 32, 64, 128
+    r = lambda *s: T(rng.standard_normal(s).astype(np.float32))  # noqa: E731
+    args = [r(M, S, K, 3), r(M, 3, C1), r(M, N2, D), T(rng.integers(0, N2, (M, S, K))),
+            r(D, C1), r(C1), r(C1, C2), r(C2), r(C2, C3), r(C3)]
+    split = list(args)
+    split[6], split[8] = tsa.tf32_planes(args[6]), tsa.tf32_planes(args[8])
+    assert torch.equal(tsa.sa_stage_fused_cached(*args), tsa.sa_stage_fused_cached(*split))
