@@ -113,13 +113,9 @@ def _dataset(cfg):
 
 def _bucketed(cfg, batch: dict) -> dict:
     """The batch sliced to its part bucket, as ``run_inference`` slices it."""
-    import numpy as np
+    from puzzlefusion_plusplus_tpu_torch.data.bucketing import slice_to_bucket
 
-    from puzzlefusion_plusplus_tpu_torch.data.bucketing import part_bucket, slice_batch_parts
-
-    P = part_bucket(int(np.max(batch["num_parts"])), cfg.inference.part_bucket_multiple,
-                    cap=cfg.data.max_num_part)
-    return slice_batch_parts(batch, P)
+    return slice_to_bucket(batch, cfg.inference.part_bucket_multiple, cfg.data.max_num_part)
 
 
 def _device_name(device) -> str:
@@ -174,7 +170,7 @@ def measure(cfg, device, data_dir: str, batch: int = 8, repeats: int = 3,
 
     cfg = with_data(cfg, data_dir)
     b = next(iter(Loader(_dataset(cfg), batch, shuffle=False, drop_last=False, seed=0)))
-    if bucket and cfg.inference.part_bucket_multiple:
+    if bucket:
         b = _bucketed(cfg, b)
     sample = {k: np.asarray(b[k][:batch]) for k in SAMPLE_KEYS}
     n, P = sample["part_valids"].shape
@@ -202,7 +198,7 @@ def measure_serving(cfg, device, data_dir: str, batch: int = 8, repeats: int = 3
     order = np.argsort(ds.num_parts_list(), kind="stable") if mult else None
     samples = []
     for b in Loader(ds, batch, shuffle=False, drop_last=False, seed=0, order=order):
-        b = _bucketed(cfg, b) if mult else b
+        b = _bucketed(cfg, b)
         samples.append({k: np.asarray(b[k]) for k in SAMPLE_KEYS})
     pads = sorted({s["part_valids"].shape for s in samples})
     engine = build_engine_fn(cfg, device, models=models)

@@ -1,7 +1,7 @@
 """Part-count shape bucketing: serve each batch at the smallest part pad that fits it.
 
 A copy of ``puzzlefusion_plusplus_tpu/data/bucketing.py`` (numpy only), kept so that the port
-imports nothing from the JAX package.
+imports nothing from the JAX package, and the steps the port's callers share.
 
 The engine (inference/engine.py) derives every static shape from its input arrays and the
 model parameters are part-count independent (the denoiser slices its sinusoidal table to P,
@@ -24,7 +24,11 @@ sequence-length bucketing in production transformer serving; the reference has n
 
 from __future__ import annotations
 
+from typing import Callable
+
 import numpy as np
+
+from puzzlefusion_plusplus_tpu_torch.data.loader import Loader
 
 # keys with a part axis right after the batch axis: [B, P, ...]
 PART_KEYS = (
@@ -82,3 +86,36 @@ def slice_batch_parts(batch: dict, P_b: int) -> dict:
         if k in out and out[k].shape[1] > E_b:
             out[k] = out[k][:, :E_b]
     return out
+
+
+def bucket_keys(ds, multiple: int, cap: int = 20) -> list[int] | None:
+    """The part bucket of each shape of ``ds``, a ``Loader``'s ``bucket_key`` (its batches
+    never mix buckets); None without bucketing (``multiple`` 0)."""
+    if not multiple:
+        return None
+    return [part_bucket(int(c), multiple, cap=cap) for c in ds.num_parts_list()]
+
+
+def slice_to_bucket(batch: dict, multiple: int, cap: int = 20) -> dict:
+    """``batch`` sliced to the bucket of its largest shape; unchanged without bucketing
+    (``multiple`` 0)."""
+    if not multiple:
+        return batch
+    return slice_batch_parts(batch, part_bucket(int(np.max(batch["num_parts"])), multiple,
+                                                cap=cap))
+
+
+def bucketed_loaders(train_ds, val_ds, data, seed: int, rows: Callable[[dict, bool], dict]):
+    """A trainer's (train loader, val loader, prepare) under ``data.part_bucket_multiple``:
+    ``prepare(batch, pad=False)`` slices a global batch to its bucket's pad (so every rank
+    runs the same shapes) before ``rows(batch, pad)`` takes this rank's rows."""
+    mult, cap = data.part_bucket_multiple, data.max_num_part
+
+    def prepare(batch: dict, pad: bool = False) -> dict:
+        return rows(slice_to_bucket(batch, mult, cap), pad)
+
+    return (Loader(train_ds, data.batch_size, seed=seed,
+                   bucket_key=bucket_keys(train_ds, mult, cap)),
+            Loader(val_ds, data.val_batch_size, shuffle=False, drop_last=False, seed=seed,
+                   bucket_key=bucket_keys(val_ds, mult, cap)),
+            prepare)

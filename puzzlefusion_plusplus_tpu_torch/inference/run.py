@@ -33,7 +33,7 @@ import sys
 import numpy as np
 import torch
 
-from puzzlefusion_plusplus_tpu_torch.data.bucketing import part_bucket, slice_batch_parts
+from puzzlefusion_plusplus_tpu_torch.data.bucketing import slice_to_bucket
 from puzzlefusion_plusplus_tpu_torch.data.datasets import DenoiserDataset
 from puzzlefusion_plusplus_tpu_torch.data.loader import Loader
 from puzzlefusion_plusplus_tpu_torch.inference.engine import (
@@ -232,10 +232,7 @@ def run_inference(cfg: Config, device=None, max_batches: int | None = None,
     for bi, batch in enumerate(loader):
         if max_batches is not None and bi >= max_batches:
             break
-        if bucket_mult:
-            P_b = part_bucket(int(np.max(batch["num_parts"])), bucket_mult,
-                              cap=cfg.data.max_num_part)
-            batch = slice_batch_parts(batch, P_b)
+        batch = slice_to_bucket(batch, bucket_mult, cfg.data.max_num_part)
         sample = {k: np.asarray(batch[k]) for k in SAMPLE_KEYS}
         n_real, P = sample["part_valids"].shape
         # the real rows' noise, as one process draws it; the padding rows repeat row 0's

@@ -35,7 +35,7 @@ import sys
 import numpy as np
 import torch
 
-from puzzlefusion_plusplus_tpu_torch.data.loader import Loader, prefetch_batches
+from puzzlefusion_plusplus_tpu_torch.data.loader import Loader
 from puzzlefusion_plusplus_tpu_torch.inference.run import resolve_device
 from puzzlefusion_plusplus_tpu_torch.matching import ops as mops
 from puzzlefusion_plusplus_tpu_torch.matching.dataset import AllPieceMatchingDataset
@@ -47,15 +47,9 @@ from puzzlefusion_plusplus_tpu_torch.matching.model import (
     permutation_loss,
     rigid_loss_pairs,
 )
-from puzzlefusion_plusplus_tpu_torch.parallel import launch, mesh
-from puzzlefusion_plusplus_tpu_torch.training.state import (
-    MetricsLogger,
-    TopKCheckpointer,
-    TrainState,
-    adam_cosine,
-    maybe_restore,
-    save_checkpoint,
-)
+from puzzlefusion_plusplus_tpu_torch.parallel import mesh
+from puzzlefusion_plusplus_tpu_torch.training import loop
+from puzzlefusion_plusplus_tpu_torch.training.state import TrainState, adam_cosine
 from puzzlefusion_plusplus_tpu_torch.training.verifier import binary_cls_metrics
 from puzzlefusion_plusplus_tpu_torch.training.vqvae import local_rows, to_device
 from puzzlefusion_plusplus_tpu_torch.utils import profiling
@@ -161,12 +155,6 @@ def eval_step(model: JigsawModel, batch: dict) -> dict:
             "mat_f1": 2 * precision * recall / (precision + recall + eps)}
 
 
-def _whole(batch: dict, device) -> dict:
-    """A loader batch on ``device``, every row (a replicated validation batch)."""
-    return to_device({k: v for k, v in batch.items()
-                      if isinstance(v, np.ndarray) and v.dtype != object}, device)
-
-
 def _setup(data_dir, num_points, max_num_part, batch_size, seed, val_data_dir, model,
            epochs, lr, device):
     """-> (train loader, val loader or None, state at its seeded init or ``model``'s)."""
@@ -193,11 +181,9 @@ def train_matching(data_dir: str, out_dir: str = "output/matching", epochs: int 
                    val_every: int = 50, top_k: int = 10, cls_pos_weight: float = 1.0,
                    num_devices: int = 1, log_every: int = 20, device=None,
                    join_timeout_s: float | None = None) -> TrainState:
-    """Train ``model`` (default: ``make_model()`` drawn from ``seed``) and return its state;
-    ``max_steps`` stops early with a checkpoint. Runs on ``cuda`` unless ``device="cpu"``,
-    on ``num_devices`` processes (``parallel/mesh.py::world_size``; -1 every visible card):
-    above one the ranks are spawned (``join_timeout_s`` bounds them) and the state of the
-    last checkpoint they wrote comes back. A producer thread builds the next batch."""
+    """Train ``model`` (default: ``make_model()`` drawn from ``seed``) through
+    ``training/loop.py`` and return its state. Runs on ``cuda`` unless ``device="cpu"``, on
+    ``num_devices`` processes (``parallel/mesh.py::world_size``; -1 every visible card)."""
     device = resolve_device(device)
     kw = dict(out_dir=out_dir, epochs=epochs, batch_size=batch_size, num_points=num_points,
               lr=lr, mat_epoch=mat_epoch, rig_epoch=rig_epoch, seed=seed,
@@ -205,42 +191,32 @@ def train_matching(data_dir: str, out_dir: str = "output/matching", epochs: int 
               val_data_dir=val_data_dir, val_every=val_every, top_k=top_k,
               cls_pos_weight=cls_pos_weight, num_devices=num_devices, log_every=log_every,
               device=device)
-    spawned = launch.entry(launch.discard_result,
-                           (functools.partial(train_matching, data_dir, **kw),),
-                           num_devices, device, batch_size, join_timeout_s)
     setup = (data_dir, num_points, max_num_part, batch_size, seed, val_data_dir, model,
              epochs, lr, device)
-    if spawned is not launch.HERE:
-        return maybe_restore(_setup(*setup)[2], f"{out_dir}/ckpt")
+    done = loop.spawned(out_dir, lambda: _setup(*setup)[2],
+                        functools.partial(train_matching, data_dir, **kw), (), num_devices,
+                        device, batch_size, join_timeout_s)
+    if done is not None:
+        return done
     loader, val_loader, state = _setup(*setup)
-    logger = MetricsLogger(out_dir)
-    # top-k on val mat_f1 and auto-resume (the reference train_matching.py:41-49, 77-101)
-    topk = TopKCheckpointer(f"{out_dir}/ckpt", monitor="mat_f1", mode="max", top_k=top_k)
-    state = maybe_restore(state, f"{out_dir}/ckpt")
-    mesh.replicate(state.model)
-    steps_per_epoch = max(len(loader), 1)
-    step = state.step
-    for epoch in range(min(step // steps_per_epoch, epochs), epochs):
+
+    def step_fn(epoch, batch):
         w_mat = 1.0 if epoch >= mat_epoch else 0.0
         w_rig = 1.0 if epoch >= rig_epoch else 0.0
-        for batch in prefetch_batches(loader):
-            metrics = train_step(state, device_batch(batch, device), w_mat, w_rig,
-                                 cls_pos_weight)
-            if step % log_every == 0:
-                logger.log(step, epoch=epoch, **metrics)
-            step += 1
-            if max_steps is not None and step >= max_steps:
-                save_checkpoint(f"{out_dir}/ckpt", state, step)
-                return state
-        if (epoch + 1) % val_every == 0 or epoch + 1 == epochs:
-            if val_loader is not None:
-                accs = [eval_step(state.model, _whole(vb, device)) for vb in val_loader]
-                agg = {k: float(np.mean([a[k] for a in accs])) for k in accs[0]}
-                logger.log(step, epoch=epoch, **{f"val_{k}": v for k, v in agg.items()})
-                topk.save(state, step, agg["mat_f1"])
-            else:
-                save_checkpoint(f"{out_dir}/ckpt", state, step)
-    return state
+        return train_step(state, device_batch(batch, device), w_mat, w_rig, cls_pos_weight)
+
+    def validate():
+        # every rank holds each batch whole, as the JAX trainer replicates them
+        accs = [eval_step(state.model, to_device(vb, device)) for vb in val_loader or ()]
+        if not accs:
+            return None
+        agg = {k: float(np.mean([a[k] for a in accs])) for k in accs[0]}
+        return {f"val_{k}": v for k, v in agg.items()}, agg["mat_f1"]
+
+    # top-k on val mat_f1 and auto-resume (the reference train_matching.py:41-49, 77-101)
+    topk = dict(monitor="mat_f1", mode="max", top_k=top_k)
+    return loop.fit(state, out_dir, loader, epochs, step_fn, validate, topk, val_every,
+                    log_every, max_steps)
 
 
 def main(argv=None):

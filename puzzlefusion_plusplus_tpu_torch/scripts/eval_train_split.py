@@ -20,7 +20,7 @@ import sys
 import numpy as np
 import torch
 
-from puzzlefusion_plusplus_tpu_torch.data.bucketing import part_bucket, slice_batch_parts
+from puzzlefusion_plusplus_tpu_torch.data.bucketing import bucket_keys, slice_to_bucket
 from puzzlefusion_plusplus_tpu_torch.data.datasets import DenoiserDataset
 from puzzlefusion_plusplus_tpu_torch.data.loader import Loader
 from puzzlefusion_plusplus_tpu_torch.inference.run import resolve_device
@@ -52,9 +52,8 @@ def make_sampler(cfg: Config, ckpt: str, device):
 
 def val_loader(ds: DenoiserDataset, batch: int, bucket_mult: int, max_num_part: int) -> Loader:
     """The validation loader over ``ds``: in order, batches within one part bucket."""
-    keys = ([part_bucket(int(c), bucket_mult, cap=max_num_part) for c in ds.num_parts_list()]
-            if bucket_mult else None)
-    return Loader(ds, batch, shuffle=False, drop_last=False, seed=0, bucket_key=keys)
+    return Loader(ds, batch, shuffle=False, drop_last=False, seed=0,
+                  bucket_key=bucket_keys(ds, bucket_mult, max_num_part))
 
 
 def batch_metrics(sample_fn, loader: Loader, bucket_mult: int, max_num_part: int,
@@ -63,10 +62,7 @@ def batch_metrics(sample_fn, loader: Loader, bucket_mult: int, max_num_part: int
     noise comes from ``generator`` in batch order."""
     out = []
     for batch in loader:
-        if bucket_mult:  # 0: no bucketing, every batch at the global pad
-            batch = slice_batch_parts(batch, part_bucket(int(np.max(batch["num_parts"])),
-                                                         bucket_mult, cap=max_num_part))
-        b = to_device(batch, device)
+        b = to_device(slice_to_bucket(batch, bucket_mult, max_num_part), device)
         final, _ = sample_fn(b, generator)
         out.append({k: float(v.float().mean()) for k, v in tden.eval_metrics(final, b).items()})
     return out

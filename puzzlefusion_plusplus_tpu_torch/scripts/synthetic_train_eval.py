@@ -36,7 +36,7 @@ import os
 import sys
 
 from puzzlefusion_plusplus_tpu_torch.data import DenoiserDataset, Loader, generate_dataset
-from puzzlefusion_plusplus_tpu_torch.data.bucketing import part_bucket
+from puzzlefusion_plusplus_tpu_torch.data.bucketing import bucket_keys
 from puzzlefusion_plusplus_tpu_torch.inference.run import resolve_device, run_inference
 from puzzlefusion_plusplus_tpu_torch.scripts import (
     Clock,
@@ -84,9 +84,7 @@ def denoiser_batches(cfg: Config, batch: int) -> int:
     ds = DenoiserDataset(cfg.data.data_dir, mode="train", max_num_part=cfg.data.max_num_part,
                          multiple_ref_parts=cfg.denoiser.multiple_ref_parts,
                          overfit=cfg.data.overfit)
-    mult = cfg.data.part_bucket_multiple
-    keys = ([part_bucket(int(c), mult, cap=cfg.data.max_num_part) for c in ds.num_parts_list()]
-            if mult else None)
+    keys = bucket_keys(ds, cfg.data.part_bucket_multiple, cfg.data.max_num_part)
     return len(Loader(ds, batch, seed=cfg.trainer.seed, bucket_key=keys))
 
 

@@ -38,9 +38,8 @@ import sys
 import numpy as np
 import torch
 
-from puzzlefusion_plusplus_tpu_torch.data.bucketing import part_bucket, slice_batch_parts
+from puzzlefusion_plusplus_tpu_torch.data.bucketing import bucketed_loaders
 from puzzlefusion_plusplus_tpu_torch.data.datasets import DenoiserDataset
-from puzzlefusion_plusplus_tpu_torch.data.loader import Loader, prefetch_batches
 from puzzlefusion_plusplus_tpu_torch.inference.run import resolve_device
 from puzzlefusion_plusplus_tpu_torch.inference.sampler import (
     FrozenEncoder,
@@ -56,15 +55,12 @@ from puzzlefusion_plusplus_tpu_torch.models.scheduler import (
     add_noise,
     leading_timesteps,
 )
-from puzzlefusion_plusplus_tpu_torch.parallel import launch, mesh
+from puzzlefusion_plusplus_tpu_torch.parallel import mesh
+from puzzlefusion_plusplus_tpu_torch.training import loop
 from puzzlefusion_plusplus_tpu_torch.training.state import (
-    MetricsLogger,
-    TopKCheckpointer,
     TrainState,
     adamw_reference,
     load_model_state,
-    maybe_restore,
-    save_checkpoint,
 )
 from puzzlefusion_plusplus_tpu_torch.training.vqvae import local_rows
 from puzzlefusion_plusplus_tpu_torch.training.vqvae import make_model as make_ae_model
@@ -199,26 +195,10 @@ def _setup(cfg: Config, device):
         model = make_model(cfg).to(device)
     kw = dict(max_num_part=cfg.data.max_num_part,
               multiple_ref_parts=cfg.denoiser.multiple_ref_parts, overfit=cfg.data.overfit)
-    train_ds = DenoiserDataset(cfg.data.data_dir, mode="train", **kw)
-    val_ds = DenoiserDataset(cfg.data.data_val_dir, mode="val", **kw)
-    # part-count bucketing: batches never mix buckets and each is sliced to its bucket's
-    # pad (from the global batch, so every rank runs the same shapes); the loss masks the
-    # pad, so training does not depend on it
-    mult, cap = cfg.data.part_bucket_multiple, cfg.data.max_num_part
-
-    def bucket_key(ds):
-        return [part_bucket(int(c), mult, cap=cap) for c in ds.num_parts_list()] if mult else None
-
-    def prepare(batch, pad=False):
-        if mult:
-            batch = slice_batch_parts(
-                batch, part_bucket(int(np.max(batch["num_parts"])), mult, cap=cap))
-        return local_rows(batch, device, pad)
-
-    train_loader = Loader(train_ds, cfg.data.batch_size, seed=cfg.trainer.seed,
-                          bucket_key=bucket_key(train_ds))
-    val_loader = Loader(val_ds, cfg.data.val_batch_size, shuffle=False, drop_last=False,
-                        seed=cfg.trainer.seed, bucket_key=bucket_key(val_ds))
+    train_loader, val_loader, prepare = bucketed_loaders(
+        DenoiserDataset(cfg.data.data_dir, mode="train", **kw),
+        DenoiserDataset(cfg.data.data_val_dir, mode="val", **kw), cfg.data, cfg.trainer.seed,
+        lambda batch, pad: local_rows(batch, device, pad))
     d = cfg.denoiser
     return train_loader, val_loader, prepare, adamw_reference(model, d.lr, d.b1, d.b2,
                                                               d.weight_decay)
@@ -235,17 +215,16 @@ def _global_draws(shape, generator: torch.Generator, steps: int):
 
 def train(cfg: Config, max_steps: int | None = None, device=None,
           join_timeout_s: float | None = None) -> TrainState:
-    """Train from a seeded init (or resume), validating every ``denoiser.val_every`` epochs
-    and keeping the top-k checkpoints by eval part accuracy; ``max_steps`` stops early with
-    a checkpoint. Runs on ``cuda`` unless ``device="cpu"``, in ``trainer.precision``
-    (``models/denoiser.py::compute_dtype``), on ``trainer.num_devices``
-    (``training.vqvae.train`` says how); a producer thread builds the next batch meanwhile."""
+    """Train through ``training/loop.py``, validating every ``denoiser.val_every`` epochs
+    and keeping the top-k checkpoints by eval part accuracy. Runs on ``cuda`` unless
+    ``device="cpu"``, in ``trainer.precision`` (``models/denoiser.py::compute_dtype``), on
+    ``trainer.num_devices`` (as ``training.vqvae.train``)."""
     device = resolve_device(device)
     out_dir = f"{cfg.trainer.output_dir}/{cfg.trainer.experiment_name}/denoiser"
-    spawned = launch.entry(launch.discard_result, (train, cfg, max_steps, device),
-                           cfg.trainer.num_devices, device, cfg.data.batch_size, join_timeout_s)
-    if spawned is not launch.HERE:
-        return maybe_restore(_setup(cfg, device)[3], f"{out_dir}/ckpt")
+    done = loop.spawned(out_dir, lambda: _setup(cfg, device)[3], train, (cfg, max_steps, device),
+                        cfg.trainer.num_devices, device, cfg.data.batch_size, join_timeout_s)
+    if done is not None:
+        return done
     train_loader, val_loader, prepare, state = _setup(cfg, device)
     mesh.seed_ranks(cfg.trainer.seed)  # the ranks' dropout masks differ
     encoder = load_frozen_encoder(cfg, device)
@@ -258,49 +237,38 @@ def train(cfg: Config, max_steps: int | None = None, device=None,
         if d.train_on_inference_timesteps else None
     )
     generator = torch.Generator(device=device).manual_seed(cfg.trainer.seed)
-
-    logger = MetricsLogger(out_dir)
-    # top-3 on eval part accuracy (reference config/denoiser/global_config.yaml:42-50)
-    topk = TopKCheckpointer(f"{out_dir}/ckpt", monitor="eval_part_acc", mode="max",
-                            top_k=cfg.trainer.ckpt_top_k, smooth_k=cfg.trainer.ckpt_smooth_k)
-    state = maybe_restore(state, f"{out_dir}/ckpt", d.ckpt_path)
-    mesh.replicate(state.model)
     rank, world = mesh.rank(), mesh.world()
-    steps_per_epoch = max(len(train_loader), 1)
-    for epoch in range(min(state.step // steps_per_epoch, d.epochs), d.epochs):
-        for batch in prefetch_batches(train_loader):
-            step = state.step
-            local = prepare(batch)
+
+    def step_fn(epoch, batch):
+        local = prepare(batch)
+        b, P = local["part_valids"].shape
+        t, noise = draw_step_noise(ddpm, (b * world, P, 7), generator, timestep_set, device)
+        rows = slice(rank * b, (rank + 1) * b)
+        return train_step(state, local, encoder, ddpm, encode_cached=d.train_encode_cached,
+                          timesteps=t[rows], noise=noise[rows])
+
+    def validate():
+        evals = []
+        for batch in val_loader:
+            # the padded global batch, repeats included, as the JAX trainer computes it
+            local = prepare(batch, pad=True)
             b, P = local["part_valids"].shape
-            t, noise = draw_step_noise(ddpm, (b * world, P, 7), generator, timestep_set,
-                                       device)
+            init, seq = _global_draws((b * world, P, 7), generator, d.num_inference_steps)
             rows = slice(rank * b, (rank + 1) * b)
-            metrics = train_step(state, local, encoder, ddpm, encode_cached=d.train_encode_cached,
-                                 timesteps=t[rows], noise=noise[rows])
-            if step % cfg.trainer.log_every == 0:
-                logger.log(step, epoch=epoch, **metrics)
-            if max_steps is not None and state.step >= max_steps:
-                save_checkpoint(f"{out_dir}/ckpt", state)
-                return state
-        if (epoch + 1) % d.val_every == 0 or epoch + 1 == d.epochs:
-            evals = []
-            for batch in val_loader:
-                # the padded global batch, repeats included, as the JAX trainer computes it
-                local = prepare(batch, pad=True)
-                b, P = local["part_valids"].shape
-                init, seq = _global_draws((b * world, P, 7), generator, d.num_inference_steps)
-                rows = slice(rank * b, (rank + 1) * b)
-                final, _ = sample_fn(local, init=init[rows], noise_seq=seq[:, rows])
-                sums = {k: v.float().sum() for k, v in eval_metrics(final, local).items()}
-                sums = mesh.global_sums({**sums, "count": torch.tensor(float(b), device=device)})
-                evals.append({k: float(sums[k] / sums["count"]) for k in EVAL_KEYS})
-            if evals:
-                agg = {k: float(np.mean([e[k] for e in evals])) for k in EVAL_KEYS}
-                logger.log(state.step, epoch=epoch, **{f"eval_{k}": v for k, v in agg.items()})
-                topk.save(state, state.step, agg["part_acc"])
-            else:
-                save_checkpoint(f"{out_dir}/ckpt", state)
-    return state
+            final, _ = sample_fn(local, init=init[rows], noise_seq=seq[:, rows])
+            sums = {k: v.float().sum() for k, v in eval_metrics(final, local).items()}
+            sums = mesh.global_sums({**sums, "count": torch.tensor(float(b), device=device)})
+            evals.append({k: float(sums[k] / sums["count"]) for k in EVAL_KEYS})
+        if not evals:
+            return None
+        agg = {k: float(np.mean([e[k] for e in evals])) for k in EVAL_KEYS}
+        return {f"eval_{k}": v for k, v in agg.items()}, agg["part_acc"]
+
+    # top-3 on eval part accuracy (reference config/denoiser/global_config.yaml:42-50)
+    topk = dict(monitor="eval_part_acc", mode="max", top_k=cfg.trainer.ckpt_top_k,
+                smooth_k=cfg.trainer.ckpt_smooth_k)
+    return loop.fit(state, out_dir, train_loader, d.epochs, step_fn, validate, topk,
+                    d.val_every, cfg.trainer.log_every, max_steps, d.ckpt_path)
 
 
 def main(argv=None):

@@ -27,18 +27,12 @@ import numpy as np
 import torch
 
 from puzzlefusion_plusplus_tpu_torch.data.datasets import VerifierDataset
-from puzzlefusion_plusplus_tpu_torch.data.loader import Loader, prefetch_batches
+from puzzlefusion_plusplus_tpu_torch.data.loader import Loader
 from puzzlefusion_plusplus_tpu_torch.inference.run import resolve_device
 from puzzlefusion_plusplus_tpu_torch.models.verifier import VerifierTransformer
-from puzzlefusion_plusplus_tpu_torch.parallel import launch, mesh
-from puzzlefusion_plusplus_tpu_torch.training.state import (
-    MetricsLogger,
-    TopKCheckpointer,
-    TrainState,
-    adamw_reference,
-    maybe_restore,
-    save_checkpoint,
-)
+from puzzlefusion_plusplus_tpu_torch.parallel import mesh
+from puzzlefusion_plusplus_tpu_torch.training import loop
+from puzzlefusion_plusplus_tpu_torch.training.state import TrainState, adamw_reference
 from puzzlefusion_plusplus_tpu_torch.training.vqvae import local_rows
 from puzzlefusion_plusplus_tpu_torch.utils.config import Config, config_from_argv
 
@@ -125,47 +119,36 @@ def _setup(cfg: Config, device):
 
 def train(cfg: Config, max_steps: int | None = None, device=None,
           join_timeout_s: float | None = None) -> TrainState:
-    """Train from a seeded init (or resume), validating and keeping the top-k checkpoints by
-    val cls_acc; ``max_steps`` stops early with a checkpoint. Runs on ``cuda`` unless
-    ``device="cpu"``, on ``trainer.num_devices`` (``training.vqvae.train`` says how); a
-    producer thread builds the next batch meanwhile."""
+    """Train through ``training/loop.py``, keeping the top-k checkpoints by val cls_acc.
+    Runs on ``cuda`` unless ``device="cpu"``, on ``trainer.num_devices`` (as
+    ``training.vqvae.train``)."""
     device = resolve_device(device)
     out_dir = f"{cfg.trainer.output_dir}/{cfg.trainer.experiment_name}/verifier"
-    spawned = launch.entry(launch.discard_result, (train, cfg, max_steps, device),
-                           cfg.trainer.num_devices, device, cfg.data.batch_size, join_timeout_s)
-    if spawned is not launch.HERE:
-        return maybe_restore(_setup(cfg, device)[2], f"{out_dir}/ckpt")
+    done = loop.spawned(out_dir, lambda: _setup(cfg, device)[2], train, (cfg, max_steps, device),
+                        cfg.trainer.num_devices, device, cfg.data.batch_size, join_timeout_s)
+    if done is not None:
+        return done
     train_loader, val_loader, state = _setup(cfg, device)
     mesh.seed_ranks(cfg.trainer.seed)  # the ranks' dropout masks differ
     v = cfg.verifier
-    logger = MetricsLogger(out_dir)
+
+    def validate():
+        # the padded global batch, repeats included, as the JAX trainer computes it
+        vals = [{k: float(x) for k, x in eval_step(state, local_rows(b, device, pad=True),
+                                                   v.negative_weight).items()}
+                for b in val_loader]
+        if not vals:
+            return None
+        agg = {f"val_{k}": float(np.mean([r[k] for r in vals])) for k in METRIC_KEYS}
+        return agg, agg["val_cls_acc"]
+
     # top-k on val cls_acc (reference config/verifier/global_config.yaml:41-49)
-    topk = TopKCheckpointer(f"{out_dir}/ckpt", monitor="val_cls_acc", mode="max",
-                            top_k=cfg.trainer.ckpt_top_k)
-    state = maybe_restore(state, f"{out_dir}/ckpt", v.ckpt_path)
-    mesh.replicate(state.model)
-    start_epoch = min(state.step // max(len(train_loader), 1), v.epochs)
-    for epoch in range(start_epoch, v.epochs):
-        for batch in prefetch_batches(train_loader):
-            step = state.step
-            metrics = train_step(state, local_rows(batch, device), v.negative_weight)
-            if step % cfg.trainer.log_every == 0:
-                logger.log(step, epoch=epoch, **metrics)
-            if max_steps is not None and state.step >= max_steps:
-                save_checkpoint(f"{out_dir}/ckpt", state)
-                return state
-        if (epoch + 1) % cfg.trainer.ckpt_every_epochs == 0 or epoch + 1 == v.epochs:
-            # the padded global batch, repeats included, as the JAX trainer computes it
-            vals = [{k: float(x) for k, x in eval_step(state, local_rows(b, device, pad=True),
-                                                       v.negative_weight).items()}
-                    for b in val_loader]
-            if vals:
-                agg = {f"val_{k}": float(np.mean([r[k] for r in vals])) for k in METRIC_KEYS}
-                logger.log(state.step, epoch=epoch, **agg)
-                topk.save(state, state.step, agg["val_cls_acc"])
-            else:
-                save_checkpoint(f"{out_dir}/ckpt", state)
-    return state
+    topk = dict(monitor="val_cls_acc", mode="max", top_k=cfg.trainer.ckpt_top_k)
+    return loop.fit(state, out_dir, train_loader, v.epochs,
+                    lambda epoch, batch: train_step(state, local_rows(batch, device),
+                                                    v.negative_weight),
+                    validate, topk, cfg.trainer.ckpt_every_epochs, cfg.trainer.log_every,
+                    max_steps, v.ckpt_path)
 
 
 def main(argv=None):

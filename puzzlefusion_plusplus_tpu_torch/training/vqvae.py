@@ -21,21 +21,14 @@ import sys
 import numpy as np
 import torch
 
-from puzzlefusion_plusplus_tpu_torch.data.bucketing import part_bucket, slice_batch_parts
+from puzzlefusion_plusplus_tpu_torch.data.bucketing import bucketed_loaders
 from puzzlefusion_plusplus_tpu_torch.data.datasets import VQVAEDataset
-from puzzlefusion_plusplus_tpu_torch.data.loader import Loader, prefetch_batches
 from puzzlefusion_plusplus_tpu_torch.inference.run import resolve_device
 from puzzlefusion_plusplus_tpu_torch.models.vqvae import VQVAE
 from puzzlefusion_plusplus_tpu_torch.ops.chamfer import nn_distance
-from puzzlefusion_plusplus_tpu_torch.parallel import launch, mesh
-from puzzlefusion_plusplus_tpu_torch.training.state import (
-    MetricsLogger,
-    TopKCheckpointer,
-    TrainState,
-    adamw_multistep,
-    maybe_restore,
-    save_checkpoint,
-)
+from puzzlefusion_plusplus_tpu_torch.parallel import mesh
+from puzzlefusion_plusplus_tpu_torch.training import loop
+from puzzlefusion_plusplus_tpu_torch.training.state import TrainState, adamw_multistep
 from puzzlefusion_plusplus_tpu_torch.utils.config import Config, config_from_argv
 from puzzlefusion_plusplus_tpu_torch.utils.masking import compact_parts, compaction_indices
 
@@ -111,28 +104,13 @@ def eval_step(state: TrainState, batch: dict) -> dict:
 
 def _setup(cfg: Config, device):
     """-> (train loader, val loader, prepare, state at its seeded init)."""
-    train_ds = VQVAEDataset(cfg.data.data_dir, cfg.data.max_num_part, cfg.data.min_num_part,
-                            cfg.data.overfit)
-    val_ds = VQVAEDataset(cfg.data.data_val_dir, cfg.data.max_num_part,
-                          cfg.data.min_num_part, cfg.data.overfit)
     # part-count bucketing: compute follows the compacted slot count B*P, and slot masking
     # keeps the loss and the BatchNorm statistics independent of the pad
-    mult, cap = cfg.data.part_bucket_multiple, cfg.data.max_num_part
-
-    def bucket_key(ds):
-        return [part_bucket(int(c), mult, cap=cap) for c in ds.num_parts_list()] if mult else None
-
-    def prepare(batch, pad=False):
-        # the pad comes from the global batch, so every rank runs the same shapes
-        if mult:
-            batch = slice_batch_parts(
-                batch, part_bucket(int(np.max(batch["num_parts"])), mult, cap=cap))
-        return local_rows(batch, device, pad)
-
-    train_loader = Loader(train_ds, cfg.data.batch_size, seed=cfg.trainer.seed,
-                          bucket_key=bucket_key(train_ds))
-    val_loader = Loader(val_ds, cfg.data.val_batch_size, shuffle=False, drop_last=False,
-                        seed=cfg.trainer.seed, bucket_key=bucket_key(val_ds))
+    d = cfg.data
+    train_loader, val_loader, prepare = bucketed_loaders(
+        VQVAEDataset(d.data_dir, d.max_num_part, d.min_num_part, d.overfit),
+        VQVAEDataset(d.data_val_dir, d.max_num_part, d.min_num_part, d.overfit), d,
+        cfg.trainer.seed, lambda batch, pad: local_rows(batch, device, pad))
     steps_per_epoch = max(len(train_loader), 1)
 
     with torch.random.fork_rng(devices=[]):
@@ -146,47 +124,31 @@ def _setup(cfg: Config, device):
 
 def train(cfg: Config, max_steps: int | None = None, device=None,
           join_timeout_s: float | None = None) -> TrainState:
-    """Train from a seeded init (or resume), validating and keeping the top-k checkpoints
-    by val cd_loss every ``trainer.ckpt_every_epochs``; ``max_steps`` stops early with a
-    checkpoint. Runs on ``cuda`` unless ``device="cpu"``, on ``trainer.num_devices``
-    (``parallel/mesh.py::world_size``): above one it spawns the ranks
-    (``parallel/launch.py::entry``; ``join_timeout_s`` bounds their run) and returns the
-    state of the last checkpoint they wrote. A producer thread builds the next batch
-    meanwhile."""
+    """Train through ``training/loop.py``, validating every ``trainer.ckpt_every_epochs``
+    and keeping the top-k checkpoints by val cd_loss. Runs on ``cuda`` unless
+    ``device="cpu"``, on ``trainer.num_devices`` (``parallel/mesh.py::world_size``; above
+    one, ``loop.spawned`` says what comes back)."""
     device = resolve_device(device)
     out_dir = f"{cfg.trainer.output_dir}/{cfg.trainer.experiment_name}/vqvae"
-    spawned = launch.entry(launch.discard_result, (train, cfg, max_steps, device),
-                           cfg.trainer.num_devices, device, cfg.data.batch_size, join_timeout_s)
-    if spawned is not launch.HERE:
-        return maybe_restore(_setup(cfg, device)[3], f"{out_dir}/ckpt")
+    done = loop.spawned(out_dir, lambda: _setup(cfg, device)[3], train, (cfg, max_steps, device),
+                        cfg.trainer.num_devices, device, cfg.data.batch_size, join_timeout_s)
+    if done is not None:
+        return done
     train_loader, val_loader, prepare, state = _setup(cfg, device)
-    steps_per_epoch = max(len(train_loader), 1)
-    logger = MetricsLogger(out_dir)
+
+    def validate():
+        vals = [float(eval_step(state, prepare(b, pad=True))["cd_loss"]) for b in val_loader]
+        if not vals:
+            return None
+        val_cd = float(np.mean(vals))
+        return {"val_cd_loss": val_cd}, val_cd
+
     # top-k on val cd_loss, mode min (reference config/ae/global_config.yaml:42-50)
-    topk = TopKCheckpointer(f"{out_dir}/ckpt", monitor="val_cd_loss", mode="min",
-                            top_k=cfg.trainer.ckpt_top_k)
-    state = maybe_restore(state, f"{out_dir}/ckpt", cfg.ae.ckpt_path)
-    mesh.replicate(state.model)
-    start_epoch = min(state.step // steps_per_epoch, cfg.ae.epochs)
-    for epoch in range(start_epoch, cfg.ae.epochs):
-        for batch in prefetch_batches(train_loader):
-            step = state.step
-            metrics = train_step(state, prepare(batch))
-            if step % cfg.trainer.log_every == 0:
-                logger.log(step, epoch=epoch, **metrics)
-            if max_steps is not None and state.step >= max_steps:
-                save_checkpoint(f"{out_dir}/ckpt", state)
-                return state
-        if (epoch + 1) % cfg.trainer.ckpt_every_epochs == 0 or epoch + 1 == cfg.ae.epochs:
-            vals = [float(eval_step(state, prepare(b, pad=True))["cd_loss"])
-                    for b in val_loader]
-            if vals:
-                val_cd = float(np.mean(vals))
-                logger.log(state.step, epoch=epoch, val_cd_loss=val_cd)
-                topk.save(state, state.step, val_cd)
-            else:
-                save_checkpoint(f"{out_dir}/ckpt", state)
-    return state
+    topk = dict(monitor="val_cd_loss", mode="min", top_k=cfg.trainer.ckpt_top_k)
+    return loop.fit(state, out_dir, train_loader, cfg.ae.epochs,
+                    lambda epoch, batch: train_step(state, prepare(batch)), validate, topk,
+                    cfg.trainer.ckpt_every_epochs, cfg.trainer.log_every, max_steps,
+                    cfg.ae.ckpt_path)
 
 
 def main(argv=None):
