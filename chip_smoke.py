@@ -35,6 +35,15 @@ Phases, each printing one JSON object per line (with its seconds):
  2b. fps_shapes — F and P at every block shape they can take (blocks a cloud, points a
                thread in registers, threads), each bit-equal to the plain version: the ms of
                each beside the shape the wrapper picks (``ops/fps.py::cluster_shape``).
+ 2c. dense_shapes — kernel D (the denoiser's inference linears, ``ops/dense.py``) at each
+               linear's (K, N) and the engine's M (b8: 25 x 8 x 8-20 part pads; b1: 25 x 4-20)
+               at every block shape and split of K: each within 1e-5 of a float64 product
+               (largest error over largest output; cuBLAS fp32's beside it) and bit-equal
+               across two launches, the graph-replayed ms of each beside the shape
+               ``ops/dense.py::tile_shape`` picks, F.linear's fp32 ms (with the GEGLU's
+               h * gelu(gate) where D fuses it) and the plain version's; fails where the
+               picked shape takes over 1.25 x the fastest or longer than F.linear. The kernels
+               phase records D at the picked shapes (path "inference": b8; "engine_b1": b1).
   3. engine  — the full-width engine (``Config()`` defaults: VQ-VAE 1000 pts / 25x64 tokens /
                1024x16 codebook, denoiser 512/6/8, verifier 256/6/8, 6 iterations x 20 steps,
                fp32, batch 8) on 8 synthetic shapes of 3-12 parts (seed 7) through
@@ -243,13 +252,15 @@ REPLACES = {
           "puzzlefusion_plusplus_tpu/ops/sa_fused_pallas.py:123"),
     "P": ("puzzlefusion_plusplus_tpu_torch/csrc/fps.cu",
           "puzzlefusion_plusplus_tpu/ops/fps.py:167"),
+    # D replaces no TPU kernel: the JAX denoiser's Dense layers are XLA's products
+    "D": ("puzzlefusion_plusplus_tpu_torch/csrc/dense.cu", "none (XLA's Dense products)"),
     # S's 'int8' gather mode, and the quantization the JAX package runs outside its kernel
     "S int8": ("puzzlefusion_plusplus_tpu_torch/csrc/sa_cached.cu",
                "puzzlefusion_plusplus_tpu/ops/sa_fused_pallas.py:271"),
     "S int8 quantize": ("puzzlefusion_plusplus_tpu_torch/csrc/sa_cached.cu",
                         "puzzlefusion_plusplus_tpu/ops/sa_fused_pallas.py:317"),
 }
-INFERENCE_KERNELS, TRAIN_KERNELS = "SFGNMP", "FGNAB"
+INFERENCE_KERNELS, TRAIN_KERNELS = "SFGNMPD", "FGNAB"
 MERGE_ONLY_KERNELS = "MP"  # launched only when a merge fires (the merge phase)
 ENCODER_MODE_KERNELS, DENOISER_KERNELS = "RSGA", "SFGNA"
 VERIFIER_GEN_KERNELS, SERVE_KERNELS = "SFGN", "SFGN"
@@ -295,6 +306,117 @@ MAIN_PATH = {"A": "train", "B": "train", "R": "encoder_modes", "S int8": "int8",
 SUMMED = ("S", "R", "A", "B", "S int8", "S int8 quantize")  # one step's shapes, summed
 # the int8 S's other times at each shape, kept in the kernels line's per_shape
 INT8_EXTRA = ("exact_kernel_ms", "stage_ms", "exact_stage_ms")
+
+
+# kernel D's linears, (name, K, N, GEGLU epilogue), at the published width 512, and the M of
+# each engine cell's denoiser (25 tokens a part: b8 at the part pads 8-20, b1 at 4-20)
+DENSE_LINEARS = (("qkv", 512, 1536, False), ("out", 512, 512, False),
+                 ("geglu", 512, 4096, True), ("ff", 2048, 512, False))
+DENSE_M = {"inference": (1600, 2400, 3200, 4000), "engine_b1": (100, 200, 300, 400, 500)}
+# the most that the shape ``ops/dense.py::tile_shape`` picks may take over the sweep's fastest
+# (its cost table's worst over two sweeps was 1.15)
+DENSE_CHOSEN_MARGIN = 1.25
+
+
+def dense_case(gen, M: int, K: int, N: int, geglu: bool) -> dict:
+    """Seeded operands of one D linear, its planes, its float64 reference and cuBLAS fp32's
+    error against it."""
+    import torch
+    import torch.nn.functional as F
+
+    from puzzlefusion_plusplus_tpu_torch.ops import dense
+
+    dev = torch.device("cuda")
+    x = torch.randn((M, K), generator=gen, device=dev)
+    w = torch.randn((N, K), generator=gen, device=dev) * K ** -0.5
+    b = torch.randn((N,), generator=gen, device=dev) * 0.1
+    planes, bias = dense.weight_planes(w, geglu), dense.bias_order(b, geglu)
+
+    def library(x64=False):
+        y = F.linear(x.double(), w.double(), b.double()) if x64 else F.linear(x, w, b)
+        if not geglu:
+            return y
+        h, gate = y.chunk(2, dim=-1)
+        return h * F.gelu(gate)
+    ref = library(True)
+    scale = ref.abs().max().item()
+    return {"x": x, "planes": planes, "bias": bias, "ref": ref, "scale": scale,
+            "library": library,
+            "cublas_rel_err": (library() - ref).abs().max().item() / scale,
+            "flops": 2.0 * M * K * N, "nbytes": 4.0 * (M * K + N * K + N + M * N)}
+
+
+def dense_rows(record) -> None:
+    """D at every linear and M of both engine cells, at the shape ``tile_shape`` picks, through
+    ``record`` (the kernels phase's)."""
+    import torch
+
+    from puzzlefusion_plusplus_tpu_torch.ops import dense
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for path, Ms in DENSE_M.items():
+        for M in Ms:
+            for name, K, N, geglu in DENSE_LINEARS:
+                t0 = time.perf_counter()
+                c = dense_case(gen, M, K, N, geglu)
+                run = lambda: dense.split_linear(c["x"], c["planes"], c["bias"], geglu)  # noqa: E731
+                out = run()
+                rel = (out.double() - c["ref"]).abs().max().item() / c["scale"]
+                _check(rel <= 1e-5, f"D {name} M={M}: relative error {rel}")
+                _check(torch.equal(out, run()), f"D {name} M={M}: two launches differ")
+                record("D", f"{name} M={M} K={K} N={N}", rel * c["scale"], graph_ms(run, 20),
+                       cuda_ms(lambda: dense.split_linear_plain(c["x"], c["planes"], c["bias"],
+                                                                geglu), 3),
+                       c["nbytes"], c["flops"], library_ms=graph_ms(c["library"], 20),
+                       path=path, tensor_cores=True,
+                       computed={"tile": dense.tile_shape(M, N, K)},
+                       rel_err=rel, cublas_rel_err=c["cublas_rel_err"],
+                       seconds=time.perf_counter() - t0)
+
+
+def phase_dense_shapes() -> None:
+    """Kernel D at every block shape and split of K it can take, at every linear and M of
+    ``dense_rows``: one line per shape with the graph-replayed ms of each (each within 1e-5 of
+    the float64 product and bit-equal across two launches), the shape the wrapper picks, and
+    F.linear's fp32 ms. Fails where the picked shape takes more than ``DENSE_CHOSEN_MARGIN``
+    times the fastest, or longer than F.linear."""
+    import torch
+
+    from puzzlefusion_plusplus_tpu_torch.ops import dense
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for path, Ms in DENSE_M.items():
+        for M in Ms:
+            for name, K, N, geglu in DENSE_LINEARS:
+                t0 = time.perf_counter()
+                c = dense_case(gen, M, K, N, geglu)
+                times, errors = {}, {}
+                for bm, bn, split in dense.WAVE_COST:
+                    if N % bn or K % (split * dense.KT):
+                        continue
+                    key = f"bm={bm},bn={bn},split={split}"
+                    run = lambda: dense._launch(c["x"], c["planes"], c["bias"], geglu,  # noqa: E731
+                                                bm, bn, split)
+                    out = run()
+                    errors[key] = (out.double() - c["ref"]).abs().max().item() / c["scale"]
+                    _check(errors[key] <= 1e-5, f"D {name} M={M} {key}: {errors[key]}")
+                    _check(torch.equal(out, run()), f"D {name} M={M} {key}: launches differ")
+                    times[key] = graph_ms(run, 20)
+                chosen = "bm={},bn={},split={}".format(*dense.tile_shape(M, N, K))
+                fastest = min(times, key=times.get)
+                b_ms, _ = bound_3xtf32(c["nbytes"], c["flops"])
+                library_ms = graph_ms(c["library"], 20)
+                _check(times[chosen] <= DENSE_CHOSEN_MARGIN * times[fastest],
+                       f"D {name} M={M}: tile_shape's {chosen} took {times[chosen]} ms, "
+                       f"{fastest} {times[fastest]} ms")
+                _check(times[chosen] <= library_ms,
+                       f"D {name} M={M}: {times[chosen]} ms against F.linear's {library_ms}")
+                emit({"phase": "dense_shapes", "kernel": "D", "path": path,
+                      "shape": f"{name} M={M} K={K} N={N}", "ms_by_shape": times,
+                      "rel_err_by_shape": errors, "cublas_rel_err": c["cublas_rel_err"],
+                      "chosen": chosen, "chosen_ms": times[chosen], "fastest": fastest,
+                      "fastest_ms": times[fastest], "bound_ms": b_ms, "library_ms": library_ms,
+                      "seconds": time.perf_counter() - t0})
 
 
 def matcher_gathers(n: int) -> tuple:
@@ -967,6 +1089,7 @@ def phase_kernels(results: dict) -> None:
                kernel_ms=kernel_ms, kernel_graph_ms=graph_ms(bare, 20), bit_equal=match,
                computed=issue(len(pairs) * N * N, kernel_ms),
                seconds=time.perf_counter() - t0)
+    dense_rows(record)
     torch.cuda.empty_cache()  # the plain versions at M = 1280 held tens of GB
 
 
@@ -1039,7 +1162,7 @@ def phase_engine(data_root: str) -> dict:
     counts = ops.launch_counts()
     vals = [agg[f"eval/{k}"] for k in ("part_acc", "shape_cd", "rmse_r", "rmse_t")]
     _check(all(np.isfinite(vals)), f"non-finite metrics {agg}")
-    _check(all(counts[k] > 0 for k in "SFGN"), f"a kernel never launched: {counts}")
+    _check(all(counts[k] > 0 for k in "SFGND"), f"a kernel never launched: {counts}")
     row = {"phase": "engine", "seconds": time.perf_counter() - t0, "batch": 8,
            "num_samples": agg["num_samples"], "wall_s_per_call": walls,
            "assemblies_per_s": agg["num_samples"] / walls[-1],
@@ -2690,8 +2813,8 @@ def phase_matcher_eval(paths: dict) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,fps_shapes,engine,merge,profile,train,"
-                                        "train_parity,profile_train,encoder_modes,"
+    ap.add_argument("--phases", default="build,kernels,fps_shapes,dense_shapes,engine,merge,"
+                                        "profile,train,train_parity,profile_train,encoder_modes,"
                                         "train_denoiser,denoiser_parity,profile_denoiser,"
                                         "verifier_gen,train_verifier,verifier_parity,serve,"
                                         "train_matching,matching_parity,profile_matching,"
@@ -2722,6 +2845,8 @@ def main() -> int:
         phase_kernels(results)
     if "fps_shapes" in phases:
         phase_fps_shapes()
+    if "dense_shapes" in phases:
+        phase_dense_shapes()
     launches = {}  # per path: the counts of its own run
     data_root = os.path.join(REPO, ".smoke", "chip_smoke_data")
     if {"engine", "merge", "profile", "encoder_modes", "serve", "dp", "bf16",

@@ -26,6 +26,15 @@ On the card, ``DenoiserTransformer.forward`` replays its inference forward from 
 (one a shape of the inputs), so that the engine's denoising loop does not wait on the eager
 dispatch of its few hundred launches a call. The graph runs the same kernels on the same
 parameters as the eager body (``_forward_eager``), which every other call takes.
+
+Where a call is fit for the graph (``_graph_key``) and the model runs in fp32 at a width that
+kernel D takes (``_d_capable``), the encoder layers' linears (the fused q|k|v and the
+out-projection of each attention, the GEGLU projection with its h * gelu(gate), the
+feed-forward's out-projection) run on kernel D (``ops/dense.py``), 3xTF32 on the tensor cores
+at FP32 accuracy, from weights split once into TF32 planes (``SplitWeights``, rebuilt in place
+when a weight changes: ``_refresh_split``). The model decides this once a call and hands the
+layers a ``split`` flag. Every other call, training and bf16 and the CPU included, keeps
+``F.linear`` through the modules.
 """
 
 from __future__ import annotations
@@ -39,7 +48,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.modules import module as nn_module
 
+from puzzlefusion_plusplus_tpu_torch import ops
 from puzzlefusion_plusplus_tpu_torch.models.embeddings import nerf_embed, sinusoidal_table
+from puzzlefusion_plusplus_tpu_torch.ops.dense import SplitWeights
 from puzzlefusion_plusplus_tpu_torch.utils import profiling
 
 NEG_INF = -1e9
@@ -118,7 +129,8 @@ def attention(q, k, v, heads: int, bias, dropout: float = 0.0):
 
 
 class Attention(nn.Module):
-    """diffusers-style attention: biasless q/k/v, biased out-projection ``to_out.0``."""
+    """diffusers-style attention: biasless q/k/v, biased out-projection ``to_out.0``. With
+    ``split``, q, k and v are views of one product of D with the three weights' planes."""
 
     def __init__(self, dim: int, heads: int, dropout: float = 0.0,
                  dtype: torch.dtype | None = None):
@@ -128,20 +140,30 @@ class Attention(nn.Module):
         self.to_k = nn.Linear(dim, dim, bias=False)
         self.to_v = nn.Linear(dim, dim, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(dim, dim), nn.Dropout(dropout)])
+        self._qkv = SplitWeights((self.to_q, self.to_k, self.to_v))
+        self._out = SplitWeights((self.to_out[0],))
 
-    def forward(self, x, bias):
+    def forward(self, x, bias, split: bool = False):
+        if split:
+            q, k, v = self._qkv(x).chunk(3, dim=-1)
+            return self._out(attention(q, k, v, self.heads, bias))
         q, k, v = (dense(x, lin, self.dtype) for lin in (self.to_q, self.to_k, self.to_v))
         out = attention(q, k, v, self.heads, bias)
         return self.to_out[1](dense(out, self.to_out[0], self.dtype, promoted=True))
 
 
 class GEGLU(nn.Module):
+    """h * gelu(gate) of one projection; with ``split`` D's epilogue computes it."""
+
     def __init__(self, dim: int, inner: int, dtype: torch.dtype | None = None):
         super().__init__()
         self.dtype = dtype
         self.proj = nn.Linear(dim, 2 * inner)
+        self._split = SplitWeights((self.proj,), geglu=True)
 
-    def forward(self, x):
+    def forward(self, x, split: bool = False):
+        if split:
+            return self._split(x)
         h, gate = dense(x, self.proj, self.dtype).chunk(2, dim=-1)
         return h * gelu(gate)
 
@@ -153,8 +175,11 @@ class FeedForward(nn.Module):
         self.dtype = dtype
         self.net = nn.ModuleList([GEGLU(dim, dim * mult, dtype), nn.Dropout(dropout),
                                   nn.Linear(dim * mult, dim)])
+        self._split = SplitWeights((self.net[2],))
 
-    def forward(self, x):
+    def forward(self, x, split: bool = False):
+        if split:
+            return self._split(self.net[1](self.net[0](x, split)))
         return dense(self.net[1](self.net[0](x)), self.net[2], self.dtype, promoted=True)
 
 
@@ -171,10 +196,11 @@ class EncoderLayer(nn.Module):
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = FeedForward(dim, dropout=dropout, dtype=dtype)
 
-    def forward(self, x, self_bias, gen_bias, timestep):
-        x = x + self.self_attn(self.norm1(x, timestep), self_bias)
-        x = x + self.global_attn(self.norm2(x, timestep), gen_bias)
-        return x + self.ff(self.norm3(x))
+    def forward(self, x, self_bias, gen_bias, timestep, split: bool = False):
+        """``split``: the linears on kernel D (``DenoiserTransformer._forward_eager``)."""
+        x = x + self.self_attn(self.norm1(x, timestep), self_bias, split)
+        x = x + self.global_attn(self.norm2(x, timestep), gen_bias, split)
+        return x + self.ff(self.norm3(x), split)
 
 
 def _pose_head(dim: int, out: int) -> nn.Sequential:
@@ -216,6 +242,9 @@ class DenoiserTransformer(nn.Module):
         self.register_buffer(
             "pe", torch.from_numpy(sinusoidal_table(max_parts, embed_dim)), persistent=False
         )
+        # kernel D's block shapes need N % 64 == 0 and K % 32 == 0, which every linear of the
+        # layers meets where the width does; bf16 keeps flax's rounding through ``dense``
+        self._d_capable = dtype is None and embed_dim % 64 == 0
         self._drop_graphs()
 
     def forward(self, x, timesteps, latent, xyz, part_valids, scale, ref_part):
@@ -226,11 +255,14 @@ class DenoiserTransformer(nn.Module):
         card, ``eval()``, autograd off, a plain module tree), the first call at a key
         captures ``_forward_eager`` into a CUDA graph (span ``pfpp.denoiser.capture``) and
         every call at it replays the graph on a copy of its inputs (``pfpp.denoiser.replay``)
-        and returns a fresh tensor. Every other call runs ``_forward_eager``."""
+        and returns a fresh tensor; the graph's layers run on kernel D where ``_d_capable``.
+        Every other call runs ``_forward_eager`` without D."""
         args = (x, timesteps, latent, xyz, part_valids, scale, ref_part)
         key = self._graph_key(args)
         if key is None:
-            return self._forward_eager(*args)
+            return self._forward_eager(*args, split=False)
+        if self._d_capable:
+            self._refresh_split()  # the planes a replay reads, before the replay
         g = self._graphs.get(key)
         if g is None:
             with profiling.span("pfpp.denoiser.capture"):
@@ -239,10 +271,20 @@ class DenoiserTransformer(nn.Module):
             for buf, a in zip(g.inputs, args):
                 buf.copy_(a)
             g.graph.replay()
+            for name, n in g.launches:  # the wrappers' launches that the replay ran
+                ops.KERNEL_WRAPPERS[name].launches += n
             return g.output.clone()
 
-    def _forward_eager(self, x, timesteps, latent, xyz, part_valids, scale, ref_part):
-        """The forward, launched op by op (``forward``'s arguments)."""
+    def _forward_eager(self, x, timesteps, latent, xyz, part_valids, scale, ref_part,
+                       split=None):
+        """The forward, launched op by op (``forward``'s arguments). ``split``: the encoder
+        layers' linears on kernel D; by default where ``forward`` would run them there (a call
+        fit for the graph, ``_d_capable``), with the planes brought up to date first."""
+        if split is None:
+            args = (x, timesteps, latent, xyz, part_valids, scale, ref_part)
+            split = self._d_capable and self._graph_key(args) is not None
+            if split:
+                self._refresh_split()
         B, P, L, _ = latent.shape
         C, T = self.embed_dim, P * L
         scale_emb = nerf_embed(scale, self.multires)[:, :, None, :].expand(B, P, L, -1)
@@ -262,7 +304,7 @@ class DenoiserTransformer(nn.Module):
         tok_valid = part_valids.bool().repeat_interleave(L, dim=1)
         gen_bias = torch.where(tok_valid, zero, neg)[:, None, None, :]
         for layer in self.transformer_layers:
-            data = layer(data, self_bias, gen_bias, timesteps)
+            data = layer(data, self_bias, gen_bias, timesteps, split)
 
         out = data.reshape(B, P, L, C).mean(dim=2).float()
         return torch.cat([self._head(self.mlp_out_trans, out), self._head(self.mlp_out_rot, out)],
@@ -270,13 +312,34 @@ class DenoiserTransformer(nn.Module):
 
     def train(self, mode: bool = True):
         """As ``nn.Module.train``; training mode also drops the captured graphs and their
-        memory pool, so that training never holds them."""
+        memory pool and kernel D's weight planes, so that training never holds them."""
         if mode:
             self._drop_graphs()
+            for layer in self.transformer_layers:
+                for split in _splits(layer):
+                    split.drop()
         return super().train(mode)
+
+    def _refresh_split(self) -> None:
+        """Kernel D's weight planes brought up to date with the weights, after ``_graph_key``
+        and never inside a capture: rebuilt in place where only values changed, so that the
+        captured graphs read the new ones. The one watch over the planes' sources: their
+        version counters against the last build's (any in-place update: an optimizer step,
+        ``load_state_dict``); their addresses are ``_graph_key``'s, whose move (``.to()``,
+        ``load_state_dict(assign=True)``, a rebound parameter) drops the graphs and this
+        watch. A write through ``.data`` bumps no version and is not seen."""
+        watch = self._split_watch
+        if watch is not None and [t._version for t in watch[0]] == watch[1]:
+            return
+        splits = [split for layer in self.transformer_layers for split in _splits(layer)]
+        for split in splits:
+            split.build()
+        tensors = [t for split in splits for t in split.sources()]
+        self._split_watch = (tensors, [t._version for t in tensors])
 
     def _drop_graphs(self) -> None:
         self._graphs, self._graph_params, self._graph_pool = {}, None, None
+        self._split_watch = None
 
     def _graph_key(self, args):
         """The key of the CUDA graph that serves a call with these inputs: their shapes and
@@ -339,14 +402,20 @@ class DenoiserTransformer(nn.Module):
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             for _ in range(GRAPH_WARMUP_CALLS):
-                self._forward_eager(*inputs)
+                self._forward_eager(*inputs, split=self._d_capable)
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        before = ops.launch_counts()
         # thread_local: other threads of the process (a loader, NCCL's watchdog) may keep
         # calling CUDA while this one captures
         with torch.cuda.graph(graph, pool=self._graph_pool, capture_error_mode="thread_local"):
-            output = self._forward_eager(*inputs)
-        return _Graph(inputs, graph, output)
+            output = self._forward_eager(*inputs, split=self._d_capable)
+        # the capture records the wrappers' launches and runs none: each replay counts them
+        launches = tuple((name, n - before[name]) for name, n in ops.launch_counts().items()
+                         if n != before[name])
+        for name, n in launches:
+            ops.KERNEL_WRAPPERS[name].launches -= n
+        return _Graph(inputs, graph, output, launches)
 
     def _head(self, head: nn.Sequential, x):
         """A pose head; with a compute dtype its first two layers run in it and the last in
@@ -363,6 +432,13 @@ class _Graph(NamedTuple):
     inputs: tuple
     graph: object  # torch.cuda.CUDAGraph
     output: torch.Tensor
+    launches: tuple  # (wrapper name, launches) that one replay runs (``ops.launch_counts``)
+
+
+def _splits(layer: EncoderLayer) -> tuple:
+    """An encoder layer's ``SplitWeights``."""
+    return (layer.self_attn._qkv, layer.self_attn._out, layer.global_attn._qkv,
+            layer.global_attn._out, layer.ff.net[0]._split, layer.ff._split)
 
 
 def _loaded_dtensor_type():

@@ -14,14 +14,26 @@ kernel (counting the launch in ``<wrapper>.launches``) on CUDA tensors.
 | P | ``fps.farthest_point_sample_per_cloud`` (the engine's merge resample) | ``csrc/fps.cu`` |
 | S int8 | ``sa_fused.sa_stage_cached_int8`` (S under ``PFPP_SA_GATHER=int8``, SA2 and SA3) | ``csrc/sa_cached.cu`` |
 | S int8 quantize | ``sa_fused.sa_quantize`` (the codes S int8 gathers) | ``csrc/sa_cached.cu`` |
+| D | ``dense.split_linear`` (the denoiser's inference linears) | ``csrc/dense.cu`` |
 
 "S pre-split" counts the launches of S (either instantiation) that were handed W2 and W3 as
 planes split beforehand (``sa_fused.tf32_planes``; the frozen encoder's), not a kernel.
 
 S and R share their layers 2-3 and max over K (``csrc/sa_common.cuh``); P returns F's indices.
+
+D replaces no TPU kernel: the JAX denoiser's Dense layers go to XLA. It was added because,
+with TF32 off, cuBLAS runs the denoiser's fp32 linears as SIMT FFMA kernels that never touch
+the tensor cores (about two thirds of the b8 engine's step). Bound: 3xTF32, three TF32 MMAs
+a product at 495 TFLOP/s. Design: S's 3xTF32 wgmma passes (``sa_common.cuh``) on weights
+split once into TF32 planes (``dense.SplitWeights``, rebuilt in place when a weight changes);
+a lane loads and splits its own rows of x in registers; a producer warp streams the planes by
+bulk copies; the block shape and a split of K over a thread block cluster follow (M, N, K)
+(``dense.tile_shape``); the epilogue adds the bias and, for the GEGLU projection, applies
+h * gelu(gate).
 """
 
 from puzzlefusion_plusplus_tpu_torch.ops.chamfer import masked_pairwise_nn, nn_distance
+from puzzlefusion_plusplus_tpu_torch.ops.dense import split_linear
 from puzzlefusion_plusplus_tpu_torch.ops.fps import (
     farthest_point_sample,
     farthest_point_sample_per_cloud,
@@ -52,6 +64,7 @@ KERNEL_WRAPPERS = {
     "S int8": sa_stage_cached_int8,
     "S int8 quantize": sa_quantize,
     "S pre-split": presplit,
+    "D": split_linear,
 }
 
 

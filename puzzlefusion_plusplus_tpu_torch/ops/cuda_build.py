@@ -44,6 +44,7 @@ SIGNATURES = {
                   "pfpp_sa_cached_rows": [_I] * 5},
     "sa_raw": {"pfpp_sa_raw": [_P] * 11 + [_I] * 8 + [_P], "pfpp_sa_raw_rows": [_I] * 5},
     "scatter_add": {"pfpp_scatter_add": [_P] * 4 + [_I] * 4 + [_P]},
+    "dense": {"pfpp_dense": [_P] * 4 + [_I] * 7 + [_P]},
 }
 
 _lock = threading.Lock()

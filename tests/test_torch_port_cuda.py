@@ -16,7 +16,9 @@ order on the card, and bit for bit against the CPU's index_add_ and its own seco
 a VQ-VAE and a denoiser training step on the card against the CPU within
 ``training/parity.py``'s tolerances; the denoiser's replayed CUDA graph bit for bit against
 its eager body (the same kernels on the same inputs), and a b8 engine call with it against the
-same call with the eager body."""
+same call with the eager body; kernel D (3xTF32) 1e-5 of the largest output against a float64
+product, bit-equal across two launches, and the denoiser's forward on D 1e-4 of its largest
+pose entry against the same weights through fp32 ``F.linear``."""
 
 import gc
 
@@ -34,10 +36,15 @@ from puzzlefusion_plusplus_tpu_torch.data import (
 from puzzlefusion_plusplus_tpu_torch.inference import run as R
 from puzzlefusion_plusplus_tpu_torch.inference.engine import draw_noise
 from puzzlefusion_plusplus_tpu_torch.inference.sampler import make_frozen_encoder
-from puzzlefusion_plusplus_tpu_torch.models.denoiser import DenoiserTransformer, make_denoiser
+from puzzlefusion_plusplus_tpu_torch.models.denoiser import (
+    GRAPH_WARMUP_CALLS,
+    DenoiserTransformer,
+    make_denoiser,
+)
 from puzzlefusion_plusplus_tpu_torch.models.vqvae import VQVAE
 from puzzlefusion_plusplus_tpu_torch.ops import chamfer as tch
 from puzzlefusion_plusplus_tpu_torch.ops import cuda_build
+from puzzlefusion_plusplus_tpu_torch.ops import dense as tdense
 from puzzlefusion_plusplus_tpu_torch.ops import fps as tfps
 from puzzlefusion_plusplus_tpu_torch.ops import gather as tga
 from puzzlefusion_plusplus_tpu_torch.ops import sa_fused as tsa
@@ -941,3 +948,168 @@ def test_frozen_encoder_splits_its_weights_once_for_kernel_s(dev, tmp_path):
     counts = ops.launch_counts()
     assert spans == {} and np.isfinite(out["part_acc"]).all()
     assert counts["S"] > 0 and counts["S pre-split"] == counts["S"]
+
+
+# ------------------------------------------- kernel D: the denoiser's inference linears
+
+
+# (K, N, GEGLU epilogue) of the denoiser's linears at width 512, and the M of each engine
+# cell's denoiser (25 tokens a part at the b8 pads 8-20 and the b1 pads 4-20)
+DENSE_LINEARS = [(512, 1536, False), (512, 512, False), (512, 4096, True), (2048, 512, False)]
+DENSE_M = [1600, 2400, 3200, 4000, 100, 200, 300, 400, 500]
+
+
+def _dense_case(dev, M, K, N, geglu, seed=0):
+    """x, D's planes and bias, and the float64 product (h * gelu(gate) with ``geglu``)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((M, K), generator=g, device=dev)
+    w = torch.randn((N, K), generator=g, device=dev) * K ** -0.5
+    b = torch.randn((N,), generator=g, device=dev) * 0.1
+
+    def product(x, w, b):
+        y = torch.nn.functional.linear(x, w, b)
+        if not geglu:
+            return y
+        h, gate = y.chunk(2, dim=-1)
+        return h * torch.nn.functional.gelu(gate)
+    return (x, tdense.weight_planes(w, geglu), tdense.bias_order(b, geglu),
+            product(x.double(), w.double(), b.double()), product(x, w, b))
+
+
+@pytest.mark.parametrize("K,N,geglu", DENSE_LINEARS)
+@pytest.mark.parametrize("M", DENSE_M)
+def test_dense_kernel_matches_float64_at_engine_shapes(dev, M, K, N, geglu):
+    x, planes, bias, ref, cublas = _dense_case(dev, M, K, N, geglu)
+    ops.reset_launch_counts()
+    out = tdense.split_linear(x, planes, bias, geglu)
+    scale = ref.abs().max().item()
+    rel = (out.double() - ref).abs().max().item() / scale
+    print(f"D M={M} K={K} N={N}: {rel:.3e} of the largest output; cuBLAS fp32 "
+          f"{(cublas.double() - ref).abs().max().item() / scale:.3e}")
+    assert out.shape == (M, N // 2 if geglu else N)
+    assert rel <= 1e-5
+    assert torch.equal(out, tdense.split_linear(x, planes, bias, geglu))  # no atomics
+    assert ops.launch_counts()["D"] == 2
+
+
+@pytest.mark.parametrize("M,K,N,geglu", [(1600, 2048, 512, False), (500, 512, 4096, True),
+                                         (100, 512, 512, False), (4000, 512, 1536, False)])
+def test_dense_kernel_at_every_block_shape_and_split(dev, M, K, N, geglu):
+    """Every instantiation the wrapper may pick, each against float64 and across launches."""
+    x, planes, bias, ref, _ = _dense_case(dev, M, K, N, geglu, seed=1)
+    ran = 0
+    for bm, bn, split in tdense.WAVE_COST:
+        if N % bn or K % (split * tdense.KT):
+            continue
+        out = tdense._launch(x, planes, bias, geglu, bm, bn, split)
+        rel = (out.double() - ref).abs().max().item() / ref.abs().max().item()
+        assert rel <= 1e-5, (bm, bn, split, rel)
+        assert torch.equal(out, tdense._launch(x, planes, bias, geglu, bm, bn, split))
+        ran += 1
+    assert ran == len(tdense.WAVE_COST)
+
+
+def test_dense_kernel_without_bias_and_refusals(dev):
+    x, planes, _, _, _ = _dense_case(dev, 300, 512, 1536, False, seed=2)
+    w = tdense.weight_join(planes)
+    out = tdense.split_linear(x, planes)
+    ref = torch.nn.functional.linear(x.double(), w.double())
+    assert (out.double() - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    with pytest.raises(ValueError):
+        tdense.split_linear(x[:, :256], planes)
+    with pytest.raises(ValueError):
+        tdense.split_linear(x, planes, geglu=True)  # the GEGLU epilogue needs its bias
+    with pytest.raises(RuntimeError):
+        tdense.split_linear(x.requires_grad_(), planes)
+
+
+def _kernel_names(fn):
+    """The CUDA kernels fn() launched (its device activity under torch.profiler)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def test_denoiser_graph_runs_its_linears_on_kernel_d(dev):
+    """A captured b8 forward launches D 36 times (6 layers: two fused q|k|v, two
+    out-projections, the GEGLU projection, the feed-forward's out-projection), a replay adds
+    those 36 to D's launch count, and a replay runs at least the 60 layer linears' worth fewer
+    fp32 GEMM kernels than the forward through F.linear."""
+    den, cfg = _graph_denoiser(dev)
+    a = _graph_inputs(dev, cfg, 8, 12, 7)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        den(*a)  # warm-up calls and the capture
+    per_forward = ops.launch_counts()["D"] // (GRAPH_WARMUP_CALLS + 1)
+    assert per_forward == 36 and ops.launch_counts()["D"] % (GRAPH_WARMUP_CALLS + 1) == 0
+    with torch.inference_mode():
+        replay = _kernel_names(lambda: den(*a))
+    with torch.enable_grad():  # autograd on: every linear through F.linear
+        plain = _kernel_names(lambda: den._forward_eager(*a))
+    # each replay counts the 36 launches it runs, as the capture's first one did
+    assert ops.launch_counts()["D"] == 36 * (GRAPH_WARMUP_CALLS + 2)
+    assert sum("dense_kernel" in n for n in replay) == 36
+    assert not any("dense_kernel" in n for n in plain)
+    gemm = lambda names: sum("gemm" in n.lower() and "dense_kernel" not in n  # noqa: E731
+                             for n in names)
+    assert gemm(plain) >= 60 and gemm(replay) <= gemm(plain) - 60, (gemm(replay), gemm(plain))
+
+
+def _f_linear_forward(den, a):
+    """The denoiser's forward with every linear through fp32 F.linear (autograd on keeps D
+    out), from the weights as they are now."""
+    with torch.enable_grad():
+        return den._forward_eager(*a).detach()
+
+
+@pytest.mark.parametrize("change", ["in_place", "to", "assign", "in_place_no_grad"])
+def test_denoiser_on_kernel_d_follows_weight_changes(dev, change):
+    """After an in-place update (as an optimizer step), a move away and back, and
+    ``load_state_dict(assign=True)`` of new values, the replayed graph and the eager body
+    both match a fresh F.linear forward of the new weights, not only each other. The planes
+    first built under inference mode are rebuilt under ``no_grad`` too ("in_place_no_grad":
+    as the sampler and verifier-data generation call after the engine)."""
+    den, cfg = _graph_denoiser(dev)
+    a = _graph_inputs(dev, cfg, 8, 16, 8)
+    g = torch.Generator(device=dev).manual_seed(9)
+    with torch.inference_mode():
+        before = den(*a)
+    held = [t.detach() for t in (*den.parameters(), *den.buffers())]
+    if change.startswith("in_place"):
+        with torch.no_grad():
+            for p in den.parameters():
+                p.add_(torch.randn(p.shape, generator=g, device=dev), alpha=1e-2)
+    elif change == "to":
+        den.to("cpu")
+        with torch.no_grad():
+            for p in den.parameters():
+                p.mul_(1.01)
+        den.to(dev)
+    else:
+        sd = {k: v + 1e-2 * torch.randn(v.shape, generator=g, device=dev)
+              if v.is_floating_point() else v.clone() for k, v in den.state_dict().items()}
+        den.load_state_dict(sd, assign=True)
+    with torch.no_grad() if change == "in_place_no_grad" else torch.inference_mode():
+        graphed = den(*a)
+        eager = den._forward_eager(*a)
+    want = _f_linear_forward(den, a)
+    scale = want.abs().max().item()
+    assert (before - want).abs().max().item() > 1e-3 * scale  # the change shows
+    for got in (graphed, eager):
+        assert (got - want).abs().max().item() <= 1e-4 * scale, change
+    assert torch.equal(graphed, eager)
+    del held
+
+
+def test_denoiser_planes_stay_out_of_state_dict_and_train_mode(dev):
+    den, cfg = _graph_denoiser(dev)
+    keys = set(den.state_dict())
+    with torch.inference_mode():
+        den(*_graph_inputs(dev, cfg, 8, 8, 10))
+    layer = den.transformer_layers[0]
+    assert layer.self_attn._qkv.planes is not None and layer.ff._split.planes is not None
+    assert set(den.state_dict()) == keys
+    den.train()
+    assert layer.self_attn._qkv.planes is None and layer.ff.net[0]._split.planes is None

@@ -385,7 +385,7 @@ def test_wrappers_use_plain_version_only_on_cpu():
     tga.gather_points_approx(x, idx)
     tga.scatter_add(x[:, :2], idx, 4)
     tsa.sa_quantize(x)
-    assert ops.launch_counts() == {k: 0 for k in [*"SFGNMABRP", "S int8", "S int8 quantize",
+    assert ops.launch_counts() == {k: 0 for k in [*"SFGNMABRPD", "S int8", "S int8 quantize",
                                                   "S pre-split"]}
     with pytest.raises(ValueError):
         tsa.sa_quantize(x.to("meta"))

@@ -44,7 +44,7 @@ def test_port_imports_no_jax():
         "'utils.sanitize', 'data.meshio', 'data.preprocess', 'data.generate_pc_data', "
         "'renderer', 'renderer.artifacts', 'renderer.blender', 'renderer.matching_vis', "
         "'renderer.pc_renderer', 'renderer.rasterizer', 'inference', 'inference.engine', "
-        "'inference.sampler', 'ops.sa_fused', 'training.loop'}\n"
+        "'inference.sampler', 'ops.sa_fused', 'ops.dense', 'training.loop'}\n"
         "assert {'puzzlefusion_plusplus_tpu_torch.' + m for m in tools} <= set(mods), mods\n"
         "scripts = {'evidence', 'engine_breakdown', 'part_acc_floor', 'overfit_proof', "
         "'synthetic_train_eval', 'eval_train_split', 'rescore_checkpoints', "

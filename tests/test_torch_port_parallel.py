@@ -384,7 +384,7 @@ def test_a_failing_rank_fails_the_launch():
 def test_measured_reads_one_process():
     out = parity.measured(mesh.world, (), calls=2)
     assert out["result"] == 1 and len(out["seconds"]) == 2 and out["peak_bytes"] == [0]
-    assert set(out["launches"]) == {*"SFGNMABRP", "S int8", "S int8 quantize", "S pre-split"}
+    assert set(out["launches"]) == {*"SFGNMABRPD", "S int8", "S int8 quantize", "S pre-split"}
     assert not any(out["launches"].values())
 
 
